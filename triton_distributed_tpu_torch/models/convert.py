@@ -1,0 +1,59 @@
+"""Carry weights across from the JAX package's ``QwenParams``.
+
+The input is the JAX parameter tree after ``jax.tree.map(np.asarray, ...)``,
+read duck-typed (``.embed``, ``.layers[i].ln1``, ``.attn.wqkv``, ...): nothing
+of the JAX package is imported.  At tp = 1 both packages store ``wqkv`` as
+``[q | k | v]`` and ``gate_up`` as ``[gate | up]``, so the tensors carry over
+unchanged.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.platform import resolve_device
+from ..layers.tp_attn import TPAttnParams
+from ..layers.tp_mlp import TPMLPParams
+from .config import ModelConfig
+from .qwen import QwenLayerParams, QwenParams
+
+
+def to_tensor(a, device) -> torch.Tensor | None:
+    """A numpy array (bfloat16 included, which numpy stores as ml_dtypes'
+    2-byte type) as a tensor on ``device``; None stays None."""
+    if a is None:
+        return None
+    a = np.array(a)  # a writable copy: device_get arrays are read-only
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device)
+
+
+def from_jax_params(params, config: ModelConfig, device=None) -> QwenParams:
+    """The port's :class:`QwenParams` holding the same weights as the JAX
+    tree ``params`` (dense layers only)."""
+    dev = resolve_device(device)
+    if config.is_moe:
+        raise NotImplementedError("MoE layers belong to a later slice of the port")
+    if len(params.layers) != config.num_layers:
+        raise ValueError(f"{len(params.layers)} layers in params, config has "
+                         f"{config.num_layers}")
+
+    def t(a):
+        return to_tensor(a, dev)
+
+    layers = [
+        QwenLayerParams(
+            ln1=t(lp.ln1),
+            attn=TPAttnParams(wqkv=t(lp.attn.wqkv), wo=t(lp.attn.wo),
+                              q_norm=t(lp.attn.q_norm), k_norm=t(lp.attn.k_norm)),
+            ln2=t(lp.ln2),
+            mlp=TPMLPParams(gate_up=t(lp.mlp.gate_up), down=t(lp.mlp.down)),
+        )
+        for lp in params.layers
+    ]
+    return QwenParams(embed=t(params.embed), layers=layers,
+                      final_norm=t(params.final_norm), lm_head=t(params.lm_head))
