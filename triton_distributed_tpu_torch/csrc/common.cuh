@@ -33,14 +33,14 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f32(from_f32<T>(x));
 }
 
-// One 16-byte vector load, widened to float.
-__device__ __forceinline__ void load16(const float* __restrict__ p, float* out) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+// 16 bytes of storage, widened to 16 / sizeof(T) floats.
+__device__ __forceinline__ void unpack16(const uint4& u, float* out, float) {
+  const float* f = reinterpret_cast<const float*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) out[i] = f[i];
 }
 
-__device__ __forceinline__ void load16(const bf16* __restrict__ p, float* out) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
+__device__ __forceinline__ void unpack16(const uint4& u, float* out, bf16) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -48,6 +48,12 @@ __device__ __forceinline__ void load16(const bf16* __restrict__ p, float* out) {
     out[2 * i] = f.x;
     out[2 * i + 1] = f.y;
   }
+}
+
+// One 16-byte vector load, widened to float.
+template <typename T>
+__device__ __forceinline__ void load16(const T* __restrict__ p, float* out) {
+  unpack16(*reinterpret_cast<const uint4*>(p), out, T());
 }
 
 }  // namespace tdt

@@ -16,7 +16,8 @@
 //   * one block owns one (batch, kv head) and one split of the sequence, and
 //     reads each K/V row once for all G = H / Hkv query heads of its group
 //     (the GQA reuse);
-//   * each row is read with 16-byte vector loads, D / 8 (bf16) lanes per row;
+//   * each row is read with 16-byte vector loads, D / 8 (bf16) lanes per row,
+//     and each group of lanes keeps four rows of K and V in flight at once;
 //   * Qwen3-8B at B = 4 has 32 (batch, kv head) pairs, so the sequence is cut
 //     into splits sized for about four blocks per SM, and a second small
 //     kernel merges the splits' (m, l, acc) states (the counterpart of
@@ -48,7 +49,8 @@ decode_split(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int E = 16 / sizeof(T);  // elements per 16-byte load
   constexpr int LPR = D / E;         // lanes per kv row
   constexpr int RPW = 32 / LPR;      // kv rows per warp step
-  constexpr int NG = kWarps * RPW;   // kv rows per block step
+  constexpr int NG = kWarps * RPW;   // row groups in the block
+  constexpr int R = 4;               // rows per row group per step
   static_assert(LPR >= 1 && LPR <= 32 && 32 % LPR == 0, "unsupported head dim");
 
   __shared__ float s_acc[kWarps][G][D];
@@ -81,43 +83,66 @@ decode_split(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < E; ++e) acc[h][e] = 0.f;
   }
 
-  // warp-uniform trip count: every lane of a warp runs every shuffle
-  for (int base = start; base < end; base += NG) {
-    const int pos = base + grp;
-    const bool valid = pos < end;
-    float kf[E], vf[E];
-    if (valid) {
-      size_t row;
-      if (PAGED) {
-        const int page = table[b * max_pages + pos / page_size];
-        row = (static_cast<size_t>(page) * Hkv + hk) * page_size + pos % page_size;
-      } else {
-        row = static_cast<size_t>(bk) * capacity + pos;
-      }
-      load16(k + row * D + sub * E, kf);
-      load16(v + row * D + sub * E, vf);
-    } else {
+  // Each row group takes R rows per step, rows base + r * NG + grp, and
+  // issues all 2R of its 16-byte K/V loads before it uses any: the loads of
+  // a step are in flight together, and the softmax state is rescaled once
+  // per step rather than once per row.  The trip count is warp-uniform, so
+  // every lane of a warp runs every shuffle.
+  for (int base = start; base < end; base += NG * R) {
+    uint4 kraw[R], vraw[R];
+    bool valid[R];
 #pragma unroll
-      for (int e = 0; e < E; ++e) kf[e] = vf[e] = 0.f;
+    for (int r = 0; r < R; ++r) {
+      const int pos = base + r * NG + grp;
+      valid[r] = pos < end;
+      kraw[r] = vraw[r] = make_uint4(0u, 0u, 0u, 0u);
+      if (valid[r]) {
+        size_t row;
+        if (PAGED) {
+          const int page = table[b * max_pages + pos / page_size];
+          row = (static_cast<size_t>(page) * Hkv + hk) * page_size + pos % page_size;
+        } else {
+          row = static_cast<size_t>(bk) * capacity + pos;
+        }
+        kraw[r] = *reinterpret_cast<const uint4*>(k + row * D + sub * E);
+        vraw[r] = *reinterpret_cast<const uint4*>(v + row * D + sub * E);
+      }
     }
 #pragma unroll
     for (int h = 0; h < G; ++h) {
-      float s = 0.f;
+      float s[R];
 #pragma unroll
-      for (int e = 0; e < E; ++e) s = fmaf(qv[h][e], kf[e], s);
+      for (int r = 0; r < R; ++r) {
+        float kf[E];
+        unpack16(kraw[r], kf, T());
+        s[r] = 0.f;
 #pragma unroll
-      for (int off = LPR / 2; off > 0; off >>= 1) s += __shfl_xor_sync(kFullMask, s, off);
-      if (valid) {
-        if (soft_cap > 0.f) s = tanhf(s / soft_cap) * soft_cap;
-        const float mn = fmaxf(m[h], s);
-        const float alpha = expf(m[h] - mn);
-        const float p = expf(s - mn);
-        const float pr = round_to<T>(p);
-        l[h] = l[h] * alpha + p;
+        for (int e = 0; e < E; ++e) s[r] = fmaf(qv[h][e], kf[e], s[r]);
 #pragma unroll
-        for (int e = 0; e < E; ++e) acc[h][e] = fmaf(pr, vf[e], acc[h][e] * alpha);
-        m[h] = mn;
+        for (int off = LPR / 2; off > 0; off >>= 1) s[r] += __shfl_xor_sync(kFullMask, s[r], off);
       }
+      float mn = m[h];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (soft_cap > 0.f) s[r] = tanhf(s[r] / soft_cap) * soft_cap;
+        if (valid[r]) mn = fmaxf(mn, s[r]);
+      }
+      const float alpha = expf(m[h] - mn);
+      l[h] *= alpha;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[h][e] *= alpha;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (!valid[r]) continue;
+        const float p = expf(s[r] - mn);
+        const float pr = round_to<T>(p);
+        l[h] += p;
+        float vf[E];
+        unpack16(vraw[r], vf, T());
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[h][e] = fmaf(pr, vf[e], acc[h][e]);
+      }
+      m[h] = mn;
     }
   }
 

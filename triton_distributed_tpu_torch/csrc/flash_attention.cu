@@ -13,11 +13,14 @@
 // about 84 MB of q, k, v and o, so the tensor cores bound it.  The bf16 design
 // keeps both products on the tensor cores: one block owns 64 query rows of one
 // (batch, head), four warps own 16 rows each, and 64-row K/V tiles of the
-// head's kv head are staged in shared memory (rows padded by 8 elements so the
-// fragment reads hit 32 distinct banks).  QK^T and PV are mma.sync
-// m16n8k16 bf16 -> f32; the score fragment is reused in registers as the
-// A operand of the PV product, so no score tile ever goes through memory.
-// Query tiles are launched heaviest-first so the causal tail finishes early.
+// head's kv head stream through shared memory with cp.async, double-buffered
+// so tile j + 1 arrives while tile j is computed (rows padded by 8 elements
+// so the ldmatrix reads hit distinct banks).  QK^T and PV are mma.sync
+// m16n8k16 bf16 -> f32 with the K and V^T fragments read by ldmatrix; the
+// score fragment is reused in registers as the A operand of the PV product,
+// so no score tile ever goes through memory, and exp is exp2 of a scaled
+// argument.  Query tiles are launched heaviest-first so the causal tail
+// finishes early.
 // The f32 storage path is plain scalar FMA: it serves parity checks, not the
 // serving path.
 #include "common.cuh"
@@ -34,10 +37,41 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_raw(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
+
+// 16 bytes global -> shared without passing through registers; when `in` is
+// false nothing is read and the 16 bytes are zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(in ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices from shared memory; lane l gives the address of row
+// l % 8 of matrix l / 8, and register i receives this thread's mma fragment
+// of matrix i (transposed with .trans).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)) : "memory");
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
 
 // d (16x8 f32) += a (16x16 bf16, row-major) * b (16x8 bf16, k-major)
 __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
@@ -62,8 +96,8 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int DT = D / 8;      // 8-column output tiles
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + kBQ * LD;
-  bf16* sV = sK + kBK * LD;
+  bf16* sK = sQ + kBQ * LD;       // two K tiles: [2][kBK][LD]
+  bf16* sV = sK + 2 * kBK * LD;   // two V tiles
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
   const int bh = blockIdx.y;
@@ -117,34 +151,52 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   int n_kt = (Skv + kBK - 1) / kBK;
   if (causal) n_kt = min(n_kt, (q0 + kBQ - 1) / kBK + 1);  // stop at the diagonal
 
-  for (int j = 0; j < n_kt; ++j) {
+  // K/V tile j -> buffer `buf`, asynchronously; rows past Skv are zeros
+  auto load_kv = [&](int j, int buf) {
     const int k0 = j * kBK;
-    __syncthreads();  // every warp is done with the previous tile
     for (int i = tid; i < kBK * CH; i += kThreads) {
       const int r = i / CH, c = (i % CH) * 8;
-      uint4 uk = make_uint4(0u, 0u, 0u, 0u), uv = uk;
-      if (k0 + r < Skv) {
-        const size_t off = static_cast<size_t>(k0 + r) * D + c;
-        uk = *reinterpret_cast<const uint4*>(kp + off);
-        uv = *reinterpret_cast<const uint4*>(vp + off);
-      }
-      *reinterpret_cast<uint4*>(sK + r * LD + c) = uk;
-      *reinterpret_cast<uint4*>(sV + r * LD + c) = uv;
+      const bool in = k0 + r < Skv;
+      const size_t off = static_cast<size_t>(in ? k0 + r : 0) * D + c;
+      cp_async16(sK + (buf * kBK + r) * LD + c, kp + off, in);
+      cp_async16(sV + (buf * kBK + r) * LD + c, vp + off, in);
+    }
+    cp_async_commit();
+  };
+
+  // ldmatrix row addresses of this lane (see ldmatrix_x4): K matrices are
+  // (8 kv rows) x (8 head-dim columns) at column offsets 0, 8, 16, 24; V
+  // matrices are (8 kv rows) x (8 columns) at kv offsets 0, 8 and column
+  // offsets 0, 8
+  const int mrow = lane & 7, mat = lane >> 3;
+  const int k_off = mrow * LD + mat * 8;
+  const int v_off = ((mat & 1) * 8 + mrow) * LD + (mat >> 1) * 8;
+
+  load_kv(0, 0);
+  for (int j = 0; j < n_kt; ++j) {
+    const int k0 = j * kBK;
+    const int buf = j & 1;
+    if (j + 1 < n_kt) {
+      load_kv(j + 1, buf ^ 1);  // in flight while tile j is computed
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const bf16* tK = sK + buf * kBK * LD;
+    const bf16* tV = sV + buf * kBK * LD;
 
     float s[NT][4];
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
+    for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const bf16* kb = sK + (nt * 8 + g) * LD + kk * 16 + 2 * t;
-        uint32_t bb[2];
-        bb[0] = *reinterpret_cast<const uint32_t*>(kb);
-        bb[1] = *reinterpret_cast<const uint32_t*>(kb + 8);
-        mma_bf16(s[nt], qa[kk], bb);
+      for (int kk = 0; kk < KSTEPS; kk += 2) {
+        uint32_t kb[4];  // B fragments of k steps kk and kk + 1
+        ldmatrix_x4(kb, tK + nt * 8 * LD + kk * 16 + k_off);
+        mma_bf16(s[nt], qa[kk], kb);
+        mma_bf16(s[nt], qa[kk + 1], kb + 2);
       }
     }
 
@@ -177,13 +229,15 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     mx1 = fmaxf(mx1, __shfl_xor_sync(kFullMask, mx1, 1));
     mx1 = fmaxf(mx1, __shfl_xor_sync(kFullMask, mx1, 2));
     const bool live0 = mx0 > 0.5f * kNegInf, live1 = mx1 > 0.5f * kNegInf;
+    // exp(x) as exp2(x * log2 e): one multiply and the hardware exp2
+    const float ms0 = mx0 * kLog2e, ms1 = mx1 * kLog2e;
     float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = live0 ? expf(s[nt][0] - mx0) : 0.f;
-      s[nt][1] = live0 ? expf(s[nt][1] - mx0) : 0.f;
-      s[nt][2] = live1 ? expf(s[nt][2] - mx1) : 0.f;
-      s[nt][3] = live1 ? expf(s[nt][3] - mx1) : 0.f;
+      s[nt][0] = live0 ? exp2f(fmaf(s[nt][0], kLog2e, -ms0)) : 0.f;
+      s[nt][1] = live0 ? exp2f(fmaf(s[nt][1], kLog2e, -ms0)) : 0.f;
+      s[nt][2] = live1 ? exp2f(fmaf(s[nt][2], kLog2e, -ms1)) : 0.f;
+      s[nt][3] = live1 ? exp2f(fmaf(s[nt][3], kLog2e, -ms1)) : 0.f;
       rs0 += s[nt][0] + s[nt][1];
       rs1 += s[nt][2] + s[nt][3];
     }
@@ -191,7 +245,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     rs0 += __shfl_xor_sync(kFullMask, rs0, 2);
     rs1 += __shfl_xor_sync(kFullMask, rs1, 1);
     rs1 += __shfl_xor_sync(kFullMask, rs1, 2);
-    const float a0 = expf(m0 - mx0), a1 = expf(m1 - mx1);
+    const float a0 = exp2f((m0 - mx0) * kLog2e), a1 = exp2f((m1 - mx1) * kLog2e);
     l0 = l0 * a0 + rs0;
     l1 = l1 * a1 + rs1;
     m0 = mx0;
@@ -212,14 +266,14 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       pa[2] = pack_bf16(s[2 * ks + 1][0], s[2 * ks + 1][1]);
       pa[3] = pack_bf16(s[2 * ks + 1][2], s[2 * ks + 1][3]);
 #pragma unroll
-      for (int dn = 0; dn < DT; ++dn) {
-        const bf16* vb = sV + (ks * 16 + 2 * t) * LD + dn * 8 + g;
-        uint32_t bb[2];
-        bb[0] = pack_raw(vb[0], vb[LD]);
-        bb[1] = pack_raw(vb[8 * LD], vb[9 * LD]);
-        mma_bf16(acc[dn], pa, bb);
+      for (int dn = 0; dn < DT; dn += 2) {
+        uint32_t vb[4];  // B fragments of output tiles dn and dn + 1
+        ldmatrix_x4_trans(vb, tV + ks * 16 * LD + dn * 8 + v_off);
+        mma_bf16(acc[dn], pa, vb);
+        mma_bf16(acc[dn + 1], pa, vb + 2);
       }
     }
+    __syncthreads();  // every warp is done with `buf` before it is refilled
   }
 
 #pragma unroll
@@ -335,7 +389,8 @@ template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         int B, int H, int Hkv, int Sq, int Skv, int causal,
                         float sm_scale, float soft_cap, cudaStream_t stream) {
-  const int smem = 3 * kBQ * (D + 8) * static_cast<int>(sizeof(bf16));
+  // q tile + two K tiles + two V tiles (kBQ == kBK)
+  const int smem = 5 * kBQ * (D + 8) * static_cast<int>(sizeof(bf16));
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
