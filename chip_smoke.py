@@ -2,8 +2,7 @@
 """Drive the PyTorch/CUDA port (triton_distributed_tpu_torch) on one
 NVIDIA H100 and check it.
 
-    python3 chip_smoke.py            # every phase, needs one Hopper card
-    python3 chip_smoke.py --quick    # device, build and kernel phases only
+    python3 chip_smoke.py            # needs one Hopper card
 
 Phases, each printing JSON lines; any failure exits non-zero:
 
@@ -19,6 +18,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
                batch 4, max_length 2048: three requests of 1024 prompt tokens
                and 64 new tokens on each cache layout; the launch counters must
                rise by 36 per prefill (K1) and 36 per decode step (K2 or K3).
+               Then a torch.profiler trace of one prefill and eight decode
+               steps per layout: wall vs kernel time, idle share, kernel time
+               by class (attention, GEMM, other).
 5. parity   -- full width at 2 layers in f32, batch 2, prompt 128, 8 new
                tokens: the port on the card (kernels) and on the CPU (plain
                versions) from the same weights give the same prefill logits
@@ -30,7 +32,6 @@ The script imports nothing of JAX.
 
 from __future__ import annotations
 
-import argparse
 import dataclasses
 import json
 import sys
@@ -38,7 +39,6 @@ import time
 from pathlib import Path
 
 H100_BF16_FLOPS = 989e12       # dense bf16 tensor-core peak, H100 SXM
-H100_F32_FLOPS = 67e12         # f32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12     # HBM3
 SEED = 0
 BATCH, PROMPT, MAX_LEN, GEN, DECODE_POS = 4, 1024, 2048, 64, 1056
@@ -392,10 +392,6 @@ def phase_parity(tt, torch) -> None:
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--quick", action="store_true",
-                    help="device, build and kernel phases only")
-    args = ap.parse_args()
     here = Path(__file__).resolve().parent
     if not (here / "triton_distributed_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: triton_distributed_tpu_torch/ not found beside the "
@@ -427,14 +423,12 @@ def main() -> int:
         phase_kernel_cases(tt, torch)
         phase = "kernels_main"
         rows = phase_kernels_main(tt, torch)
-        launches = {k: None for k in rows}
-        if not args.quick:
-            phase = "serve"
-            launches = phase_serve(tt, torch)
-            for name, n in launches.items():
-                check(n > 0, f"{name} was not launched on the main path")
-            phase = "parity"
-            phase_parity(tt, torch)
+        phase = "serve"
+        launches = phase_serve(tt, torch)
+        for name, n in launches.items():
+            check(n > 0, f"{name} was not launched on the main path")
+        phase = "parity"
+        phase_parity(tt, torch)
         phase = "report"
         kernels = []
         for name, row in rows.items():

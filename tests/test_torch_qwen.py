@@ -116,3 +116,17 @@ def test_engine_refuses_unserved_modes():
                           generator=torch.Generator().manual_seed(3))
     out = eng.generate(torch.zeros((1, 4), dtype=torch.int32), 3)
     assert out.shape == (1, 3)
+
+
+def test_sample_token_paths():
+    """Greedy is the first maximum; the sampled path draws from the given
+    generator (same seed, same tokens) and never leaves the top-p set."""
+    logits = torch.tensor([[0.0, 3.0, 3.0, -1.0], [5.0, 1.0, 4.9, 0.0]])
+    assert tt.sample_token(logits).tolist() == [1, 0]
+    draws = [tt.sample_token(logits, torch.Generator().manual_seed(7),
+                             temperature=1.0, top_p=0.5) for _ in range(2)]
+    assert torch.equal(draws[0], draws[1]) and draws[0].dtype == torch.int32
+    for seed in range(20):
+        tok = tt.sample_token(logits, torch.Generator().manual_seed(seed),
+                              temperature=0.7, top_p=0.6)
+        assert tok[0] in (1, 2) and tok[1] in (0, 2)

@@ -73,7 +73,7 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def build(verbose: bool = False) -> tuple[Path, str]:
+def build() -> tuple[Path, str]:
     """Compile and link the kernels if this source hash has no library yet.
     Returns (library path, compiler log; empty when the library existed)."""
     out_dir = BUILD_ROOT / source_hash()
@@ -110,8 +110,6 @@ def build(verbose: bool = False) -> tuple[Path, str]:
         os.replace(tmp_lib, lib)  # atomic: a reader never sees half a file
     text = "\n".join(log)
     (out_dir / "nvcc.log").write_text(text)
-    if verbose:
-        print(text)
     return lib, text
 
 

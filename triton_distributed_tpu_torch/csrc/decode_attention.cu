@@ -48,7 +48,7 @@ decode_split(const T* __restrict__ q, const T* __restrict__ k,
              int max_pages, int chunk, float sm_scale, float soft_cap) {
   constexpr int E = 16 / sizeof(T);  // elements per 16-byte load
   constexpr int LPR = D / E;         // lanes per kv row
-  constexpr int RPW = 32 / LPR;      // kv rows per warp step
+  constexpr int RPW = 32 / LPR;      // row groups per warp
   constexpr int NG = kWarps * RPW;   // row groups in the block
   constexpr int R = 4;               // rows per row group per step
   static_assert(LPR >= 1 && LPR <= 32 && 32 % LPR == 0, "unsupported head dim");

@@ -54,7 +54,6 @@ class Engine:
     top_p: float = 1.0
     cache_layout: str = "contiguous"
     page_size: int = 64
-    kv_dtype: str | None = None   # the int8 pool comes in a later slice
 
     def __post_init__(self):
         c = self.model.config
@@ -62,11 +61,8 @@ class Engine:
         if self.cache_layout == "paged":
             self.cache = init_paged_cache(
                 c.num_layers, self.batch, c.num_kv_heads, c.max_length,
-                c.head_dim, c.dtype, page_size=self.page_size, device=dev,
-                kv_dtype=self.kv_dtype)
+                c.head_dim, c.dtype, page_size=self.page_size, device=dev)
         elif self.cache_layout == "contiguous":
-            if self.kv_dtype is not None:
-                raise ValueError("kv_dtype quantization needs cache_layout='paged'")
             self.cache = init_cache(c.num_layers, self.batch, c.num_kv_heads,
                                     c.max_length, c.head_dim, c.dtype,
                                     device=dev)

@@ -207,5 +207,3 @@ class Qwen3(nn.Module):
             x = x + torch.matmul(out.reshape(b, -1), lp.attn.wo)
             x = x + mlp_forward(lp.mlp, rms_norm(x, lp.ln2, c.rms_eps))
         return self._finish(params, x), advance(cache, 1)
-
-    forward = prefill

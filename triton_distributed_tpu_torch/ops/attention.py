@@ -3,16 +3,14 @@ contiguous or a paged KV cache.
 
 Counterpart of ``triton_distributed_tpu/ops/attention.py``, with the same
 signatures and layouts at the public functions.  Each function has a plain
-PyTorch version beside it (``*_ref``) and a hand-written CUDA kernel
-(``csrc/``):
+PyTorch version beside it (``*_ref``) and a hand-written CUDA kernel in
+``csrc/`` that replaces a Pallas kernel of ``ops/attention.py``:
 
-====================== ===================================== ===============
-function               replaces (JAX package)                kernel source
-====================== ===================================== ===============
-flash_attention        ``ops/attention.py::_attn_kernel``     flash_attention.cu
-decode_attention       ``::_decode_fused_kernel``             decode_attention.cu
-paged_decode_attention ``::_paged_decode_kernel``             decode_attention.cu
-====================== ===================================== ===============
+- ``flash_attention``: ``flash_attention.cu``, replacing ``_attn_kernel``;
+- ``decode_attention``: ``decode_attention.cu``, replacing
+  ``_decode_fused_kernel``;
+- ``paged_decode_attention``: ``decode_attention.cu``, replacing
+  ``_paged_decode_kernel``.
 
 A wrapper takes the plain version only for tensors on the CPU.  For CUDA
 tensors it launches its kernel or raises; it never falls back.  Each wrapper
