@@ -19,8 +19,8 @@
 // m16n8k16 bf16 -> f32 with the K and V^T fragments read by ldmatrix; the
 // score fragment is reused in registers as the A operand of the PV product,
 // so no score tile ever goes through memory, and exp is exp2 of a scaled
-// argument.  Query tiles are launched heaviest-first so the causal tail
-// finishes early.
+// argument.  Query tiles are launched heaviest-first across all heads so the
+// causal tail finishes early.
 // The f32 storage path is plain scalar FMA: it serves parity checks, not the
 // serving path.
 #include "common.cuh"
@@ -99,8 +99,10 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* sK = sQ + kBQ * LD;       // two K tiles: [2][kBK][LD]
   bf16* sV = sK + 2 * kBK * LD;   // two V tiles
 
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
-  const int bh = blockIdx.y;
+  // blocks start in x-fastest order: every (batch, head) takes its longest
+  // causal q tile first, so the last wave holds only short tiles
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
   const int hk = h / (H / Hkv);
   const bf16* qp = q + static_cast<size_t>(bh) * Sq * D;
@@ -309,7 +311,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* sK = sQ + kF32BQ * D;                     // [kF32BK][D + 1]
   float* sV = sK + kF32BK * (D + 1);               // [kF32BK][D]
 
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
   const int hk = h / (H / Hkv);
   const float* qp = q + static_cast<size_t>(bh) * Sq * D;
@@ -317,7 +319,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const float* vp = v + static_cast<size_t>(b * Hkv + hk) * Skv * D;
   float* op = o + static_cast<size_t>(bh) * Sq * D;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kF32BQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kF32BQ;
 
   for (int i = tid; i < kF32BQ * D; i += kF32Warps * 32) {
     const int r = i / D, c = i % D;
@@ -394,7 +396,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
+  const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
   flash_fwd_bf16<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), H, Hkv, Sq, Skv,
@@ -411,7 +413,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + kF32BQ - 1) / kF32BQ, B * H);
+  const dim3 grid(B * H, (Sq + kF32BQ - 1) / kF32BQ);
   flash_fwd_f32<D><<<grid, kF32Warps * 32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), H, Hkv, Sq, Skv,
