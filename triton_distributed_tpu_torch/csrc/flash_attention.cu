@@ -14,7 +14,8 @@
 // keeps both products on the tensor cores: one block owns 64 query rows of one
 // (batch, head), four warps own 16 rows each, and 64-row K/V tiles of the
 // head's kv head stream through shared memory with cp.async, double-buffered
-// so tile j + 1 arrives while tile j is computed (rows padded by 8 elements
+// so tile j + 1 arrives while tile j is computed; the q tile is staged in the
+// second K buffer, so three blocks fit on an SM (rows padded by 8 elements
 // so the ldmatrix reads hit distinct banks).  QK^T and PV are mma.sync
 // m16n8k16 bf16 -> f32 with the K and V^T fragments read by ldmatrix; the
 // score fragment is reused in registers as the A operand of the PV product,
@@ -84,7 +85,7 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 3)
 flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, bf16* __restrict__ o, int H,
                int Hkv, int Sq, int Skv, int causal, float sm_scale,
@@ -94,10 +95,12 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int KSTEPS = D / 16; // k steps of the q.k product
   constexpr int NT = kBK / 8;    // 8-column score tiles per kv tile
   constexpr int DT = D / 8;      // 8-column output tiles
+  constexpr int T = kBK * LD;     // one K or V tile, in elements
+  // [K0][V0][K1][V1]; the q tile is staged in K1, which it leaves for
+  // registers before K1 is first filled (kBQ == kBK)
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + kBQ * LD;       // two K tiles: [2][kBK][LD]
-  bf16* sV = sK + 2 * kBK * LD;   // two V tiles
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sQ = smem + 2 * T;
 
   // blocks start in x-fastest order: every (batch, head) takes its longest
   // causal q tile first, so the last wave holds only short tiles
@@ -113,6 +116,20 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int q0 = qt * kBQ;
+
+  // K/V tile j -> buffer `buf`, asynchronously; rows past Skv are zeros
+  auto load_kv = [&](int j, int buf) {
+    const int k0 = j * kBK;
+    for (int i = tid; i < kBK * CH; i += kThreads) {
+      const int r = i / CH, c = (i % CH) * 8;
+      const bool in = k0 + r < Skv;
+      const size_t off = static_cast<size_t>(in ? k0 + r : 0) * D + c;
+      cp_async16(smem + 2 * buf * T + r * LD + c, kp + off, in);
+      cp_async16(smem + (2 * buf + 1) * T + r * LD + c, vp + off, in);
+    }
+    cp_async_commit();
+  };
+  load_kv(0, 0);  // in flight while q is staged
 
   // stage q, scaled in f32 and rounded back to bf16 (the JAX _scaled_q)
   for (int i = tid; i < kBQ * CH; i += kThreads) {
@@ -141,6 +158,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     qa[kk][2] = *reinterpret_cast<const uint32_t*>(base + 8);
     qa[kk][3] = *reinterpret_cast<const uint32_t*>(base + 8 * LD + 8);
   }
+  __syncthreads();  // every warp holds its q fragments before K1 is filled
 
   float acc[DT][4];
 #pragma unroll
@@ -153,19 +171,6 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   int n_kt = (Skv + kBK - 1) / kBK;
   if (causal) n_kt = min(n_kt, (q0 + kBQ - 1) / kBK + 1);  // stop at the diagonal
 
-  // K/V tile j -> buffer `buf`, asynchronously; rows past Skv are zeros
-  auto load_kv = [&](int j, int buf) {
-    const int k0 = j * kBK;
-    for (int i = tid; i < kBK * CH; i += kThreads) {
-      const int r = i / CH, c = (i % CH) * 8;
-      const bool in = k0 + r < Skv;
-      const size_t off = static_cast<size_t>(in ? k0 + r : 0) * D + c;
-      cp_async16(sK + (buf * kBK + r) * LD + c, kp + off, in);
-      cp_async16(sV + (buf * kBK + r) * LD + c, vp + off, in);
-    }
-    cp_async_commit();
-  };
-
   // ldmatrix row addresses of this lane (see ldmatrix_x4): K matrices are
   // (8 kv rows) x (8 head-dim columns) at column offsets 0, 8, 16, 24; V
   // matrices are (8 kv rows) x (8 columns) at kv offsets 0, 8 and column
@@ -174,7 +179,6 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int k_off = mrow * LD + mat * 8;
   const int v_off = ((mat & 1) * 8 + mrow) * LD + (mat >> 1) * 8;
 
-  load_kv(0, 0);
   for (int j = 0; j < n_kt; ++j) {
     const int k0 = j * kBK;
     const int buf = j & 1;
@@ -185,8 +189,8 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* tK = sK + buf * kBK * LD;
-    const bf16* tV = sV + buf * kBK * LD;
+    const bf16* tK = smem + 2 * buf * T;
+    const bf16* tV = smem + (2 * buf + 1) * T;
 
     float s[NT][4];
 #pragma unroll
@@ -391,8 +395,8 @@ template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         int B, int H, int Hkv, int Sq, int Skv, int causal,
                         float sm_scale, float soft_cap, cudaStream_t stream) {
-  // q tile + two K tiles + two V tiles (kBQ == kBK)
-  const int smem = 5 * kBQ * (D + 8) * static_cast<int>(sizeof(bf16));
+  // two K tiles + two V tiles (the q tile is staged in the second K tile)
+  const int smem = 4 * kBK * (D + 8) * static_cast<int>(sizeof(bf16));
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
