@@ -1,4 +1,5 @@
-"""triton_distributed_tpu_torch: the PyTorch/CUDA port of triton_distributed_tpu.
+"""triton_distributed_tpu_torch: the PyTorch/CUDA port of the JAX package
+``triton_distributed_tpu``, for NVIDIA Hopper GPUs.
 
 The JAX package beside it stays the reference; this package imports neither
 JAX nor any module of it.  This slice serves the dense Qwen3 decoder on one
