@@ -81,10 +81,14 @@ def phase_build(tt) -> None:
     t0 = time.perf_counter()
     path, log = build.build()
     lines = [ln.strip() for ln in log.splitlines()]
-    # ptxas -v: one "Used N registers" line per kernel instantiation, and a
-    # spill line that should read 0 bytes
-    spills = [ln for ln in lines if "bytes spill" in ln
-              and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+    # ptxas -v: per kernel instantiation, "Compiling entry function '<name>'",
+    # a spill line that should read 0 bytes, and "Used N registers"
+    spills, entry = [], ""
+    for ln in lines:
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+        elif "bytes spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln:
+            spills.append(f"{entry}: {ln}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": str(path.relative_to(Path(__file__).resolve().parent)),
           "kernels_compiled": sum("Used" in ln and "registers" in ln for ln in lines),
