@@ -10,21 +10,28 @@ Phases, each printing JSON lines; any failure exits non-zero:
                limit as ``nvidia-smi`` prints them.
 2. build    -- nvcc builds the kernels from ``triton_distributed_tpu_torch/csrc``.
 3. kernels  -- each kernel against its plain PyTorch version on the card:
-               small edge cases (f32 and bf16, GQA, soft cap, ragged and empty
-               rows, shuffled page tables), then the Qwen3-8B main-path shapes
-               (B = 4, prompt 1024, cache of 2048), each timed with CUDA events
-               beside its plain version, SDPA and its bound.
+               small edge cases (f32 and bf16, GQA 1-8, soft cap, qk-norm on
+               and off, ragged and empty rows, a position on a page boundary
+               and in the table's last slot, shuffled page tables; for K4 the
+               pools after the append as well), then the Qwen3-8B main-path
+               shapes (B = 4, prompt 1024, cache of 2048, position 1056),
+               each timed with CUDA events beside its plain version, its
+               bound, and SDPA or (K4) the per-kernel chain it replaces.
 4. serve    -- Qwen3-8B at full width and depth with seeded random weights,
-               batch 4, max_length 2048: three requests of 1024 prompt tokens
-               and 64 new tokens on each cache layout; the launch counters must
-               rise by 36 per prefill (K1) and 36 per decode step (K2 or K3).
-               Then a torch.profiler trace of one prefill and eight decode
-               steps per layout: wall vs kernel time, idle share, kernel time
-               by class (attention, GEMM, other).
+               batch 4, max_length 2048: requests of 1024 prompt tokens and 64
+               new tokens in five modes (contiguous, paged, paged + fused,
+               paged + int8, paged + int8 + fused); the launch counters must
+               rise by 36 per prefill (K1) and by 36 per decode step for the
+               mode's decode kernel (K2, K3, K4, K3-int8, K4-int8), and by
+               nothing for any other kernel.  Then a torch.profiler trace of
+               one prefill and eight decode steps per mode: wall vs kernel
+               time, idle share, kernel time by class (attention, GEMM,
+               other).
 5. parity   -- full width at 2 layers in f32, batch 2, prompt 128, 8 new
                tokens: the port on the card (kernels) and on the CPU (plain
-               versions) from the same weights give the same prefill logits
-               within 1e-3 and the same greedy tokens.
+               versions) from the same weights give the same logits within
+               1e-3 (prefill, and every decode step of the fused, int8 and
+               int8 + fused modes) and the same greedy tokens.
 6. the kernels line, the card line, and the result line.
 
 The script imports nothing of JAX.
@@ -34,6 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import sys
 import time
 from pathlib import Path
@@ -41,7 +49,7 @@ from pathlib import Path
 H100_BF16_FLOPS = 989e12       # dense bf16 tensor-core peak, H100 SXM
 H100_BYTES_PER_S = 3.35e12     # HBM3
 SEED = 0
-BATCH, PROMPT, MAX_LEN, GEN, DECODE_POS = 4, 1024, 2048, 64, 1056
+BATCH, PROMPT, MAX_LEN, GEN, DECODE_POS, PAGE = 4, 1024, 2048, 64, 1056, 64
 BF16_TOL = 2e-2   # |kernel - plain|: outputs are O(1); bf16 keeps 8 bits and
                   # p is rounded at different running maxima in the two
 F32_TOL = 1e-4    # summation order only
@@ -83,19 +91,54 @@ def phase_build(tt) -> None:
     lines = [ln.strip() for ln in log.splitlines()]
     # ptxas -v: per kernel instantiation, "Compiling entry function '<name>'",
     # a spill line that should read 0 bytes, and "Used N registers"
-    spills, entry = [], ""
+    spills, entry, spill = [], "", ""
+    per_entry = {}
     for ln in lines:
         if "Compiling entry function" in ln:
             entry = ln.split("'")[1]
-        elif "bytes spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln:
-            spills.append(f"{entry}: {ln}")
+        elif "bytes spill" in ln:
+            spill = ln.split("bytes stack frame, ")[-1]
+            if "0 bytes spill stores, 0 bytes spill loads" not in ln:
+                spills.append(f"{entry}: {ln}")
+        elif "Used " in ln and "registers" in ln:
+            per_entry[entry] = f"{ln.split('Used ')[1].split(',')[0]}; {spill}"
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": str(path.relative_to(Path(__file__).resolve().parent)),
           "kernels_compiled": sum("Used" in ln and "registers" in ln for ln in lines),
           "max_registers": max([int(ln.split("Used ")[1].split()[0])
                                 for ln in lines if "Used " in ln] or [0]),
           "spilling": spills[:8]})
+    # registers and spills of each K4 instantiation and each K3 int8-page
+    # instantiation (storage type `signed char`, mangled `a`)
+    names = demangle(list(per_entry))
+    emit({"phase": "build_new_kernels", "instantiations": [
+        f"{names[e]}: {per_entry[e]}" for e in per_entry
+        if "fused_attn_decode_kernel" in e
+        or re.search(r"decode_splitI(f|13__nv_bfloat16)a", e)]})
     build.library()
+
+
+def demangle(symbols: list[str]) -> dict[str, str]:
+    """C++ names of mangled kernel symbols, through the CUDA toolkit's
+    cu++filt where it is present (else the symbols as they are)."""
+    from triton_distributed_tpu_torch.core import build
+
+    tool = Path(build.find_nvcc()).parent / "cu++filt"
+    if not symbols or not tool.exists():
+        return {s: s for s in symbols}
+    import subprocess
+
+    out = subprocess.run([str(tool), *symbols], capture_output=True, text=True,
+                         timeout=60).stdout.splitlines()
+    if len(out) != len(symbols):
+        return {s: s for s in symbols}
+
+    def short(name):   # "decode_split<float, signed char, 128, 4, 1>"
+        name = re.sub(r"^void |tdt::<unnamed>::|tdt::\(anonymous namespace\)::|"
+                      r"\((int|bool)\)", "", name)
+        return name[:name.index(">(") + 1] if ">(" in name else name
+
+    return {s: short(n) for s, n in zip(symbols, out)}
 
 
 def phase_kernel_cases(tt, torch) -> None:
@@ -160,6 +203,109 @@ def phase_kernel_cases(tt, torch) -> None:
     emit({"phase": "kernel_case", "kernel": "logits_f32", "dtype": str(got.dtype),
           "max_abs_err": err, "tol": 1e-3, "ok": err <= 1e-3})
     check(got.dtype == torch.float32 and err <= 1e-3, "logits_f32 is not f32-accurate")
+
+
+def int8_pools(torch, gen, p, hk, ps, d):
+    """Random int8 K/V codes and positive (P, Hkv) scales on the card."""
+    dev = torch.device("cuda")
+
+    def codes():
+        return torch.randint(-127, 128, (p, hk, ps, d), generator=gen,
+                             device=dev).to(torch.int8)
+
+    def scales():
+        return torch.rand((p, hk), generator=gen, device=dev) * 0.02 + 0.005
+
+    return codes(), codes(), scales(), scales()
+
+
+def written_slots(torch, table, lens, hk, ps, shape):
+    """Bool mask (P, Hkv, ps) of the pool slots a K4 call appends to: page
+    table[b, min(pos // ps, mp - 1)], every head, slot pos % ps."""
+    mask = torch.zeros(shape[:3], dtype=torch.bool, device=table.device)
+    mp = table.shape[1]
+    for b, pos in enumerate(lens.tolist()):
+        mask[int(table[b, min(pos // ps, mp - 1)]), :, pos % ps] = True
+    return mask
+
+
+def phase_fused_cases(tt, torch) -> list:
+    """K3 on int8 pages and K4 (both forms) against their plain versions at
+    small shapes: f32 and bf16, GQA 1/2/4/8, qk-norm on and off, ragged
+    lengths with 0, a position on a page boundary and in the table's last
+    slot, shuffled tables.  K4 is also held to its pools: the appended slots
+    within tolerance and every other slot bit-identical (full precision), or
+    every slot untouched and k_tok/v_tok within tolerance (int8)."""
+    from triton_distributed_tpu_torch.ops import attention as A
+    from triton_distributed_tpu_torch.ops import fused_decode as FD
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+
+    def rnd(*shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def err(a, b):
+        return (a.float() - b.float()).abs().max().item() if a.numel() else 0.0
+
+    results = []
+    hk, ps, mp = 2, 64, 5
+    p = 3 * mp
+    table = torch.randperm(p, generator=torch.Generator().manual_seed(SEED + 6)) \
+        .to(torch.int32).reshape(3, mp).to(dev)
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for g, d in ((1, 128), (2, 64), (4, 128), (8, 128)):
+            h = hk * g
+            # K3 on int8 pages: lengths 0, a page boundary, the whole table
+            lens = torch.tensor([0, 2 * ps, mp * ps], dtype=torch.int32, device=dev)
+            q = rnd(3, h, d, dtype=dtype)
+            pk, pv, ks, vs = int8_pools(torch, gen, p, hk, ps, d)
+            for cap in (0.0, 5.0):
+                got = A.paged_decode_attention(q, pk, pv, table, lens, soft_cap=cap,
+                                               k_scale=ks, v_scale=vs)
+                want = A.paged_decode_attention_ref(q, pk, pv, table, lens, soft_cap=cap,
+                                                    k_scale=ks, v_scale=vs)
+                check(not got[0].any(), "int8 paged decode: a length-0 row is not zeros")
+                results.append(("paged_decode_attention_int8", str(dtype),
+                                (g, d, cap, lens.tolist()), err(got, want), tol))
+            # K4: the new token at 0, on a page boundary, in the last slot
+            k_dim = 256
+            x = rnd(3, k_dim, dtype=dtype)
+            wqkv = rnd(k_dim, (h + 2 * hk) * d, dtype=dtype, scale=k_dim ** -0.5)
+            qn, kn = rnd(d, dtype=dtype, scale=0.2) + 1, rnd(d, dtype=dtype, scale=0.2) + 1
+            lens = torch.tensor([0, ps, mp * ps - 1], dtype=torch.int32, device=dev)
+            for eps in (1e-6, None):
+                base_k, base_v = rnd(p, hk, ps, d, dtype=dtype), rnd(p, hk, ps, d, dtype=dtype)
+                kw = dict(rope_theta=1e6, qk_eps=eps)
+                gk, gv = base_k.clone(), base_v.clone()
+                out, _, _ = FD.fused_attn_decode(x, wqkv, qn, kn, gk, gv, table, lens, **kw)
+                rk, rv = base_k.clone(), base_v.clone()
+                want, _, _ = FD.fused_attn_decode_ref(x, wqkv, qn, kn, rk, rv, table, lens, **kw)
+                slots = written_slots(torch, table, lens, hk, ps, base_k.shape)
+                untouched = all(torch.equal(a[~slots], base[~slots])
+                                for a, base in ((gk, base_k), (gv, base_v)))
+                check(untouched, f"K4 {dtype} g={g}: pool slots outside the append moved")
+                results.append(("fused_attn_decode", str(dtype), (g, d, eps, lens.tolist()),
+                                max(err(out, want), err(gk[slots], rk[slots]),
+                                    err(gv[slots], rv[slots])), tol))
+                qk, qv, ks, vs = int8_pools(torch, gen, p, hk, ps, d)
+                before = (qk.clone(), qv.clone(), ks.clone(), vs.clone())
+                out, _, _, kt, vt = FD.fused_attn_decode(
+                    x, wqkv, qn, kn, qk, qv, table, lens, k_scale=ks, v_scale=vs, **kw)
+                want, _, _, kt_r, vt_r = FD.fused_attn_decode_ref(
+                    x, wqkv, qn, kn, qk, qv, table, lens, k_scale=ks, v_scale=vs, **kw)
+                check(all(torch.equal(a, b) for a, b in zip((qk, qv, ks, vs), before)),
+                      f"K4 int8 {dtype} g={g}: the int8 pools or scales moved")
+                results.append(("fused_attn_decode_int8", str(dtype), (g, d, eps, lens.tolist()),
+                                max(err(out, want), err(kt, kt_r), err(vt, vt_r)), tol))
+    torch.cuda.synchronize()
+    for name, dt, case, e, tol in results:
+        emit({"phase": "kernel_case", "kernel": name, "dtype": dt,
+              "case": [str(c) for c in case], "max_abs_err": e, "tol": tol,
+              "ok": e <= tol})
+    bad = [r for r in results if not r[3] <= r[4]]
+    check(not bad, f"{len(bad)} int8 / fused cases disagree with their plain versions")
+    return results
 
 
 def phase_kernels_main(tt, torch) -> dict:
@@ -241,6 +387,7 @@ def phase_kernels_main(tt, torch) -> dict:
         max_abs_err=err, tol=BF16_TOL, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms,
         shape=f"q ({BATCH},{h},{d}) pool ({BATCH * mp},{hk},{ps},{d}) bf16 seq_lens {DECODE_POS}")
+    rows.update(fused_main_rows(tt, torch, g, qd, table, lens))
     torch.cuda.synchronize()
     for row in rows.values():
         emit({"phase": "kernel_main", **row})
@@ -249,7 +396,124 @@ def phase_kernels_main(tt, torch) -> dict:
     return rows
 
 
-KERNEL_CLASSES = (("attention", ("flash_fwd", "decode_split", "decode_combine")),
+def fused_main_rows(tt, torch, g, qd, table, lens) -> dict:
+    """K3 on int8 pages, and K4 in both forms, at the Qwen3-8B decode shapes
+    (B = 4, position 1056, pages of 64 in a shuffled table).  K4's
+    comparison is the per-kernel chain of the psum step that it replaces
+    (qkv product, qk-norms, RoPE, append, K3); for K3-int8 it is SDPA over a
+    cache dequantized and gathered beforehand (not timed)."""
+    import torch.nn.functional as F
+
+    from triton_distributed_tpu_torch.core.utils import perf_func
+    from triton_distributed_tpu_torch.models import kv_cache as KV
+    from triton_distributed_tpu_torch.ops import attention as A
+    from triton_distributed_tpu_torch.ops import fused_decode as FD
+    from triton_distributed_tpu_torch.ops.rope import apply_rope, rope_freqs
+
+    c = tt.QWEN3_8B
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    h, hk, d, k_dim = c.num_heads, c.num_kv_heads, c.head_dim, c.hidden
+    ps, mp = PAGE, MAX_LEN // PAGE
+    p = BATCH * mp
+    src = "triton_distributed_tpu_torch/csrc/"
+    pages_read = BATCH * -(-DECODE_POS // ps)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(bf)
+
+    def err(*pairs):
+        return max((a.float() - b.float()).abs().max().item() for a, b in pairs)
+
+    rows = {}
+    # K3 on int8 pages
+    ck, cv, ks, vs = int8_pools(torch, g, p, hk, ps, d)
+    scales = dict(k_scale=ks, v_scale=vs)
+    got = A.paged_decode_attention(qd, ck, cv, table, lens, **scales)
+    want = A.paged_decode_attention_ref(qd, ck, cv, table, lens, **scales)
+    _, ms = perf_func(lambda: A.paged_decode_attention(qd, ck, cv, table, lens, **scales),
+                      iters=50)
+    _, plain_ms = perf_func(lambda: A.paged_decode_attention_ref(qd, ck, cv, table, lens,
+                                                                 **scales))
+    dk = KV._dequantize_pages(ck, ks, bf)
+    dv = KV._dequantize_pages(cv, vs, bf)
+    gk = A.gather_pages(dk, table)[0][:, :, :DECODE_POS]
+    gv = A.gather_pages(dv, table)[0][:, :, :DECODE_POS]
+    _, lib_ms = perf_func(lambda: F.scaled_dot_product_attention(
+        qd[:, :, None], gk, gv, enable_gqa=True), iters=50)
+    int8_rows = 2 * BATCH * hk * DECODE_POS * d
+    b_ms, b_by = bound(4 * BATCH * h * DECODE_POS * d,
+                       int8_rows + 2 * pages_read * hk * 4 + nbytes(qd, got, lens)
+                       + BATCH * mp * 4, H100_BF16_FLOPS)
+    rows["paged_decode_attention_int8"] = dict(
+        name="paged_decode_attention_int8", route="cuda",
+        source=src + "decode_attention.cu",
+        replaces="triton_distributed_tpu/ops/attention.py:1096",
+        max_abs_err=err((got, want)), tol=BF16_TOL, ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        shape=f"q ({BATCH},{h},{d}) int8 pool ({p},{hk},{ps},{d}) seq_lens {DECODE_POS}")
+
+    # K4, both forms
+    x = rnd(BATCH, k_dim)
+    wqkv = rnd(k_dim, (h + 2 * hk) * d, scale=0.02)
+    qn, kn = rnd(d, scale=0.1) + 1, rnd(d, scale=0.1) + 1
+    kw = dict(rope_theta=c.rope_theta, qk_eps=c.rms_eps)
+    cos, sin = rope_freqs(lens.float()[:, None, None], d, theta=c.rope_theta)
+
+    def chain(cache):
+        """The psum step's attention side for one layer (no o-proj)."""
+        qkv = torch.matmul(x, wqkv)
+        q_, k_, v_ = qkv.split([h * d, hk * d, hk * d], dim=-1)
+        q_ = tt.rms_norm(q_.reshape(BATCH, h, 1, d), qn, c.rms_eps)
+        k_ = tt.rms_norm(k_.reshape(BATCH, hk, 1, d), kn, c.rms_eps)
+        q_ = apply_rope(q_, cos, sin)[:, :, 0].contiguous()
+        KV.append_token(cache, 0, apply_rope(k_, cos, sin)[:, :, 0],
+                        v_.reshape(BATCH, hk, d))
+        sc = {} if not cache.quantized else dict(k_scale=cache.k_scale[0],
+                                                   v_scale=cache.v_scale[0])
+        return A.paged_decode_attention(q_, cache.k[0], cache.v[0], table, lens + 1, **sc)
+
+    for quant in (False, True):
+        if quant:
+            pk, pv, ks, vs = int8_pools(torch, g, p, hk, ps, d)
+            scales = dict(k_scale=ks, v_scale=vs)
+            name, kv_bytes = "fused_attn_decode_int8", int8_rows + 2 * pages_read * hk * 4
+        else:
+            pk, pv = rnd(p, hk, ps, d), rnd(p, hk, ps, d)
+            scales = {}
+            name, kv_bytes = "fused_attn_decode", 2 * int8_rows
+        args = (x, wqkv, qn, kn)
+        gk, gv = pk.clone(), pv.clone()
+        got = FD.fused_attn_decode(*args, gk, gv, table, lens, **kw, **scales)
+        rk, rv = pk.clone(), pv.clone()
+        want = FD.fused_attn_decode_ref(*args, rk, rv, table, lens, **kw, **scales)
+        pairs = [(got[0], want[0])] + ([(got[3], want[3]), (got[4], want[4])] if quant
+                                       else [(gk, rk), (gv, rv)])
+        e = err(*pairs)
+        _, ms = perf_func(lambda: FD.fused_attn_decode(*args, gk, gv, table, lens, **kw,
+                                                       **scales), iters=50)
+        _, plain_ms = perf_func(lambda: FD.fused_attn_decode_ref(
+            *args, rk, rv, table, lens, **kw, **scales), iters=5)
+        cache = KV.PagedKVCache(k=rk[None], v=rv[None], block_table=table, seq_lens=lens,
+                                k_scale=ks[None] if quant else None,
+                                v_scale=vs[None] if quant else None)
+        _, chain_ms = perf_func(lambda: chain(cache), iters=50)
+        out_bytes = nbytes(got[0]) + 2 * BATCH * hk * d * 2   # out, and the token's k/v
+        b_ms, b_by = bound(2 * BATCH * k_dim * wqkv.shape[1] + 4 * BATCH * h * DECODE_POS * d,
+                           nbytes(x, wqkv, qn, kn, table, lens) + kv_bytes + out_bytes,
+                           H100_BF16_FLOPS)
+        rows[name] = dict(
+            name=name, route="cuda", source=src + "fused_decode.cu",
+            replaces="triton_distributed_tpu/ops/fused_decode.py:112",
+            max_abs_err=e, tol=BF16_TOL, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None, chain_ms=chain_ms,
+            shape=(f"x ({BATCH},{k_dim}) wqkv ({k_dim},{wqkv.shape[1]}) "
+                   f"{'int8' if quant else 'bf16'} pool ({p},{hk},{ps},{d}) pos {DECODE_POS}"))
+    return rows
+
+
+KERNEL_CLASSES = (("attention", ("flash_fwd", "decode_split", "decode_combine",
+                                 "fused_attn_decode")),
                   ("gemm", ("nvjet", "gemm", "cutlass", "sm90_xmma")))
 
 
@@ -304,50 +568,74 @@ def phase_profile(eng, ids, torch, layout: str) -> None:
               "top_kernels_ms": [[name[:60], ms] for name, ms in top]})
 
 
-def phase_serve(tt, torch) -> dict:
-    """Qwen3-8B, full width and depth, both cache layouts; the main path,
-    then a profile of one prefill and a few decode steps on each layout."""
-    from triton_distributed_tpu_torch.ops import attention as A
+# (label, cache layout, decode mode, kv dtype, the decode step's kernel)
+SERVE_MODES = (
+    ("contiguous", "contiguous", "psum", None, "decode_attention"),
+    ("paged", "paged", "psum", None, "paged_decode_attention"),
+    ("paged+fused", "paged", "fused", None, "fused_attn_decode"),
+    ("paged+int8", "paged", "psum", "int8", "paged_decode_attention_int8"),
+    ("paged+int8+fused", "paged", "fused", "int8", "fused_attn_decode_int8"),
+)
+REQUESTS = 3
 
+
+def phase_serve(tt, torch) -> dict:
+    """Qwen3-8B, full width and depth, in each serving mode: the main path,
+    with the launch counters set to 0 just before each mode's requests and
+    read just after; then a profile of one prefill and a few decode steps
+    in each mode.  Returns the launches summed over the modes."""
     c = dataclasses.replace(tt.QWEN3_8B, max_length=MAX_LEN)
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    model = tt.Qwen3(c, device=dev)
-    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    params = tt.Qwen3(c, device=dev).init(torch.Generator(device=dev).manual_seed(SEED))
+    models = {mode: tt.Qwen3(c, device=dev, decode_mode=mode) for mode in ("psum", "fused")}
     torch.cuda.synchronize()
     emit({"phase": "serve_setup", "init_s": time.perf_counter() - t0,
           "param_bytes": torch.cuda.memory_allocated()})
-    decode_kernel = {"contiguous": "decode_attention", "paged": "paged_decode_attention"}
     engines = {}
-    A.reset_launch_counts()
-    for layout in ("contiguous", "paged"):
-        eng = tt.Engine(model, params, batch=BATCH, cache_layout=layout, page_size=64)
-        for req in range(3):
+    totals = dict.fromkeys(tt.launch_counts(), 0)
+    for label, layout, mode, kv_dtype, kernel in SERVE_MODES:
+        eng = tt.Engine(models[mode], params, batch=BATCH, cache_layout=layout,
+                        page_size=PAGE, kv_dtype=kv_dtype)
+        tt.reset_launch_counts()
+        for req in range(REQUESTS):
             ids = torch.randint(0, c.vocab, (BATCH, PROMPT), device=dev,
                                 generator=torch.Generator(device=dev).manual_seed(100 + req))
-            before = A.launch_counts()
+            before = tt.launch_counts()
             tokens, stats = eng.serve(ids, GEN)
             torch.cuda.synchronize()
-            after = A.launch_counts()
+            after = tt.launch_counts()
             delta = {k: after[k] - before[k] for k in after}
             # serve = a warm-up prefill and decode step, then the timed prefill
             # and GEN - 1 decode steps
-            want = {k: 0 for k in delta}
+            want = dict.fromkeys(delta, 0)
             want["flash_attention"] = 2 * c.num_layers
-            want[decode_kernel[layout]] = GEN * c.num_layers
-            emit({"phase": "serve", "layout": layout, "request": req, **stats,
+            want[kernel] = GEN * c.num_layers
+            emit({"phase": "serve", "layout": label, "request": req, **stats,
                   "launches": delta})
-            check(delta == want, f"{layout} request {req}: launches {delta}, want {want}")
+            check(delta == want, f"{label} request {req}: launches {delta}, want {want}")
             check(tuple(tokens.shape) == (BATCH, GEN) and tokens.dtype == torch.int32
                   and int(tokens.min()) >= 0 and int(tokens.max()) < c.vocab,
-                  f"{layout}: bad tokens {tokens.shape} {tokens.dtype}")
-        engines[layout] = (eng, ids)
-    totals = A.launch_counts()
-    for layout, (eng, ids) in engines.items():
-        phase_profile(eng, ids, torch, layout)
-    del engines, model, params
+                  f"{label}: bad tokens {tokens.shape} {tokens.dtype}")
+        for k, n in tt.launch_counts().items():
+            totals[k] += n
+        engines[label] = (eng, ids)
+    for label, (eng, ids) in engines.items():
+        phase_profile(eng, ids, torch, label)
+    del engines, models, params
     torch.cuda.empty_cache()
     return totals
+
+
+def to_cpu(torch, obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.cpu()
+    if isinstance(obj, list):
+        return [to_cpu(torch, x) for x in obj]
+    if dataclasses.is_dataclass(obj):
+        return type(obj)(**{f.name: to_cpu(torch, getattr(obj, f.name))
+                            for f in dataclasses.fields(obj)})
+    return obj
 
 
 def phase_parity(tt, torch) -> None:
@@ -359,18 +647,7 @@ def phase_parity(tt, torch) -> None:
     gpu = tt.Qwen3(c, device=dev)
     params = gpu.init(torch.Generator(device=dev).manual_seed(SEED + 3))
     cpu = tt.Qwen3(c, device="cpu")
-
-    def to_cpu(obj):
-        if isinstance(obj, torch.Tensor):
-            return obj.cpu()
-        if isinstance(obj, list):
-            return [to_cpu(x) for x in obj]
-        if dataclasses.is_dataclass(obj):
-            return type(obj)(**{f.name: to_cpu(getattr(obj, f.name))
-                                for f in dataclasses.fields(obj)})
-        return obj
-
-    cparams = to_cpu(params)
+    cparams = to_cpu(torch, params)
     ids = torch.randint(0, c.vocab, (b, s), generator=torch.Generator().manual_seed(SEED + 4))
     gcache = tt.init_cache(c.num_layers, b, c.num_kv_heads, c.max_length, c.head_dim,
                            c.dtype, device=dev)
@@ -393,6 +670,37 @@ def phase_parity(tt, torch) -> None:
     check(ok_logits, f"prefill logits differ card vs CPU by {err.max().item()}")
     check(out["tokens_equal_contiguous"] and out["tokens_equal_paged"],
           "greedy tokens differ between the card and the CPU")
+
+    # the new modes: prefill, then greedy decode steps on both sides from the
+    # same prompt, every step's logits compared
+    for label, mode, kv_dtype in (("paged+fused", "fused", None),
+                                  ("paged+int8", "psum", "int8"),
+                                  ("paged+int8+fused", "fused", "int8")):
+        sides = []
+        for model, prm, where in ((tt.Qwen3(c, device=dev, decode_mode=mode), params, dev),
+                                  (tt.Qwen3(c, device="cpu", decode_mode=mode), cparams, "cpu")):
+            cache = tt.init_paged_cache(c.num_layers, b, c.num_kv_heads, c.max_length,
+                                        c.head_dim, c.dtype, page_size=PAGE, device=where,
+                                        kv_dtype=kv_dtype)
+            logits, cache = model.prefill(prm, cache, ids.to(where))
+            sides.append([model, prm, cache, logits[:, -1].argmax(-1).to(torch.int32)])
+        worst, ok, toks = 0.0, True, [[], []]
+        for _ in range(gen):
+            step = []
+            for i, (model, prm, cache, tok) in enumerate(sides):
+                logits, _ = model.decode(prm, cache, tok)
+                step.append(logits.cpu())
+                sides[i][3] = logits.argmax(-1).to(torch.int32)
+                toks[i].append(sides[i][3].cpu())
+            e = (step[0] - step[1]).abs()
+            worst = max(worst, e.max().item())
+            ok = ok and bool((e <= PARITY_TOL + PARITY_TOL * step[1].abs()).all())
+        same = all(torch.equal(a, b_) for a, b_ in zip(*toks))
+        emit({"phase": "parity", "mode": label, "decode_steps": gen,
+              "decode_logits_max_abs_err": worst, "tol": PARITY_TOL,
+              "logits_ok": ok, "tokens_equal": same})
+        check(ok, f"{label}: decode logits differ card vs CPU by {worst}")
+        check(same, f"{label}: greedy tokens differ between the card and the CPU")
 
 
 def main() -> int:
@@ -425,6 +733,7 @@ def main() -> int:
         phase_build(tt)
         phase = "kernel_cases"
         phase_kernel_cases(tt, torch)
+        phase_fused_cases(tt, torch)
         phase = "kernels_main"
         rows = phase_kernels_main(tt, torch)
         phase = "serve"
@@ -440,7 +749,7 @@ def main() -> int:
                 "name", "route", "source", "replaces")} | {
                 "launches": launches[name], **{k: row[k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms")}})
+                    "library_ms", "chain_ms") if k in row}})
         emit({"kernels": kernels})
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",

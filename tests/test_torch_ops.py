@@ -157,18 +157,25 @@ def test_wrappers_refuse_unserved_arguments():
     k = torch.zeros(1, 2, 8, 32)
     with pytest.raises(NotImplementedError, match="segment_ids"):
         tt.flash_attention(q, k, k, segment_ids=torch.zeros(1, 8, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="k_scale"):
-        tt.paged_decode_attention(
-            torch.zeros(1, 2, 32), torch.zeros(2, 2, 4, 32), torch.zeros(2, 2, 4, 32),
-            torch.zeros(1, 2, dtype=torch.int32), torch.zeros(1, dtype=torch.int32),
-            k_scale=torch.ones(2, 2), v_scale=torch.ones(2, 2))
+    # scales belong to int8 pages, both or neither
+    pool = torch.zeros(2, 2, 4, 32)
+    table, lens = torch.zeros(1, 2, dtype=torch.int32), torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(TypeError, match="int8"):
+        tt.paged_decode_attention(torch.zeros(1, 2, 32), pool, pool, table, lens,
+                                  k_scale=torch.ones(2, 2), v_scale=torch.ones(2, 2))
+    with pytest.raises(ValueError, match="both"):
+        tt.paged_decode_attention(torch.zeros(1, 2, 32), pool.to(torch.int8),
+                                  pool.to(torch.int8), table, lens,
+                                  k_scale=torch.ones(2, 2))
     with pytest.raises(TypeError, match="dtype"):
         tt.flash_attention(q.half(), k.half(), k.half())
     with pytest.raises(ValueError, match="contiguous"):
         tt.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, k)
-    with pytest.raises(NotImplementedError, match="kv_dtype"):
+    with pytest.raises(ValueError, match="kv_dtype"):
         tkv.init_paged_cache(1, 1, 1, 8, 8, page_size=4, device="cpu",
-                             kv_dtype="int8")
+                             kv_dtype="quarter")
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        tt.fused_linear_ar(torch.zeros(1, 4), torch.zeros(4, 4), world_size=2)
 
 
 def test_port_import_leaves_jax_out():

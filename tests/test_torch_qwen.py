@@ -108,8 +108,13 @@ def test_engine_greedy_tokens_match_jax(models, layout):
 
 
 def test_engine_refuses_unserved_modes():
-    with pytest.raises(NotImplementedError, match="decode_mode"):
-        tt.Engine.build(TCFG, device="cpu", decode_mode="fused")
+    for mode in ("persistent", "ar", "gemm_ar"):
+        with pytest.raises(NotImplementedError, match="decode_mode"):
+            tt.Engine.build(TCFG, device="cpu", decode_mode=mode)
+    with pytest.raises(ValueError, match="decode_mode"):
+        tt.Qwen3(TCFG, device="cpu", decode_mode="nonesuch")
+    with pytest.raises(ValueError, match="kv_dtype"):
+        tt.Engine.build(TCFG, device="cpu", kv_dtype="int8")   # contiguous
     with pytest.raises(NotImplementedError, match="MoE"):
         tt.Qwen3(dataclasses.replace(TCFG, num_experts=4), device="cpu")
     eng = tt.Engine.build(TCFG, device="cpu", batch=1,

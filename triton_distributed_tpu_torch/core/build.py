@@ -40,8 +40,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "tdt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                             _F, _I, _P],
-    "tdt_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _I, _I, _I, _I, _I, _F, _F, _I, _P],
+    "tdt_decode_attention": [*[_P] * 10, *[_I] * 9, _F, _F, _I, _P],
+    "tdt_fused_attn_decode": [*[_P] * 19, *[_I] * 11, _F, _F, _F, _I, _P],
 }
 
 

@@ -50,10 +50,37 @@ __device__ __forceinline__ void unpack16(const uint4& u, float* out, bf16) {
   }
 }
 
-// One 16-byte vector load, widened to float.
-template <typename T>
-__device__ __forceinline__ void load16(const T* __restrict__ p, float* out) {
-  unpack16(*reinterpret_cast<const uint4*>(p), out, T());
+// 8 bytes of int8 codes, widened to 8 floats (exactly).
+__device__ __forceinline__ void unpack16(const uint2& u, float* out, int8_t) {
+  const char4 a = *reinterpret_cast<const char4*>(&u.x);
+  const char4 b = *reinterpret_cast<const char4*>(&u.y);
+  out[0] = static_cast<float>(a.x);
+  out[1] = static_cast<float>(a.y);
+  out[2] = static_cast<float>(a.z);
+  out[3] = static_cast<float>(a.w);
+  out[4] = static_cast<float>(b.x);
+  out[5] = static_cast<float>(b.y);
+  out[6] = static_cast<float>(b.z);
+  out[7] = static_cast<float>(b.w);
+}
+
+// How a KV row of storage type S is read: E elements per lane and per load,
+// as one `Raw` vector (16 bytes of f32 or bf16, 8 bytes of int8 codes).
+template <typename S> struct KVLoad;
+template <> struct KVLoad<float> { static constexpr int E = 4; typedef uint4 Raw; };
+template <> struct KVLoad<bf16> { static constexpr int E = 8; typedef uint4 Raw; };
+template <> struct KVLoad<int8_t> { static constexpr int E = 8; typedef uint2 Raw; };
+
+// N consecutive elements of T from 16-byte aligned `p`, widened to float,
+// through L2 only (`ld.global.cg`): the values may have been written by
+// another block of the same kernel, after a fence.
+template <typename T, int N>
+__device__ __forceinline__ void load_cg(const T* __restrict__ p, float* out) {
+  constexpr int PER = 16 / sizeof(T);
+  static_assert(N % PER == 0, "load_cg reads whole 16-byte vectors");
+#pragma unroll
+  for (int i = 0; i < N / PER; ++i)
+    unpack16(__ldcg(reinterpret_cast<const uint4*>(p) + i), out + i * PER, T());
 }
 
 }  // namespace tdt

@@ -1,10 +1,11 @@
-"""Carry weights across from the JAX package's ``QwenParams``.
+"""Carry weights and KV caches across from the JAX package.
 
-The input is the JAX parameter tree after ``jax.tree.map(np.asarray, ...)``,
-read duck-typed (``.embed``, ``.layers[i].ln1``, ``.attn.wqkv``, ...): nothing
-of the JAX package is imported.  At tp = 1 both packages store ``wqkv`` as
-``[q | k | v]`` and ``gate_up`` as ``[gate | up]``, so the tensors carry over
-unchanged.
+The input is a JAX tree (``QwenParams``, ``KVCache`` or ``PagedKVCache``)
+after ``jax.tree.map(np.asarray, ...)``, read duck-typed (``.embed``,
+``.layers[i].ln1``, ``.attn.wqkv``, ``.block_table``, ...): nothing of the
+JAX package is imported.  At tp = 1 both packages store ``wqkv`` as
+``[q | k | v]``, ``gate_up`` as ``[gate | up]`` and the caches in the same
+layouts, so the tensors carry over unchanged.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from ..core.platform import resolve_device
 from ..layers.tp_attn import TPAttnParams
 from ..layers.tp_mlp import TPMLPParams
 from .config import ModelConfig
+from .kv_cache import KVCache, PagedKVCache
 from .qwen import QwenLayerParams, QwenParams
 
 
@@ -57,3 +59,19 @@ def from_jax_params(params, config: ModelConfig, device=None) -> QwenParams:
     ]
     return QwenParams(embed=t(params.embed), layers=layers,
                       final_norm=t(params.final_norm), lm_head=t(params.lm_head))
+
+
+def from_jax_cache(cache, device=None) -> KVCache | PagedKVCache:
+    """The port's cache holding the same state as the JAX ``cache``: a
+    contiguous ``KVCache`` (its ``kv_len`` becomes a host int) or a
+    ``PagedKVCache``, int8 pools and their scales included."""
+    dev = resolve_device(device)
+    if hasattr(cache, "block_table"):
+        return PagedKVCache(
+            k=to_tensor(cache.k, dev), v=to_tensor(cache.v, dev),
+            block_table=to_tensor(cache.block_table, dev).to(torch.int32),
+            seq_lens=to_tensor(cache.seq_lens, dev).to(torch.int32),
+            k_scale=to_tensor(getattr(cache, "k_scale", None), dev),
+            v_scale=to_tensor(getattr(cache, "v_scale", None), dev))
+    return KVCache(k=to_tensor(cache.k, dev), v=to_tensor(cache.v, dev),
+                   kv_len=int(np.asarray(cache.kv_len)))

@@ -45,7 +45,9 @@ class Engine:
     """Owns the model, its parameters and the KV cache.
 
     ``cache_layout``: "contiguous" (one shared length) or "paged" (page pool
-    + block table + ragged per-sequence lengths)."""
+    + block table + ragged per-sequence lengths).  ``kv_dtype``: None keeps
+    the model dtype; "int8" selects the quantized paged layout (one f32
+    scale per (layer, page, head)), paged only."""
 
     model: Qwen3
     params: QwenParams
@@ -54,6 +56,7 @@ class Engine:
     top_p: float = 1.0
     cache_layout: str = "contiguous"
     page_size: int = 64
+    kv_dtype: str | None = None
 
     def __post_init__(self):
         c = self.model.config
@@ -61,8 +64,13 @@ class Engine:
         if self.cache_layout == "paged":
             self.cache = init_paged_cache(
                 c.num_layers, self.batch, c.num_kv_heads, c.max_length,
-                c.head_dim, c.dtype, page_size=self.page_size, device=dev)
+                c.head_dim, c.dtype, page_size=self.page_size, device=dev,
+                kv_dtype=self.kv_dtype)
         elif self.cache_layout == "contiguous":
+            if self.kv_dtype is not None:
+                raise ValueError(
+                    "kv_dtype quantization needs cache_layout='paged' (the "
+                    "per-(page, head) scale layout)")
             self.cache = init_cache(c.num_layers, self.batch, c.num_kv_heads,
                                     c.max_length, c.head_dim, c.dtype,
                                     device=dev)
@@ -77,7 +85,8 @@ class Engine:
               **kw) -> "Engine":
         """A model with random weights from ``generator`` (seed 0 when None)
         on ``device`` (CUDA unless the caller passes "cpu"; raises without
-        CUDA).  ``max_length`` overrides the config's cache length."""
+        CUDA).  ``max_length`` overrides the config's cache length;
+        ``decode_mode`` is the model's ("psum" or "fused")."""
         if max_length is not None:
             config = dataclasses.replace(config, max_length=max_length)
         model = Qwen3(config, device=device, decode_mode=decode_mode)
@@ -86,6 +95,13 @@ class Engine:
     @property
     def device(self) -> torch.device:
         return self.model.device
+
+    def set_decode_mode(self, mode: str) -> None:
+        """Swap the decode-step chain (reference ``set_fwd``); parameters and
+        cache are kept.  The engine gets a model of its own, so an engine
+        sharing the old model keeps its mode."""
+        self.model = Qwen3(self.model.config, device=self.model.device,
+                           decode_mode=mode)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

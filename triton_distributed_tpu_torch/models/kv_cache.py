@@ -7,16 +7,19 @@ the same two layouts:
   length ``kv_len`` (every sequence the same age).
 - :class:`PagedKVCache`: a physical page pool (L, P, Hkv, page_size, D), a
   per-sequence ``block_table`` (B, max_pages) int32 and ragged ``seq_lens``
-  (B,) int32.  Decode reads it through the block-table kernel
-  (``ops.attention.paged_decode_attention``).
+  (B,) int32.  Decode reads it through the block-table kernels
+  (``ops.attention.paged_decode_attention``, ``ops.fused_decode``).  With
+  ``kv_dtype="int8"`` the pools hold int8 codes and ``k_scale``/``v_scale``
+  (L, P, Hkv) f32 hold one scale per (layer, page, head), the
+  ``lang.quant`` recipe; writes requantize the pages they touch and the
+  decode kernels dequantize as they stream.
 
 The JAX package's arrays are immutable: its engine donates the cache buffers
 at the jit boundary and rebuilds the stacked pool once per step through
 ``replace_layer_slices`` (``models/qwen.py:775``).  Here the pools are written
 **in place** (the reference engine's own model, a preallocated cache mutated
 by each step), and the functions below mutate and return the cache they are
-given.  Only full-precision pools are served in this slice; the int8 pool
-with per-(page, head) scales comes later.
+given.
 """
 
 from __future__ import annotations
@@ -27,6 +30,22 @@ import torch
 import torch.nn.functional as F
 
 from ..core.utils import cdiv
+from ..lang import quant
+
+
+class PagePoolExhausted(RuntimeError):
+    """A sequence needs a KV page its block table does not have.
+
+    Raised by :func:`append_paged` when a sequence's write position has
+    outgrown its pages (``seq_lens[b] >= max_pages * page_size``), instead of
+    writing the token into a wrong page.  ``sequences`` names them."""
+
+    def __init__(self, msg: str, *, sequences: tuple[int, ...] = (),
+                 needed: int = 0, available: int = 0):
+        self.sequences = tuple(sequences)
+        self.needed = int(needed)
+        self.available = int(available)
+        super().__init__(msg)
 
 
 @dataclasses.dataclass
@@ -43,12 +62,16 @@ class KVCache:
 class PagedKVCache:
     """k/v: (L, P, Hkv, page_size, D) page pools; block_table: (B, max_pages)
     int32, logical page j of sequence b in pool page ``block_table[b, j]``;
-    seq_lens: (B,) int32 ragged valid lengths, on the pools' device."""
+    seq_lens: (B,) int32 ragged valid lengths, on the pools' device.
+    k_scale/v_scale: (L, P, Hkv) f32 per-(page, head) scales of int8 pools,
+    None for full-precision pools."""
 
     k: torch.Tensor
     v: torch.Tensor
     block_table: torch.Tensor
     seq_lens: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
 
     @property
     def page_size(self) -> int:
@@ -58,6 +81,10 @@ class PagedKVCache:
     def max_pages(self) -> int:
         return self.block_table.shape[1]
 
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
 
 def init_cache(num_layers: int, batch: int, kv_heads: int, max_length: int,
                head_dim: int, dtype=torch.bfloat16, *,
@@ -65,6 +92,39 @@ def init_cache(num_layers: int, batch: int, kv_heads: int, max_length: int,
     shape = (num_layers, batch, kv_heads, max_length, head_dim)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _resolve_kv_dtype(dtype, kv_dtype) -> tuple[torch.dtype, bool]:
+    """(pool dtype, quantized?) from the ``kv_dtype`` knob: None keeps
+    ``dtype``; "int8" (or ``torch.int8``) selects the quantized
+    per-(page, head)-scale layout; any other torch dtype (or its name) is
+    stored as it is."""
+    if kv_dtype is None:
+        return dtype, False
+    if isinstance(kv_dtype, str):
+        name, kv_dtype = kv_dtype, getattr(torch, kv_dtype, None)
+        if not isinstance(kv_dtype, torch.dtype):
+            raise ValueError(f"kv_dtype {name!r} is not a torch dtype")
+    if kv_dtype == torch.int8:
+        return torch.int8, True
+    return kv_dtype, False
+
+
+def kv_page_bytes(num_layers: int, kv_heads: int, page_size: int,
+                  head_dim: int, dtype=torch.bfloat16, kv_dtype=None) -> int:
+    """Bytes one physical page costs across all layers, k and v, the f32
+    scales of an int8 pool included (the unit of the cache's capacity)."""
+    pd, quantized = _resolve_kv_dtype(dtype, kv_dtype)
+    per = 2 * num_layers * kv_heads * page_size * head_dim * pd.itemsize
+    if quantized:
+        per += 2 * num_layers * kv_heads * 4
+    return per
+
+
+def _init_scales(num_layers: int, pool_pages: int, kv_heads: int,
+                 device) -> torch.Tensor:
+    return torch.full((num_layers, pool_pages, kv_heads), quant.SCALE_EPS,
+                      dtype=torch.float32, device=device)
 
 
 def init_paged_cache(num_layers: int, batch: int, kv_heads: int,
@@ -76,24 +136,83 @@ def init_paged_cache(num_layers: int, batch: int, kv_heads: int,
     block table.  With ``generator`` (a CPU generator) the (sequence,
     logical page) -> physical page map is a seeded random permutation, the
     fragmented layout a real page allocator produces; without it, the
-    identity."""
-    if kv_dtype is not None:
-        raise NotImplementedError(
-            "kv_dtype (the int8 page pool) belongs to a later slice of the port")
+    identity.  ``kv_dtype="int8"`` selects the quantized layout."""
     if max_length % page_size:
         raise ValueError(
             f"max_length {max_length} not divisible by page_size {page_size}")
     mp = max_length // page_size
     p = batch * mp
+    pool_dtype, quantized = _resolve_kv_dtype(dtype, kv_dtype)
     shape = (num_layers, p, kv_heads, page_size, head_dim)
     ids = (torch.randperm(p, generator=generator) if generator is not None
            else torch.arange(p))
     return PagedKVCache(
-        k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device),
+        k=torch.zeros(shape, dtype=pool_dtype, device=device),
+        v=torch.zeros(shape, dtype=pool_dtype, device=device),
         block_table=ids.to(torch.int32).reshape(batch, mp).to(device),
         seq_lens=torch.zeros((batch,), dtype=torch.int32, device=device),
+        k_scale=_init_scales(num_layers, p, kv_heads, device) if quantized else None,
+        v_scale=_init_scales(num_layers, p, kv_heads, device) if quantized else None,
     )
+
+
+# ---------------------------------------------------------------------------
+# the int8 page codec
+
+
+def _quantize_pages(vals: torch.Tensor):
+    """Quantize page-major values (..., Hkv, ps, D) to int8 codes with one
+    f32 scale per leading (page, head) cell; returns ``(codes, scale)``."""
+    return quant.quantize_int8(vals, dims=(-2, -1))
+
+
+def _dequantize_pages(codes: torch.Tensor, scale: torch.Tensor,
+                      dtype=torch.float32) -> torch.Tensor:
+    """Inverse of :func:`_quantize_pages`."""
+    return quant.dequantize_int8(codes, scale, dims=(-2, -1), dtype=dtype)
+
+
+def _merge_token_page(q_pages: torch.Tensor, scales: torch.Tensor,
+                      tok: torch.Tensor, offs: torch.Tensor):
+    """The quantized token append on the one page each sequence touches:
+    dequantize it, set the token at its in-page offset, zero the slots past
+    it (a recycled page holds the previous tenant's bytes, which must not
+    inflate the absmax), and requantize.  ``q_pages``: (B, Hkv, ps, D) int8;
+    ``scales``: (B, Hkv); ``tok``: (B, Hkv, D); ``offs``: (B,).  Returns
+    ``(codes, scale)``."""
+    ps = q_pages.shape[-2]
+    rows = torch.arange(offs.shape[0], device=offs.device)
+    old = _dequantize_pages(q_pages, scales)
+    old[rows, :, offs] = tok.float()
+    keep = (torch.arange(ps, device=offs.device)[None, None, :, None]
+            <= offs[:, None, None, None])
+    return _quantize_pages(torch.where(keep, old, torch.zeros_like(old)))
+
+
+def dequantize_pool(cache: PagedKVCache, dtype=torch.bfloat16) -> PagedKVCache:
+    """A full-precision copy of a quantized cache (a test and reference
+    path: it materializes the pool)."""
+    if not cache.quantized:
+        return cache
+    return dataclasses.replace(
+        cache, k=_dequantize_pages(cache.k, cache.k_scale, dtype),
+        v=_dequantize_pages(cache.v, cache.v_scale, dtype),
+        k_scale=None, v_scale=None)
+
+
+def layer_pool(cache: PagedKVCache, layer: int, dtype=None) -> tuple:
+    """One layer's (k, v) pools in compute precision: the pools themselves
+    for a full-precision cache, dequantized copies for int8."""
+    k_l, v_l = cache.k[layer], cache.v[layer]
+    if not cache.quantized:
+        return (k_l, v_l) if dtype is None else (k_l.to(dtype), v_l.to(dtype))
+    dt = dtype if dtype is not None else torch.bfloat16
+    return (_dequantize_pages(k_l, cache.k_scale[layer], dt),
+            _dequantize_pages(v_l, cache.v_scale[layer], dt))
+
+
+# ---------------------------------------------------------------------------
+# writes
 
 
 def write_prefill(cache: KVCache, layer: int, k_new: torch.Tensor,
@@ -109,7 +228,8 @@ def write_prefill_paged(cache: PagedKVCache, layer: int, k_new: torch.Tensor,
                         v_new: torch.Tensor) -> PagedKVCache:
     """Scatter a prefill's (B, Hkv, S, D) into the pool at positions [0, S).
     A partial trailing page is zero-padded; its slots are masked by
-    ``seq_lens`` and overwritten by later appends."""
+    ``seq_lens`` and overwritten by later appends.  An int8 cache quantizes
+    each written page with its own (page, head) scale."""
     b, hk, s, d = k_new.shape
     ps = cache.page_size
     npg = cdiv(s, ps)
@@ -119,9 +239,41 @@ def write_prefill_paged(cache: PagedKVCache, layer: int, k_new: torch.Tensor,
         vals = F.pad(vals, (0, 0, 0, npg * ps - s))
         return vals.reshape(b, hk, npg, ps, d).permute(0, 2, 1, 3, 4)
 
+    if cache.quantized:
+        for pool, scale, vals in ((cache.k, cache.k_scale, k_new),
+                                  (cache.v, cache.v_scale, v_new)):
+            codes, sc = _quantize_pages(paged_vals(vals))
+            pool[layer][pages] = codes
+            scale[layer][pages] = sc
+        return cache
     cache.k[layer][pages] = paged_vals(k_new).to(cache.k.dtype)
     cache.v[layer][pages] = paged_vals(v_new).to(cache.v.dtype)
     return cache
+
+
+def _token_slots(block_table: torch.Tensor, seq_lens: torch.Tensor,
+                 page_size: int):
+    """(pool page, in-page offset) of each sequence's next position."""
+    lens = seq_lens.long()
+    pages = block_table.long().gather(1, (lens // page_size)[:, None])[:, 0]
+    return pages, lens % page_size
+
+
+def append_layer_quantized(pool_k_l: torch.Tensor, pool_v_l: torch.Tensor,
+                           ksc_l: torch.Tensor, vsc_l: torch.Tensor,
+                           block_table: torch.Tensor, seq_lens: torch.Tensor,
+                           k_tok: torch.Tensor, v_tok: torch.Tensor):
+    """The quantized ragged append on one layer's pools, in place:
+    ``pool_*_l`` (P, Hkv, ps, D) int8, ``*sc_l`` (P, Hkv) f32, the new token
+    ``k_tok``/``v_tok`` (B, Hkv, D) at position ``seq_lens[b]``.  Each
+    sequence's one touched page is dequantized, merged and requantized
+    (:func:`_merge_token_page`).  Returns the four tensors."""
+    pages, offs = _token_slots(block_table, seq_lens, pool_k_l.shape[2])
+    for pool, scale, tok in ((pool_k_l, ksc_l, k_tok), (pool_v_l, vsc_l, v_tok)):
+        codes, sc = _merge_token_page(pool[pages], scale[pages], tok, offs)
+        pool[pages] = codes
+        scale[pages] = sc
+    return pool_k_l, pool_v_l, ksc_l, vsc_l
 
 
 def append_token(cache, layer: int, k_tok: torch.Tensor,
@@ -129,18 +281,43 @@ def append_token(cache, layer: int, k_tok: torch.Tensor,
     """Write one decode token per sequence, (B, Hkv, D), at its position:
     the shared ``kv_len`` or each sequence's ``seq_lens[b]``.  Does not
     advance the length (the model advances once per step, after all
-    layers)."""
+    layers) and reads nothing back to the host: the caller guarantees the
+    position has a page (``Engine`` checks the request length up front;
+    :func:`append_paged` checks on the host)."""
     if isinstance(cache, PagedKVCache):
-        lens = cache.seq_lens.long()
-        ps = cache.page_size
-        pages = cache.block_table.long().gather(1, (lens // ps)[:, None])[:, 0]
-        offs = lens % ps
+        if cache.quantized:
+            append_layer_quantized(cache.k[layer], cache.v[layer],
+                                   cache.k_scale[layer], cache.v_scale[layer],
+                                   cache.block_table, cache.seq_lens,
+                                   k_tok, v_tok)
+            return cache
+        pages, offs = _token_slots(cache.block_table, cache.seq_lens,
+                                   cache.page_size)
         cache.k[layer][pages, :, offs] = k_tok.to(cache.k.dtype)
         cache.v[layer][pages, :, offs] = v_tok.to(cache.v.dtype)
     else:
         cache.k[layer, :, :, cache.kv_len] = k_tok
         cache.v[layer, :, :, cache.kv_len] = v_tok
     return cache
+
+
+def append_paged(cache: PagedKVCache, layer: int, k_tok: torch.Tensor,
+                 v_tok: torch.Tensor) -> PagedKVCache:
+    """:func:`append_token` on a paged cache, after checking on the host
+    that every sequence's position lies inside its block table; raises
+    :class:`PagePoolExhausted` naming the sequences that outgrew it."""
+    ps = cache.page_size
+    limit = cache.max_pages * ps
+    pos = cache.seq_lens.cpu()
+    over = [int(b) for b in torch.nonzero(pos >= limit).flatten()]
+    if over:
+        raise PagePoolExhausted(
+            f"append_paged: sequence(s) {over} at position(s) "
+            f"{[int(pos[b]) for b in over]} have outgrown their block table "
+            f"({cache.max_pages} pages x page_size {ps} = {limit} positions); "
+            f"allocate pages (or preempt) first",
+            sequences=tuple(over), needed=1, available=0)
+    return append_token(cache, layer, k_tok, v_tok)
 
 
 def advance(cache, steps: int):

@@ -1,12 +1,15 @@
 """Dense Qwen3 decoder at tp = 1 (counterpart of
 ``triton_distributed_tpu/models/qwen.py::Qwen3``).
 
-At tp = 1 in ``decode_mode="psum"`` every collective of the JAX model falls
-back to a plain matrix product (``ops/ag_gemm.py:316``,
-``ops/gemm_rs.py:268``, the decode reductions at ``qwen.py:182-190`` and
-``:703-718``).  Those stay ``torch.matmul`` here.  Attention runs through the
-three hand-written kernels of ``ops.attention``: flash attention in prefill,
-and the contiguous or paged decode kernel in each decode step.
+At tp = 1 every collective of the JAX model falls back to a plain matrix
+product (``ops/ag_gemm.py:316``, ``ops/gemm_rs.py:268``, the decode
+reductions at ``qwen.py:182-190`` and ``:703-718``, and the fused mode's
+``fused_decode.py:756-762, 851-853``).  Those stay ``torch.matmul`` here.
+Attention runs through the hand-written kernels: flash attention in
+prefill; in each decode step the contiguous or paged decode kernel
+(``decode_mode="psum"``), or, on a paged cache in ``decode_mode="fused"``,
+the attention megakernel that also projects, normalizes, rotates and
+appends (``ops.fused_decode``).  Both modes serve int8 page pools.
 
 The model is a static definition; parameters (:class:`QwenParams`) and the
 cache travel separately, as in the JAX package, so a test can hand both
@@ -29,12 +32,14 @@ from ..ops.attention import (
     flash_attention,
     paged_decode_attention,
 )
+from ..ops.fused_decode import fused_attn_decode, fused_linear_ar, fused_mlp_ar
 from ..ops.rope import apply_rope, rope_freqs
 from .config import ModelConfig
 from .kv_cache import (
     KVCache,
     PagedKVCache,
     advance,
+    append_layer_quantized,
     append_token,
     with_length,
     write_prefill,
@@ -72,19 +77,27 @@ def logits_f32(x: torch.Tensor, lm_head: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), lm_head.float())
 
 
+DECODE_MODES = ("psum", "fused")
+LATER_DECODE_MODES = ("ar", "gemm_ar", "persistent")
+
+
 class Qwen3(nn.Module):
     """Qwen3 dense decoder; runs on ``device`` (CUDA unless the caller asks
-    for ``"cpu"``).  Only ``decode_mode="psum"`` at tp = 1 is served in this
-    slice of the port."""
+    for ``"cpu"``).  ``decode_mode``: "psum" (the per-kernel decode chain)
+    or "fused" (the attention megakernel on a paged cache; a contiguous
+    cache keeps the per-kernel attention, as in the JAX model)."""
 
     def __init__(self, config: ModelConfig, *, device=None,
                  decode_mode: str = "psum"):
         super().__init__()
-        if decode_mode != "psum":
+        if decode_mode in LATER_DECODE_MODES:
             raise NotImplementedError(
-                f"decode_mode {decode_mode!r} (the fused/persistent decode "
-                "kernels and the AllReduce modes) belongs to a later slice of "
-                "the port; only 'psum' at tp = 1 is served")
+                f"decode_mode {decode_mode!r} (the persistent decode kernel and "
+                "the AllReduce modes) belongs to a later slice of the port; "
+                f"{DECODE_MODES} at tp = 1 are served")
+        if decode_mode not in DECODE_MODES:
+            raise ValueError(f"decode_mode {decode_mode!r} not in "
+                             f"{DECODE_MODES + LATER_DECODE_MODES}")
         if config.is_moe:
             raise NotImplementedError("MoE layers belong to a later slice of the port")
         self.config = config
@@ -174,36 +187,90 @@ class Qwen3(nn.Module):
 
     # -- decode -----------------------------------------------------------
 
+    def _attn_decode(self, p: TPAttnParams, x: torch.Tensor, cache,
+                     layer: int, cos, sin) -> torch.Tensor:
+        """The per-kernel attention step (``qwen.py:474-626``): qkv product,
+        qk-norm, RoPE, the token's append (requantizing its page on an int8
+        cache), then the decode kernel over the cache including the token.
+        Returns the o-proj output (B, K)."""
+        b = x.shape[0]
+        q, k, v = self._project_qkv(p, x, b, 1)
+        q = apply_rope(q, cos, sin)[:, :, 0].contiguous()   # (B, H, D)
+        k = apply_rope(k, cos, sin)[:, :, 0]
+        append_token(cache, layer, k, v[:, :, 0])
+        if isinstance(cache, PagedKVCache):
+            scales = ({} if not cache.quantized else
+                      dict(k_scale=cache.k_scale[layer], v_scale=cache.v_scale[layer]))
+            out = paged_decode_attention(q, cache.k[layer], cache.v[layer],
+                                         cache.block_table, cache.seq_lens + 1,
+                                         **scales)
+        else:
+            out = decode_attention(q, cache.k[layer], cache.v[layer],
+                                   cache.kv_len + 1)
+        return fused_linear_ar(out.reshape(b, -1), p.wo)
+
+    def _attn_decode_paged_fused(self, p: TPAttnParams, x: torch.Tensor,
+                                 cache: PagedKVCache, layer: int) -> torch.Tensor:
+        """The attention megakernel step (``qwen.py:628-693``): one launch
+        per layer projects, normalizes, rotates, appends and attends.  On an
+        int8 cache the kernel returns the token, which the exact requantizing
+        append then writes (``append_layer_quantized``)."""
+        c = self.config
+        scales = ({} if not cache.quantized else
+                  dict(k_scale=cache.k_scale[layer], v_scale=cache.v_scale[layer]))
+        res = fused_attn_decode(
+            x, p.wqkv, p.q_norm, p.k_norm, cache.k[layer], cache.v[layer],
+            cache.block_table, cache.seq_lens, rope_theta=c.rope_theta,
+            qk_eps=c.rms_eps if c.qk_norm else None, **scales)
+        if cache.quantized:
+            _, _, _, k_tok, v_tok = res
+            append_layer_quantized(cache.k[layer], cache.v[layer],
+                                   cache.k_scale[layer], cache.v_scale[layer],
+                                   cache.block_table, cache.seq_lens,
+                                   k_tok, v_tok)
+        return fused_linear_ar(res[0], p.wo)
+
     @torch.no_grad()
     def decode(self, params: QwenParams, cache, tokens: torch.Tensor):
         """One decode step.  ``tokens``: (B,).  Each layer writes the new
-        token's K/V at its position before attending (``qwen.py:498-506``,
-        ``:603-611``).  Returns (f32 logits (B, V), cache advanced by 1)."""
+        token's K/V at its position and attends over the cache up to and
+        including it (``qwen.py:736-781``).  Returns (f32 logits (B, V),
+        cache advanced by 1)."""
         c = self.config
-        b = tokens.shape[0]
         paged = isinstance(cache, PagedKVCache)
-        if paged:
-            # per-sequence ragged positions (qwen.py:558)
-            pos = cache.seq_lens.to(torch.float32)[:, None, None]   # (B, 1, 1)
-            lens_after = cache.seq_lens + 1
-        else:
-            # one shared position (qwen.py:481)
-            pos = torch.full((1,), cache.kv_len, dtype=torch.float32,
-                             device=self.device)
-        cos, sin = rope_freqs(pos, c.head_dim, theta=c.rope_theta)
+        fused = paged and self.decode_mode == "fused"
+        cos = sin = None
+        if not fused:
+            if paged:
+                # per-sequence ragged positions (qwen.py:558)
+                pos = cache.seq_lens.to(torch.float32)[:, None, None]   # (B, 1, 1)
+            else:
+                # one shared position (qwen.py:481)
+                pos = torch.full((1,), cache.kv_len, dtype=torch.float32,
+                                 device=self.device)
+            cos, sin = rope_freqs(pos, c.head_dim, theta=c.rope_theta)
         x = params.embed[tokens.to(self.device)]
         for li, lp in enumerate(params.layers):
-            q, k, v = self._project_qkv(lp.attn, rms_norm(x, lp.ln1, c.rms_eps),
-                                        b, 1)
-            q = apply_rope(q, cos, sin)[:, :, 0].contiguous()   # (B, H, D)
-            k = apply_rope(k, cos, sin)[:, :, 0]
-            append_token(cache, li, k, v[:, :, 0])
-            if paged:
-                out = paged_decode_attention(q, cache.k[li], cache.v[li],
-                                             cache.block_table, lens_after)
+            h = rms_norm(x, lp.ln1, c.rms_eps)
+            if fused:
+                x = x + self._attn_decode_paged_fused(lp.attn, h, cache, li)
             else:
-                out = decode_attention(q, cache.k[li], cache.v[li],
-                                       cache.kv_len + 1)
-            x = x + torch.matmul(out.reshape(b, -1), lp.attn.wo)
-            x = x + mlp_forward(lp.mlp, rms_norm(x, lp.ln2, c.rms_eps))
+                x = x + self._attn_decode(lp.attn, h, cache, li, cos, sin)
+            x = x + fused_mlp_ar(rms_norm(x, lp.ln2, c.rms_eps),
+                                 lp.mlp.gate_up, lp.mlp.down)
         return self._finish(params, x), advance(cache, 1)
+
+    @torch.no_grad()
+    def decode_multi(self, params: QwenParams, cache, tokens: torch.Tensor,
+                     steps: int):
+        """``steps`` greedy decode steps (``qwen.py:824-857``): each step's
+        argmax is fed back as the next token on the device, so nothing is
+        read back to the host inside the window.  Returns (tokens
+        (steps, B) int32, cache)."""
+        tok = tokens.to(device=self.device, dtype=torch.int32)
+        out = []
+        for _ in range(int(steps)):
+            logits, cache = self.decode(params, cache, tok)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            out.append(tok)
+        return torch.stack(out), cache

@@ -1,1 +1,2 @@
-"""Attention kernels with their plain PyTorch versions, and RoPE."""
+"""Attention and fused decode kernels with their plain PyTorch versions,
+and RoPE."""

@@ -10,16 +10,21 @@ PyTorch version beside it (``*_ref``) and a hand-written CUDA kernel in
 - ``decode_attention``: ``decode_attention.cu``, replacing
   ``_decode_fused_kernel``;
 - ``paged_decode_attention``: ``decode_attention.cu``, replacing
-  ``_paged_decode_kernel``.
+  ``_paged_decode_kernel`` with pages in q's type or int8 pages.
 
 A wrapper takes the plain version only for tensors on the CPU.  For CUDA
 tensors it launches its kernel or raises; it never falls back.  Each wrapper
-counts its launches in ``<function>.launches`` (a plain int), so a caller can
-show that a run went through the kernels.
+counts its launches in ``core.launches`` (the int8 page variant of the paged
+kernel under its own name), so a caller can show that a run went through the
+kernels.
 
 The plain versions keep the JAX kernels' rounding points: q is scaled in f32
 and cast to the storage type before the q.k product, scores and softmax
-state are f32, and p is cast to the V type before the p.v product.
+state are f32, and p is cast to the V type before the p.v product.  int8
+pages follow ``_tile_update`` (JAX ``ops/attention.py:76-105``): the codes
+are exact in the q type, the (page, head) K scale multiplies the f32 score
+after the product, p is cast to the q type, and the V scale multiplies the
+p.v product.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import functools
 import torch
 
 from ..core import build
+from ..core.launches import count
 from ..core.utils import cdiv
 
 _NEG_INF = -1e30
@@ -47,10 +53,12 @@ def _scaled_q(q: torch.Tensor, sm_scale: float) -> torch.Tensor:
     return (q.float() * sm_scale).to(q.dtype)
 
 
-def _softmax_pv(s: torch.Tensor, v: torch.Tensor, keep, soft_cap: float):
+def _softmax_pv(s: torch.Tensor, v: torch.Tensor, keep, soft_cap: float,
+                p_dtype=None, v_scale=None):
     """Masked softmax over the last axis of f32 scores ``s`` and its product
-    with ``v``.  Returns the unnormalized f32 (p.v, l); a fully masked row
-    has p = 0 and l = 0."""
+    with ``v``.  p is rounded to ``p_dtype`` (default v's dtype) and then,
+    for int8 values, multiplied by their per-position ``v_scale``.  Returns
+    the unnormalized f32 (p.v, l); a fully masked row has p = 0 and l = 0."""
     if soft_cap:
         s = torch.tanh(s / soft_cap) * soft_cap
     if keep is not None:
@@ -60,8 +68,10 @@ def _softmax_pv(s: torch.Tensor, v: torch.Tensor, keep, soft_cap: float):
     if keep is not None:
         p = torch.where(m > _NEG_INF / 2, p, torch.zeros_like(p))
     l = p.sum(dim=-1, keepdim=True)
-    pv = torch.matmul(p.to(v.dtype).float(), v.float())
-    return pv, l
+    pr = p.to(p_dtype or v.dtype).float()
+    if v_scale is not None:
+        pr = pr * v_scale
+    return torch.matmul(pr, v.float()), l
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,
@@ -93,38 +103,68 @@ def _lens(kv_len, b: int, device) -> torch.Tensor:
     return torch.full((b,), int(kv_len), dtype=torch.int32, device=device)
 
 
-def decode_attention_ref(q, k, v, kv_len, *, sm_scale: float | None = None,
-                         soft_cap: float = 0.0) -> torch.Tensor:
-    """Plain version of :func:`decode_attention`: positions at or past
-    ``kv_len`` are masked; a length-0 row returns zeros."""
+def decode_ref(q, k, v, keep, *, sm_scale: float, soft_cap: float = 0.0,
+               p_dtype=None, k_scale=None, v_scale=None) -> torch.Tensor:
+    """Single-token attention of ``q`` (B, H, D) over the positions of
+    ``k``/``v`` (B, Hkv, S, D) where ``keep`` (B, S) holds.  int8 codes come
+    with per-position scales ``k_scale``/``v_scale`` (B, Hkv, S).  p is
+    rounded to ``p_dtype`` (default v's dtype).  A row with no kept position
+    returns zeros."""
     b, h, d = q.shape
-    hk, smax = k.shape[1], k.shape[2]
-    g = h // hk
-    sm_scale = d ** -0.5 if sm_scale is None else float(sm_scale)
-    lens = _lens(kv_len, b, q.device)
-    qs = _scaled_q(q, sm_scale).float().reshape(b, hk, g, 1, d)
+    hk = k.shape[1]
+    qs = _scaled_q(q, sm_scale).float().reshape(b, hk, h // hk, 1, d)
     s = torch.matmul(qs, k.float().unsqueeze(2).transpose(-1, -2))  # (b,hk,g,1,S)
-    keep = (torch.arange(smax, device=q.device)[None, :] < lens[:, None])
-    pv, l = _softmax_pv(s, v.unsqueeze(2), keep[:, None, None, None, :], soft_cap)
+    vs = None
+    if k_scale is not None:
+        s = s * k_scale[:, :, None, None, :]
+        vs = v_scale[:, :, None, None, :]
+    pv, l = _softmax_pv(s, v.unsqueeze(2), keep[:, None, None, None, :],
+                        soft_cap, p_dtype, vs)
     out = torch.where(l > 0, pv / l.clamp_min(1e-38), torch.zeros_like(pv))
     return out.to(q.dtype).reshape(b, h, d)
 
 
+def decode_attention_ref(q, k, v, kv_len, *, sm_scale: float | None = None,
+                         soft_cap: float = 0.0) -> torch.Tensor:
+    """Plain version of :func:`decode_attention`: positions at or past
+    ``kv_len`` are masked; a length-0 row returns zeros."""
+    b, _, d = q.shape
+    sm_scale = d ** -0.5 if sm_scale is None else float(sm_scale)
+    lens = _lens(kv_len, b, q.device)
+    keep = torch.arange(k.shape[2], device=q.device)[None, :] < lens[:, None]
+    return decode_ref(q, k, v, keep, sm_scale=sm_scale, soft_cap=soft_cap)
+
+
+def gather_pages(pool: torch.Tensor, block_table: torch.Tensor,
+                 scale: torch.Tensor | None = None):
+    """Each sequence's pages of ``pool`` (P, Hkv, ps, D) as a contiguous
+    (B, Hkv, max_pages * ps, D) cache, and, given the (P, Hkv) page scales,
+    the (B, Hkv, max_pages * ps) scale of each position."""
+    b, mp = block_table.shape
+    _, hk, ps, d = pool.shape
+    table = block_table.long()
+    vals = pool[table].permute(0, 2, 1, 3, 4).reshape(b, hk, mp * ps, d)
+    if scale is None:
+        return vals, None
+    pos_scale = scale[table].permute(0, 2, 1).repeat_interleave(ps, dim=2)
+    return vals, pos_scale.float()
+
+
 def paged_decode_attention_ref(q, pool_k, pool_v, block_table, seq_lens, *,
                                sm_scale: float | None = None,
-                               soft_cap: float = 0.0) -> torch.Tensor:
+                               soft_cap: float = 0.0, k_scale=None,
+                               v_scale=None) -> torch.Tensor:
     """Plain version of :func:`paged_decode_attention`: gathers each
-    sequence's pages into a contiguous cache, then masks by ``seq_lens``."""
-    b = q.shape[0]
-    _, hk, ps, d = pool_k.shape
-    mp = block_table.shape[1]
-    table = block_table.long()
-
-    def gather(pool):
-        return pool[table].permute(0, 2, 1, 3, 4).reshape(b, hk, mp * ps, d)
-
-    return decode_attention_ref(q, gather(pool_k), gather(pool_v), seq_lens,
-                                sm_scale=sm_scale, soft_cap=soft_cap)
+    sequence's pages into a contiguous cache, then masks by ``seq_lens``;
+    int8 pages keep their codes and carry their scales per position."""
+    d = q.shape[2]
+    sm_scale = d ** -0.5 if sm_scale is None else float(sm_scale)
+    k, ks = gather_pages(pool_k, block_table, k_scale)
+    v, vs = gather_pages(pool_v, block_table, v_scale)
+    keep = (torch.arange(k.shape[2], device=q.device)[None, :]
+            < seq_lens.to(q.device)[:, None])
+    return decode_ref(q, k, v, keep, sm_scale=sm_scale, soft_cap=soft_cap,
+                      p_dtype=q.dtype, k_scale=ks, v_scale=vs)
 
 
 # ---------------------------------------------------------------------------
@@ -205,11 +245,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         sq, skv, d, int(bool(causal)), sm_scale, float(soft_cap),
         KERNEL_DTYPES[q.dtype], _stream(q.device))
     build.check(err, "flash_attention")
-    flash_attention.launches += 1
+    count("flash_attention")
     return out
-
-
-flash_attention.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -234,9 +271,13 @@ def decode_split_plan(pairs: int, capacity: int, device,
     return cdiv(capacity, chunk), chunk
 
 
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
 def _launch_decode(q, k, v, lens, table, capacity: int, page_size: int,
                    max_pages: int, sm_scale: float, soft_cap: float,
-                   name: str) -> torch.Tensor:
+                   name: str, k_scale=None, v_scale=None) -> torch.Tensor:
     b, h, d = q.shape
     hk = k.shape[1]
     g = h // hk
@@ -250,7 +291,7 @@ def _launch_decode(q, k, v, lens, table, capacity: int, page_size: int,
     lib = build.library()
     err = lib.tdt_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-        None if table is None else table.data_ptr(), part_acc.data_ptr(),
+        _ptr(table), _ptr(k_scale), _ptr(v_scale), part_acc.data_ptr(),
         part_ml.data_ptr(), out.data_ptr(), b, h, hk, d, capacity, page_size,
         max_pages, n_split, chunk, sm_scale, float(soft_cap),
         KERNEL_DTYPES[q.dtype], _stream(q.device))
@@ -258,8 +299,32 @@ def _launch_decode(q, k, v, lens, table, capacity: int, page_size: int,
     return out
 
 
+def check_page_scales(pool_k, pool_v, k_scale, v_scale) -> bool:
+    """Whether the pools are int8 with (P, Hkv) f32 scales (True) or full
+    precision without scales (False); raises on anything in between."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale or neither")
+    if k_scale is None:
+        return False
+    _check_tensors(("pool_k", "pool_v", "k_scale", "v_scale"),
+                   (pool_k, pool_v, k_scale, v_scale), float_like=False)
+    if pool_k.dtype != torch.int8 or pool_v.dtype != torch.int8:
+        raise TypeError(f"scaled pools must be int8, got {pool_k.dtype} / "
+                        f"{pool_v.dtype}")
+    want = tuple(pool_k.shape[:2])
+    for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if tuple(sc.shape) != want or sc.dtype != torch.float32:
+            raise ValueError(f"{name} {tuple(sc.shape)} {sc.dtype} is not "
+                             f"(P, Hkv) = {want} float32")
+    return True
+
+
 def _check_decode_q(q, k_like, names) -> tuple[int, int, int, int]:
-    _check_tensors(names, (q, k_like))
+    if k_like.dtype == torch.int8:
+        _check_tensors(names[:1], (q,))
+        _check_tensors(names, (q, k_like), float_like=False)
+    else:
+        _check_tensors(names, (q, k_like))
     if q.dim() != 3 or k_like.dim() != 4:
         raise ValueError(f"{names[0]} must be (B, H, D) and {names[1]} 4-D, got "
                          f"{tuple(q.shape)} and {tuple(k_like.shape)}")
@@ -292,11 +357,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lens = _lens(kv_len, b, q.device)
     out = _launch_decode(q, k, v, lens, None, k.shape[2], 0, 0, sm_scale,
                          soft_cap, "decode_attention")
-    decode_attention.launches += 1
+    count("decode_attention")
     return out
-
-
-decode_attention.launches = 0
 
 
 def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
@@ -312,12 +374,12 @@ def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
     max_pages) int32, logical page j of sequence b in pool page
     ``block_table[b, j]`` (entries past a sequence's pages must still be
     valid pool indices, e.g. 0; they are never read); ``seq_lens``: (B,)
-    int32 ragged lengths.  Returns (B, H, D)."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "k_scale/v_scale (int8 KV pages) belong to a later slice of the port")
+    int32 ragged lengths.  int8 pools come with ``k_scale``/``v_scale``
+    (P, Hkv) f32, one scale per (page, head).  Returns (B, H, D)."""
+    quantized = check_page_scales(pool_k, pool_v, k_scale, v_scale)
     b, h, d, hk = _check_decode_q(q, pool_k, ("q", "pool_k"))
-    _check_tensors(("pool_k", "pool_v"), (pool_k, pool_v))
+    _check_tensors(("pool_k", "pool_v"), (pool_k, pool_v),
+                   float_like=not quantized)
     _check_tensors(("block_table", "seq_lens"), (block_table, seq_lens),
                    float_like=False)
     if pool_v.shape != pool_k.shape:
@@ -333,26 +395,19 @@ def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, pool_k, pool_v, block_table,
                                           seq_lens, sm_scale=sm_scale,
-                                          soft_cap=soft_cap)
+                                          soft_cap=soft_cap, k_scale=k_scale,
+                                          v_scale=v_scale)
     _check_kernel_shape(d, h // hk)
-    if block_table.dtype != torch.int32 or seq_lens.dtype != torch.int32:
-        raise TypeError("block_table and seq_lens must be int32 for the kernel")
+    check_int32(block_table=block_table, seq_lens=seq_lens)
     ps, mp = pool_k.shape[2], block_table.shape[1]
+    name = "paged_decode_attention_int8" if quantized else "paged_decode_attention"
     out = _launch_decode(q, pool_k, pool_v, seq_lens, block_table, mp * ps,
-                         ps, mp, sm_scale, soft_cap, "paged_decode_attention")
-    paged_decode_attention.launches += 1
+                         ps, mp, sm_scale, soft_cap, name, k_scale, v_scale)
+    count(name)
     return out
 
 
-paged_decode_attention.launches = 0
-
-KERNEL_WRAPPERS = (flash_attention, decode_attention, paged_decode_attention)
-
-
-def reset_launch_counts() -> None:
-    for fn in KERNEL_WRAPPERS:
-        fn.launches = 0
-
-
-def launch_counts() -> dict[str, int]:
-    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+def check_int32(**tensors) -> None:
+    for name, t in tensors.items():
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32 for the kernel, got {t.dtype}")
