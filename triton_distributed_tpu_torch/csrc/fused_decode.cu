@@ -20,13 +20,15 @@
 //   * Phase 1, projection: a work item is one head's D columns of wqkv and a
 //     slice of the K rows (`n_kslice` slices), for all B sequences; it
 //     writes f32 partial sums.  Items are spread over all SMs.
-//   * The last item to finish a kv head's G + 2 column tiles (an atomic
-//     ticket) finalizes that head: it sums the slices in a fixed order
-//     (deterministic), rounds to T as the JAX dot's `.astype` does, applies
-//     RMSNorm in f32 and rotate-half RoPE at pos = seq_lens[b] with f32
-//     angles, writes q and the token's k/v to scratch, appends k/v into the
-//     pool slot (table[b, min(pos / ps, mp - 1)], h, pos % ps) once per
-//     (sequence, head), and raises the head's ready flag.
+//   * The last item to finish a column tile's K slices (an atomic ticket)
+//     finalizes that tile for every sequence, one warp per sequence: it sums
+//     the slices in a fixed order (deterministic), rounds to T as the JAX
+//     dot's `.astype` does, applies RMSNorm in f32 and rotate-half RoPE at
+//     pos = seq_lens[b] with f32 angles, and writes q, or the token's k or v,
+//     to scratch; a k or v tile also appends the token into the pool slot
+//     (table[b, min(pos / ps, mp - 1)], h, pos % ps), once per (sequence,
+//     head).  The last of a kv head's G + 2 tiles to be finalized raises the
+//     head's ready flag.
 //   * Phase 2, attention: a work item is one (kv head, sequence, split of
 //     the prefix [0, pos)), run by split_state (decode_split.cuh, shared with
 //     K2/K3).  The last split of a (sequence, head) to finish merges the
@@ -73,8 +75,9 @@ struct FusedArgs {
   float* part_proj;          // (n_kslice, B, N) f32 projection partials
   float* part_acc;           // (B * Hkv * n_split, G, D) f32 split states
   float* part_ml;            // (B * Hkv * n_split, G, 2)
-  int* sync;                 // [work, exit, head tickets (Hkv), ready (Hkv),
-                             //  split tickets (B * Hkv)], zero at rest
+  int* sync;                 // [work, exit, tile tickets (Hkv (G + 2)), head
+                             //  tickets (Hkv), ready (Hkv), split tickets
+                             //  (B Hkv)], zero at rest
   int B, K, Hkv, page_size, max_pages, n_kslice, k_chunk, n_split, chunk;
   float sm_scale, soft_cap, eps;
 };
@@ -206,33 +209,42 @@ __device__ void project_tile(const FusedArgs& a, int N, int col0, int ks) {
   }
 }
 
-// Kv head h's q, k and v for every sequence, from the projection partials:
-// one warp per (sequence, tile) row, D / 32 elements per lane, so the norm
-// is a warp reduction and each RoPE pair (d, d + D / 2) sits in one lane.
+// Column tile `tile` of kv head h (a query head, or its k or v) for every
+// sequence, from the projection partials: one warp per sequence, D / 32
+// elements per lane, so the norm is a warp reduction and each RoPE pair
+// (d, d + D / 2) sits in one lane.
 template <typename T, typename S, int D, int G>
-__device__ void finalize_head(const FusedArgs& a, int N, int h) {
+__device__ void finalize_tile(const FusedArgs& a, int N, int h, int tile) {
   constexpr bool QUANT = sizeof(S) == 1;
   constexpr int J = D / 32;
   constexpr int HJ = J / 2;
+  constexpr int KU = 4;   // slices whose loads are in flight together
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int Hq = a.Hkv * G;
-  const T* q_norm = static_cast<const T*>(a.q_norm);
-  const T* k_norm = static_cast<const T*>(a.k_norm);
-  for (int r = warp; r < a.B * (G + 2); r += kWarps) {
-    const int b = r / (G + 2), tile = r % (G + 2);
-    const int col0 = column0<D, G>(tile, h, a.Hkv);
+  const int col0 = column0<D, G>(tile, h, a.Hkv);
+  const bool is_v = tile == G + 1;
+  const T* nw = static_cast<const T*>(tile < G ? a.q_norm : a.k_norm);
+  for (int b = warp; b < a.B; b += kWarps) {
+    const float* part = a.part_proj + static_cast<size_t>(b) * N + col0 + lane;
+    const size_t slice = static_cast<size_t>(a.B) * N;
     float val[J];
 #pragma unroll
-    for (int j = 0; j < J; ++j) {
-      float sum = 0.f;
-      for (int ks = 0; ks < a.n_kslice; ++ks)
-        sum += __ldcg(a.part_proj + (static_cast<size_t>(ks) * a.B + b) * N +
-                      col0 + lane + 32 * j);
-      val[j] = round_to<T>(sum);
+    for (int j = 0; j < J; ++j) val[j] = 0.f;
+    for (int ks = 0; ks < a.n_kslice; ks += KU) {
+      float t[KU][J];
+#pragma unroll
+      for (int u = 0; u < KU; ++u)
+#pragma unroll
+        for (int j = 0; j < J; ++j)
+          t[u][j] = ks + u < a.n_kslice ? __ldcg(part + (ks + u) * slice + 32 * j) : 0.f;
+#pragma unroll
+      for (int u = 0; u < KU; ++u)
+#pragma unroll
+        for (int j = 0; j < J; ++j) val[j] += t[u][j];
     }
-    const bool is_v = tile == G + 1;
+#pragma unroll
+    for (int j = 0; j < J; ++j) val[j] = round_to<T>(val[j]);
     if (!is_v) {
-      const T* nw = tile < G ? q_norm : k_norm;
       if (nw != nullptr) {
         float ss = 0.f;
 #pragma unroll
@@ -322,7 +334,8 @@ __global__ void __launch_bounds__(kThreads) fused_attn_decode_kernel(const Fused
   __shared__ int s_item;
   int* work = a.sync;
   int* exited = a.sync + 1;
-  int* head_ticket = a.sync + 2;
+  int* tile_ticket = a.sync + 2;
+  int* head_ticket = tile_ticket + a.Hkv * (G + 2);
   int* ready = head_ticket + a.Hkv;
   int* split_ticket = ready + a.Hkv;
   const int N = (a.Hkv * G + 2 * a.Hkv) * D;
@@ -334,9 +347,9 @@ __global__ void __launch_bounds__(kThreads) fused_attn_decode_kernel(const Fused
   if (item < n_proj) {
     const int h = item / per_head, tile = (item % per_head) / a.n_kslice;
     project_tile<T, D>(a, N, column0<D, G>(tile, h, a.Hkv), item % a.n_kslice);
-    if (arrive_last(head_ticket + h, per_head)) {
-      finalize_head<T, S, D, G>(a, N, h);
-      raise_flag(ready + h);
+    if (arrive_last(tile_ticket + h * (G + 2) + tile, a.n_kslice)) {
+      finalize_tile<T, S, D, G>(a, N, h, tile);
+      if (arrive_last(head_ticket + h, G + 2)) raise_flag(ready + h);
     }
   } else {
     const int i = item - n_proj;
@@ -361,7 +374,7 @@ __global__ void __launch_bounds__(kThreads) fused_attn_decode_kernel(const Fused
   if (threadIdx.x == 0) {
     __threadfence();
     if (atomicAdd(exited, 1) == static_cast<int>(gridDim.x) - 1) {
-      const int n = 2 + 2 * a.Hkv + a.B * a.Hkv;
+      const int n = 2 + a.Hkv * (G + 2) + 2 * a.Hkv + a.B * a.Hkv;
       for (int k = 0; k < n; ++k) a.sync[k] = 0;
       __threadfence();
     }
@@ -404,8 +417,8 @@ cudaError_t dispatch_d(int D, int G, const FusedArgs& a, cudaStream_t st) {
 // f32.  Outputs: out (B, H, D), and k_tok/v_tok (B, Hkv, D), the new token's
 // k and v.  Scratch: q_buf (B, H, D), part_proj (n_kslice * B * (H + 2 Hkv) *
 // D) f32, part_acc (B * Hkv * n_split * G * D) f32, part_ml (B * Hkv *
-// n_split * G * 2) f32, and sync (2 + 2 Hkv + B Hkv) int32, zero at rest and
-// left zero.  K row slice s covers [s * k_chunk, (s + 1) * k_chunk); split s
+// n_split * G * 2) f32, and sync (2 + Hkv (G + 2) + 2 Hkv + B Hkv) int32, zero
+// at rest and left zero.  K row slice s covers [s * k_chunk, (s + 1) * k_chunk); split s
 // of the prefix covers positions [s * chunk, (s + 1) * chunk).  eps: the
 // qk-norm epsilon.  dtype (of x): 0 = float32, 1 = bfloat16.  Returns the
 // cudaError_t of the launch.

@@ -217,7 +217,7 @@ def fused_attn_decode(x: torch.Tensor, wqkv: torch.Tensor,
     part_proj = torch.empty((n_kslice * b * qkv_cols,), **f32)
     part_acc = torch.empty((b * hk * n_split * g * d,), **f32)
     part_ml = torch.empty((b * hk * n_split * g * 2,), **f32)
-    sync = _sync_buffer(dev, 2 + 2 * hk + b * hk)
+    sync = _sync_buffer(dev, 2 + hk * (g + 2) + 2 * hk + b * hk)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
