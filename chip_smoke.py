@@ -720,10 +720,15 @@ def phase_parity(tt, torch) -> None:
         worst = max((g_ - c_).abs().max().item() for g_, c_ in pairs)
         ok = all(bool(((g_ - c_).abs() <= PARITY_TOL + PARITY_TOL * c_.abs() + extra).all())
                  for g_, c_ in pairs)
+        differing = None
+        if kv_dtype:   # the share of int8 codes that differ card vs CPU
+            differing = sum(int((g_.cpu() != c_).sum()) for g_, c_ in (
+                (gcache.k, ccache.k), (gcache.v, ccache.v))) / (2 * ccache.k.numel())
         emit({"phase": "parity", "mode": label, "decode_steps": gen,
               "decode_logits_max_abs_err": worst, "tol": PARITY_TOL,
               "int8_quantization_effect": quant_effect if kv_dtype else None,
               "int8_tie_allowance": extra if kv_dtype else None,
+              "int8_codes_differing": differing,
               "logits_ok": ok, "tokens_equal": same})
         check(ok, f"{label}: decode logits differ card vs CPU by {worst}")
         check(same, f"{label}: greedy tokens differ between the card and the CPU")

@@ -54,7 +54,7 @@ namespace tdt {
 namespace {
 
 constexpr int kProjBatch = 4;   // sequences per pass over a weight tile
-constexpr int kProjUnroll = 4;  // weight rows in flight per lane group
+constexpr int kProjUnroll = 8;  // weight rows in flight per lane group
 
 struct FusedArgs {
   const void* x;             // (B, K) T
@@ -407,6 +407,31 @@ cudaError_t dispatch_d(int D, int G, const FusedArgs& a, cudaStream_t st) {
   return cudaErrorInvalidValue;
 }
 
+template <typename K>
+int occupancy(K kernel) {
+  int n = 0;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, 0) ==
+                 cudaSuccess ? n : -1;
+}
+
+template <typename T, typename S, int D>
+int blocks_per_sm(int G) {
+  switch (G) {
+    case 1: return occupancy(fused_attn_decode_kernel<T, S, D, 1>);
+    case 2: return occupancy(fused_attn_decode_kernel<T, S, D, 2>);
+    case 4: return occupancy(fused_attn_decode_kernel<T, S, D, 4>);
+    case 8: return occupancy(fused_attn_decode_kernel<T, S, D, 8>);
+    default: return -1;
+  }
+}
+
+template <typename T, typename S>
+int blocks_per_sm_d(int D, int G) {
+  if (D == 128) return blocks_per_sm<T, S, 128>(G);
+  if (D == 64) return blocks_per_sm<T, S, 64>(G);
+  return -1;
+}
+
 }  // namespace
 }  // namespace tdt
 
@@ -449,4 +474,17 @@ extern "C" int tdt_fused_attn_decode(
     return int8_pages ? dispatch_d<float, int8_t>(D, G, a, st)
                       : dispatch_d<float, float>(D, G, a, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// How many blocks of the kernel for (D, G, dtype, int8 pages) fit on one SM
+// at once (registers and shared memory); -1 for a shape it does not cover.
+// The wrapper sizes the projection items to one full wave of them.
+extern "C" int tdt_fused_attn_decode_blocks_per_sm(int D, int G, int dtype,
+                                                   int int8_pages) {
+  using namespace tdt;
+  if (dtype == 1)
+    return int8_pages ? blocks_per_sm_d<bf16, int8_t>(D, G) : blocks_per_sm_d<bf16, bf16>(D, G);
+  if (dtype == 0)
+    return int8_pages ? blocks_per_sm_d<float, int8_t>(D, G) : blocks_per_sm_d<float, float>(D, G);
+  return -1;
 }

@@ -15,6 +15,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..core import build
@@ -36,8 +38,7 @@ from .attention import (
 )
 from .rope import apply_rope_at
 
-PROJ_BLOCKS_PER_SM = 4     # target of the projection items per SM
-PROJ_ROW_GRANULE = 32      # K rows a block's lane groups take per step
+PROJ_ROW_GRANULE = 64      # K rows a block's lane groups take per step
 
 
 # ---------------------------------------------------------------------------
@@ -130,14 +131,26 @@ def _inv_freq(device, d: int, theta: float) -> torch.Tensor:
     return _inv_freqs[key]
 
 
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(d: int, g: int, dtype: torch.dtype, quantized: bool) -> int:
+    """How many K4 blocks of this instantiation an SM holds at once."""
+    n = build.library().tdt_fused_attn_decode_blocks_per_sm(
+        d, g, KERNEL_DTYPES[dtype], int(quantized))
+    if n <= 0:
+        raise RuntimeError(f"fused_attn_decode: no occupancy for D={d} G={g} "
+                           f"{dtype} int8={quantized} ({n})")
+    return n
+
+
 def fused_plan(b: int, k_dim: int, hk: int, g: int, capacity: int,
-               page_size: int, device) -> tuple[int, int, int, int]:
+               page_size: int, device, blocks_per_sm: int
+               ) -> tuple[int, int, int, int]:
     """(n_kslice, k_chunk, n_split, chunk): the projection cuts wqkv's K rows
     into ``n_kslice`` slices of ``k_chunk`` so that the Hkv * (G + 2) column
-    tiles make about ``PROJ_BLOCKS_PER_SM`` items per SM; the attention cuts
-    the prefix as the decode kernels do."""
+    tiles make one full wave of ``blocks_per_sm`` blocks on every SM; the
+    attention cuts the prefix as the decode kernels do."""
     tiles = hk * (g + 2)
-    want = cdiv(PROJ_BLOCKS_PER_SM * _sm_count(device.index), tiles)
+    want = max(1, blocks_per_sm * _sm_count(device.index) // tiles)
     n = max(1, min(want, cdiv(k_dim, PROJ_ROW_GRANULE)))
     k_chunk = cdiv(cdiv(k_dim, n), PROJ_ROW_GRANULE) * PROJ_ROW_GRANULE
     n_split, chunk = decode_split_plan(b * hk, capacity, device,
@@ -207,8 +220,9 @@ def fused_attn_decode(x: torch.Tensor, wqkv: torch.Tensor,
     _check_kernel_shape(d, g)
     check_int32(block_table=block_table, seq_lens=seq_lens)
     dev = x.device
-    n_kslice, k_chunk, n_split, chunk = fused_plan(b, k_dim, hk, g, mp * ps,
-                                                   ps, dev)
+    n_kslice, k_chunk, n_split, chunk = fused_plan(
+        b, k_dim, hk, g, mp * ps, ps, dev,
+        _blocks_per_sm(d, g, x.dtype, quantized))
     f32 = dict(dtype=torch.float32, device=dev)
     out = torch.empty((b, h * d), dtype=x.dtype, device=dev)
     q_buf = torch.empty((b, h, d), dtype=x.dtype, device=dev)
