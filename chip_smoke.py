@@ -500,6 +500,13 @@ def fused_main_rows(tt, torch, g, qd, table, lens) -> dict:
                                 k_scale=ks[None] if quant else None,
                                 v_scale=vs[None] if quant else None)
         _, chain_ms = perf_func(lambda: chain(cache), iters=50)
+        # where K4's time goes: the same call with an empty prefix (the
+        # projection, the finalize and the token alone), and cuBLAS reading
+        # the same weights
+        zero = torch.zeros_like(lens)
+        _, empty_prefix_ms = perf_func(lambda: FD.fused_attn_decode(
+            *args, gk, gv, table, zero, **kw, **scales), iters=50)
+        _, qkv_matmul_ms = perf_func(lambda: torch.matmul(x, wqkv), iters=50)
         out_bytes = nbytes(got[0]) + 2 * BATCH * hk * d * 2   # out, and the token's k/v
         b_ms, b_by = bound(2 * BATCH * k_dim * wqkv.shape[1] + 4 * BATCH * h * DECODE_POS * d,
                            nbytes(x, wqkv, qn, kn, table, lens) + kv_bytes + out_bytes,
@@ -509,6 +516,7 @@ def fused_main_rows(tt, torch, g, qd, table, lens) -> dict:
             replaces="triton_distributed_tpu/ops/fused_decode.py:112",
             max_abs_err=e, tol=BF16_TOL, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=None, chain_ms=chain_ms,
+            empty_prefix_ms=empty_prefix_ms, qkv_matmul_ms=qkv_matmul_ms,
             shape=(f"x ({BATCH},{k_dim}) wqkv ({k_dim},{wqkv.shape[1]}) "
                    f"{'int8' if quant else 'bf16'} pool ({p},{hk},{ps},{d}) pos {DECODE_POS}"))
     return rows

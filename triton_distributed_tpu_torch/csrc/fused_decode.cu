@@ -108,14 +108,21 @@ __device__ __forceinline__ void raise_flag(int* flag) {
   if (threadIdx.x == 0) atomicExch(flag, 1);
 }
 
-// Waits for a flag another block raises.  The wait is bounded: a flag still
-// down after about 2^26 polls (seconds, where a step takes microseconds)
-// means corrupt counters, and the kernel traps, which fails the launch,
-// rather than spin on.
-__device__ __forceinline__ void wait_flag(int* flag) {
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.global.acquire.gpu.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Waits for a flag another block raises, polling with plain acquire loads
+// (no read-modify-write traffic on the flag's L2 line).  The wait is
+// bounded: a flag still down after about 2^26 polls (seconds, where a step
+// takes microseconds) means corrupt counters, and the kernel traps, which
+// fails the launch, rather than spin on.
+__device__ __forceinline__ void wait_flag(const int* flag) {
   if (threadIdx.x == 0) {
     unsigned polls = 0;
-    while (atomicAdd(flag, 0) == 0) {
+    while (load_acquire(flag) == 0) {
       __nanosleep(64);
       if (++polls == (1u << 26)) __trap();
     }
@@ -155,14 +162,25 @@ __device__ void project_tile(const FusedArgs& a, int N, int col0, int ks) {
     for (int bb = 0; bb < PB; ++bb)
 #pragma unroll
       for (int e = 0; e < E; ++e) acc[bb][e] = 0.f;
+    // Two register stages: the next U rows' loads are issued before the
+    // current U rows are multiplied, so loads stay in flight while the
+    // block computes.
+    uint4 cur[U], nxt[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int k = k0 + row + u * RPB;
+      cur[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (k < k1)
+        cur[u] = __ldg(reinterpret_cast<const uint4*>(
+            w + static_cast<size_t>(k) * N + col0 + sub * E));
+    }
     for (int kk = k0 + row; kk < k1; kk += RPB * U) {
-      uint4 wr[U];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        const int k = kk + u * RPB;
-        wr[u] = make_uint4(0u, 0u, 0u, 0u);
+        const int k = kk + (U + u) * RPB;
+        nxt[u] = make_uint4(0u, 0u, 0u, 0u);
         if (k < k1)
-          wr[u] = __ldg(reinterpret_cast<const uint4*>(
+          nxt[u] = __ldg(reinterpret_cast<const uint4*>(
               w + static_cast<size_t>(k) * N + col0 + sub * E));
       }
 #pragma unroll
@@ -170,7 +188,7 @@ __device__ void project_tile(const FusedArgs& a, int N, int col0, int ks) {
         const int k = kk + u * RPB;
         if (k < k1) {
           float wf[E];
-          unpack16(wr[u], wf, T());
+          unpack16(cur[u], wf, T());
 #pragma unroll
           for (int bb = 0; bb < PB; ++bb) {
             if (b0 + bb < a.B) {
@@ -180,6 +198,7 @@ __device__ void project_tile(const FusedArgs& a, int N, int col0, int ks) {
             }
           }
         }
+        cur[u] = nxt[u];
       }
     }
     // the rows of a warp, then the warps
