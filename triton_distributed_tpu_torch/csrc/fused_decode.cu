@@ -162,25 +162,14 @@ __device__ void project_tile(const FusedArgs& a, int N, int col0, int ks) {
     for (int bb = 0; bb < PB; ++bb)
 #pragma unroll
       for (int e = 0; e < E; ++e) acc[bb][e] = 0.f;
-    // Two register stages: the next U rows' loads are issued before the
-    // current U rows are multiplied, so loads stay in flight while the
-    // block computes.
-    uint4 cur[U], nxt[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int k = k0 + row + u * RPB;
-      cur[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (k < k1)
-        cur[u] = __ldg(reinterpret_cast<const uint4*>(
-            w + static_cast<size_t>(k) * N + col0 + sub * E));
-    }
     for (int kk = k0 + row; kk < k1; kk += RPB * U) {
+      uint4 wr[U];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        const int k = kk + (U + u) * RPB;
-        nxt[u] = make_uint4(0u, 0u, 0u, 0u);
+        const int k = kk + u * RPB;
+        wr[u] = make_uint4(0u, 0u, 0u, 0u);
         if (k < k1)
-          nxt[u] = __ldg(reinterpret_cast<const uint4*>(
+          wr[u] = __ldg(reinterpret_cast<const uint4*>(
               w + static_cast<size_t>(k) * N + col0 + sub * E));
       }
 #pragma unroll
@@ -188,7 +177,7 @@ __device__ void project_tile(const FusedArgs& a, int N, int col0, int ks) {
         const int k = kk + u * RPB;
         if (k < k1) {
           float wf[E];
-          unpack16(cur[u], wf, T());
+          unpack16(wr[u], wf, T());
 #pragma unroll
           for (int bb = 0; bb < PB; ++bb) {
             if (b0 + bb < a.B) {
@@ -198,7 +187,6 @@ __device__ void project_tile(const FusedArgs& a, int N, int col0, int ks) {
             }
           }
         }
-        cur[u] = nxt[u];
       }
     }
     // the rows of a warp, then the warps
