@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port (triton_distributed_tpu_torch) on one
 NVIDIA H100 and check it.
 
-    python3 chip_smoke.py            # needs one Hopper card
+    python3 chip_smoke.py                  # needs one Hopper card
+    python3 chip_smoke.py --kernels-only   # phases 1-3 alone, no result line
 
 Phases, each printing JSON lines; any failure exits non-zero:
 
@@ -407,6 +408,7 @@ def fused_main_rows(tt, torch, g, qd, table, lens) -> dict:
     import torch.nn.functional as F
 
     from triton_distributed_tpu_torch.core.utils import perf_func
+    from triton_distributed_tpu_torch.lang import quant
     from triton_distributed_tpu_torch.models import kv_cache as KV
     from triton_distributed_tpu_torch.ops import attention as A
     from triton_distributed_tpu_torch.ops import fused_decode as FD
@@ -437,8 +439,8 @@ def fused_main_rows(tt, torch, g, qd, table, lens) -> dict:
                       iters=50)
     _, plain_ms = perf_func(lambda: A.paged_decode_attention_ref(qd, ck, cv, table, lens,
                                                                  **scales))
-    dk = KV._dequantize_pages(ck, ks, bf)
-    dv = KV._dequantize_pages(cv, vs, bf)
+    dk = quant.dequantize_pages(ck, ks, bf)
+    dv = quant.dequantize_pages(cv, vs, bf)
     gk = A.gather_pages(dk, table)[0][:, :, :DECODE_POS]
     gv = A.gather_pages(dv, table)[0][:, :, :DECODE_POS]
     _, lib_ms = perf_func(lambda: F.scaled_dot_product_attention(
@@ -775,6 +777,8 @@ def main() -> int:
         phase_fused_cases(tt, torch)
         phase = "kernels_main"
         rows = phase_kernels_main(tt, torch)
+        if "--kernels-only" in sys.argv[1:]:
+            return 0
         phase = "serve"
         launches = phase_serve(tt, torch)
         for name, n in launches.items():

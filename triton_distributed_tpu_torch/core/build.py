@@ -3,11 +3,11 @@
 Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` (Hopper's
 ``wgmma``/``setmaxnreg`` target; plain ``sm_90`` refuses those) into an
 object, all sources at once in parallel, and the objects are linked into one
-shared library with a plain C interface.  Nothing includes PyTorch's headers,
-so a build takes seconds.  The library lands in ``build/torch_kernels/<hash>/``
-under the repository root (listed in ``.gitignore``), keyed by a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one loads
-from disk.
+shared library with a plain C interface; nothing includes PyTorch's headers,
+the slow part of building a PyTorch extension.  The library lands in
+``build/torch_kernels/<hash>/`` under the repository root (listed in
+``.gitignore``), keyed by a hash of the sources and flags, so an edited
+source rebuilds and an unchanged one loads from disk.
 
 A failed build raises :class:`KernelBuildError`; nothing here falls back to
 the plain PyTorch versions.

@@ -5,7 +5,8 @@ A block of values shares one f32 scale, chosen so that the block's absolute
 maximum maps to ``INT8_MAX``; codes are ``round(x / scale)`` clipped to
 [-127, 127] (round half to even, as ``jnp.round``).  ``SCALE_EPS`` keeps an
 all-zero block at a finite scale, so 0 / 0 never happens and zeros
-round-trip exactly.  The KV cache applies it per (page, head).  The packed
+round-trip exactly.  The KV cache applies it per (page, head), a block
+being the (page_size, head_dim) rows of one head in one page.  The packed
 collective wire format and its kernel belong to a later slice.
 """
 
@@ -17,25 +18,18 @@ INT8_MAX = 127.0     # symmetric int8 grid (-128 is not used)
 SCALE_EPS = 1e-12    # keeps all-zero blocks at a finite scale
 
 
-def quantize_int8(x: torch.Tensor, dims=(-2, -1)):
-    """``(codes, scale)``: int8 codes of ``x`` with one f32 scale per block,
-    a block being the axes ``dims``; ``scale`` has ``x``'s shape without
-    them."""
-    xf = x.float()
-    absmax = xf.abs().amax(dim=dims)
-    scale = absmax / INT8_MAX + SCALE_EPS
-    expand = scale
-    for d in sorted(a % x.dim() for a in dims):
-        expand = expand.unsqueeze(d)
-    codes = torch.round(xf / expand).clamp_(-INT8_MAX, INT8_MAX).to(torch.int8)
-    return codes, scale
+def quantize_pages(vals: torch.Tensor):
+    """``(codes, scale)``: int8 codes of ``vals`` (..., rows, cols) with one
+    f32 scale per block of the last two axes; ``scale`` has ``vals``' shape
+    without them."""
+    xf = vals.float()
+    scale = xf.abs().amax(dim=(-2, -1)) / INT8_MAX + SCALE_EPS
+    codes = torch.round(xf / scale[..., None, None]).clamp_(-INT8_MAX, INT8_MAX)
+    return codes.to(torch.int8), scale
 
 
-def dequantize_int8(codes: torch.Tensor, scale: torch.Tensor, dims=(-2, -1),
-                    dtype=torch.float32) -> torch.Tensor:
-    """Inverse of :func:`quantize_int8`: ``codes * scale`` in f32, cast to
+def dequantize_pages(codes: torch.Tensor, scale: torch.Tensor,
+                     dtype=torch.float32) -> torch.Tensor:
+    """Inverse of :func:`quantize_pages`: ``codes * scale`` in f32, cast to
     ``dtype``."""
-    expand = scale.float()
-    for d in sorted(a % codes.dim() for a in dims):
-        expand = expand.unsqueeze(d)
-    return (codes.float() * expand).to(dtype)
+    return (codes.float() * scale.float()[..., None, None]).to(dtype)

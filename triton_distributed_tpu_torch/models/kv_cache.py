@@ -97,17 +97,13 @@ def init_cache(num_layers: int, batch: int, kv_heads: int, max_length: int,
 def _resolve_kv_dtype(dtype, kv_dtype) -> tuple[torch.dtype, bool]:
     """(pool dtype, quantized?) from the ``kv_dtype`` knob: None keeps
     ``dtype``; "int8" (or ``torch.int8``) selects the quantized
-    per-(page, head)-scale layout; any other torch dtype (or its name) is
-    stored as it is."""
-    if kv_dtype is None:
+    per-(page, head)-scale layout.  Other pool dtypes, which the JAX package
+    stores as they are, have no decode kernel here and are refused."""
+    if kv_dtype is None or kv_dtype == dtype:
         return dtype, False
-    if isinstance(kv_dtype, str):
-        name, kv_dtype = kv_dtype, getattr(torch, kv_dtype, None)
-        if not isinstance(kv_dtype, torch.dtype):
-            raise ValueError(f"kv_dtype {name!r} is not a torch dtype")
-    if kv_dtype == torch.int8:
+    if kv_dtype in ("int8", torch.int8):
         return torch.int8, True
-    return kv_dtype, False
+    raise ValueError(f"kv_dtype {kv_dtype!r} not served: None or 'int8'")
 
 
 def kv_page_bytes(num_layers: int, kv_heads: int, page_size: int,
@@ -160,16 +156,8 @@ def init_paged_cache(num_layers: int, batch: int, kv_heads: int,
 # the int8 page codec
 
 
-def _quantize_pages(vals: torch.Tensor):
-    """Quantize page-major values (..., Hkv, ps, D) to int8 codes with one
-    f32 scale per leading (page, head) cell; returns ``(codes, scale)``."""
-    return quant.quantize_int8(vals, dims=(-2, -1))
-
-
-def _dequantize_pages(codes: torch.Tensor, scale: torch.Tensor,
-                      dtype=torch.float32) -> torch.Tensor:
-    """Inverse of :func:`_quantize_pages`."""
-    return quant.dequantize_int8(codes, scale, dims=(-2, -1), dtype=dtype)
+_quantize_pages = quant.quantize_pages        # (..., Hkv, ps, D) -> codes, (..., Hkv)
+_dequantize_pages = quant.dequantize_pages
 
 
 def _merge_token_page(q_pages: torch.Tensor, scales: torch.Tensor,

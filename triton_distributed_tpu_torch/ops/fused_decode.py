@@ -28,6 +28,7 @@ from .attention import (
     KERNEL_DTYPES,
     _check_kernel_shape,
     _check_tensors,
+    _ptr,
     _sm_count,
     _stream,
     check_int32,
@@ -106,7 +107,6 @@ def fused_attn_decode_ref(x, wqkv, q_norm, k_norm, pool_k, pool_v,
 
 
 _sync_buffers: dict[int, torch.Tensor] = {}
-_inv_freqs: dict[tuple, torch.Tensor] = {}
 
 
 def _sync_buffer(device, n: int) -> torch.Tensor:
@@ -120,15 +120,13 @@ def _sync_buffer(device, n: int) -> torch.Tensor:
     return buf
 
 
+@functools.lru_cache(maxsize=None)
 def _inv_freq(device, d: int, theta: float) -> torch.Tensor:
     """RoPE's (D / 2) f32 inverse frequencies, as ``ops.rope.rope_freqs``
     computes them, cached per device."""
-    key = (device.index, d, float(theta))
-    if key not in _inv_freqs:
-        half = d // 2
-        exponent = torch.arange(0, half, dtype=torch.float32, device=device) / half
-        _inv_freqs[key] = 1.0 / (float(theta) ** exponent)
-    return _inv_freqs[key]
+    half = d // 2
+    exponent = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return 1.0 / (float(theta) ** exponent)
 
 
 @functools.lru_cache(maxsize=None)
@@ -232,16 +230,13 @@ def fused_attn_decode(x: torch.Tensor, wqkv: torch.Tensor,
     part_acc = torch.empty((b * hk * n_split * g * d,), **f32)
     part_ml = torch.empty((b * hk * n_split * g * 2,), **f32)
     sync = _sync_buffer(dev, 2 + hk * (g + 2) + 2 * hk + b * hk)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+    qn_, kn_ = norms if norms else (None, None)
     lib = build.library()
     err = lib.tdt_fused_attn_decode(
-        x.data_ptr(), wqkv.data_ptr(), ptr(norms[0] if norms else None),
-        ptr(norms[1] if norms else None), pool_k.data_ptr(), pool_v.data_ptr(),
-        ptr(k_scale), ptr(v_scale), block_table.data_ptr(), seq_lens.data_ptr(),
-        _inv_freq(dev, d, rope_theta).data_ptr(), out.data_ptr(),
+        x.data_ptr(), wqkv.data_ptr(), _ptr(qn_), _ptr(kn_), pool_k.data_ptr(),
+        pool_v.data_ptr(), _ptr(k_scale), _ptr(v_scale), block_table.data_ptr(),
+        seq_lens.data_ptr(), _inv_freq(dev, d, float(rope_theta)).data_ptr(),
+        out.data_ptr(),
         q_buf.data_ptr(), k_tok.data_ptr(), v_tok.data_ptr(),
         part_proj.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
         sync.data_ptr(), b, k_dim, h, hk, d, ps, mp, n_kslice, k_chunk,
