@@ -224,3 +224,9 @@ def test_set_decode_mode_keeps_params_and_cache():
     np.testing.assert_array_equal(eng.generate(ids, 4).numpy(), want.numpy())
     with pytest.raises(NotImplementedError, match="decode_mode"):
         eng.set_decode_mode("persistent")
+    # on a contiguous cache the fused mode keeps the per-kernel attention
+    # (JAX qwen.py:746-749): the same step as psum
+    flat = tt.Engine(shared, eng.params, batch=1)
+    want = flat.generate(ids, 4)
+    flat.set_decode_mode("fused")
+    np.testing.assert_array_equal(flat.generate(ids, 4).numpy(), want.numpy())
