@@ -473,9 +473,8 @@ def fused_main_rows(tt, torch, g, qd, table, lens) -> dict:
         q_ = apply_rope(q_, cos, sin)[:, :, 0].contiguous()
         KV.append_token(cache, 0, apply_rope(k_, cos, sin)[:, :, 0],
                         v_.reshape(BATCH, hk, d))
-        sc = {} if not cache.quantized else dict(k_scale=cache.k_scale[0],
-                                                   v_scale=cache.v_scale[0])
-        return A.paged_decode_attention(q_, cache.k[0], cache.v[0], table, lens + 1, **sc)
+        return A.paged_decode_attention(q_, cache.k[0], cache.v[0], table, lens + 1,
+                                        **KV.layer_scales(cache, 0))
 
     for quant in (False, True):
         if quant:

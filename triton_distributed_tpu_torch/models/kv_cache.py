@@ -188,6 +188,14 @@ def dequantize_pool(cache: PagedKVCache, dtype=torch.bfloat16) -> PagedKVCache:
         k_scale=None, v_scale=None)
 
 
+def layer_scales(cache: PagedKVCache, layer: int) -> dict:
+    """One layer's ``k_scale``/``v_scale`` as the decode kernels take them;
+    empty for a full-precision cache."""
+    if not cache.quantized:
+        return {}
+    return dict(k_scale=cache.k_scale[layer], v_scale=cache.v_scale[layer])
+
+
 def layer_pool(cache: PagedKVCache, layer: int, dtype=None) -> tuple:
     """One layer's (k, v) pools in compute precision: the pools themselves
     for a full-precision cache, dequantized copies for int8."""

@@ -41,6 +41,7 @@ from .kv_cache import (
     advance,
     append_layer_quantized,
     append_token,
+    layer_scales,
     with_length,
     write_prefill,
     write_prefill_paged,
@@ -199,11 +200,9 @@ class Qwen3(nn.Module):
         k = apply_rope(k, cos, sin)[:, :, 0]
         append_token(cache, layer, k, v[:, :, 0])
         if isinstance(cache, PagedKVCache):
-            scales = ({} if not cache.quantized else
-                      dict(k_scale=cache.k_scale[layer], v_scale=cache.v_scale[layer]))
             out = paged_decode_attention(q, cache.k[layer], cache.v[layer],
                                          cache.block_table, cache.seq_lens + 1,
-                                         **scales)
+                                         **layer_scales(cache, layer))
         else:
             out = decode_attention(q, cache.k[layer], cache.v[layer],
                                    cache.kv_len + 1)
@@ -216,12 +215,10 @@ class Qwen3(nn.Module):
         int8 cache the kernel returns the token, which the exact requantizing
         append then writes (``append_layer_quantized``)."""
         c = self.config
-        scales = ({} if not cache.quantized else
-                  dict(k_scale=cache.k_scale[layer], v_scale=cache.v_scale[layer]))
         res = fused_attn_decode(
             x, p.wqkv, p.q_norm, p.k_norm, cache.k[layer], cache.v[layer],
             cache.block_table, cache.seq_lens, rope_theta=c.rope_theta,
-            qk_eps=c.rms_eps if c.qk_norm else None, **scales)
+            qk_eps=c.rms_eps if c.qk_norm else None, **layer_scales(cache, layer))
         if cache.quantized:
             _, _, _, k_tok, v_tok = res
             append_layer_quantized(cache.k[layer], cache.v[layer],
