@@ -230,3 +230,48 @@ def test_set_decode_mode_keeps_params_and_cache():
     want = flat.generate(ids, 4)
     flat.set_decode_mode("fused")
     np.testing.assert_array_equal(flat.generate(ids, 4).numpy(), want.numpy())
+
+
+def test_decode_reductions_follow_the_mode(monkeypatch):
+    """The o-proj and MLP of a decode step go through the fused mode's
+    GEMM + AllReduce entries in "fused" mode only, on either layout
+    (JAX qwen.py:152-190, :695-734); "psum" keeps the plain products."""
+    from triton_distributed_tpu_torch.models import qwen as tq
+
+    calls = []
+    for name in ("fused_linear_ar", "fused_mlp_ar"):
+        real = getattr(tq, name)
+        monkeypatch.setattr(tq, name, lambda *a, _f=real, _n=name, **k:
+                            calls.append(_n) or _f(*a, **k))
+    ids = torch.zeros((1, 4), dtype=torch.int32)
+    for layout in ("contiguous", "paged"):
+        eng = tt.Engine.build(TCFG, device="cpu", batch=1, cache_layout=layout,
+                              page_size=PAGE, generator=torch.Generator().manual_seed(3))
+        eng.generate(ids, 2)
+        assert calls == []
+        eng.set_decode_mode("fused")
+        eng.generate(ids, 2)
+        assert calls.count("fused_linear_ar") == calls.count("fused_mlp_ar") \
+            == TCFG.num_layers
+        calls.clear()
+
+
+def test_k4_counters_are_kept_per_stream():
+    """K4's work and ticket counters: one zeroed buffer per (device,
+    stream), shared by launches on that stream and grown when a launch
+    needs more; launches on another stream get their own."""
+    from triton_distributed_tpu_torch.ops import fused_decode as fd
+
+    cpu = torch.device("cpu")
+    try:
+        a = fd._sync_buffer(cpu, 11, 8)
+        assert a.dtype == torch.int32 and a.numel() == 8 and not a.any()
+        assert fd._sync_buffer(cpu, 11, 6) is a
+        b = fd._sync_buffer(cpu, 12, 8)
+        assert b is not a and not b.any()
+        grown = fd._sync_buffer(cpu, 11, 16)
+        assert grown.numel() == 16 and fd._sync_buffer(cpu, 11, 8) is grown
+        assert fd._sync_buffer(cpu, 12, 8) is b
+    finally:
+        for stream in (11, 12):
+            fd._sync_buffers.pop(("cpu", None, stream), None)

@@ -206,7 +206,7 @@ class Qwen3(nn.Module):
         else:
             out = decode_attention(q, cache.k[layer], cache.v[layer],
                                    cache.kv_len + 1)
-        return fused_linear_ar(out.reshape(b, -1), p.wo)
+        return self._row_parallel_reduce(out.reshape(b, -1), p.wo)
 
     def _attn_decode_paged_fused(self, p: TPAttnParams, x: torch.Tensor,
                                  cache: PagedKVCache, layer: int) -> torch.Tensor:
@@ -225,7 +225,22 @@ class Qwen3(nn.Module):
                                    cache.k_scale[layer], cache.v_scale[layer],
                                    cache.block_table, cache.seq_lens,
                                    k_tok, v_tok)
-        return fused_linear_ar(res[0], p.wo)
+        return self._row_parallel_reduce(res[0], p.wo)
+
+    def _row_parallel_reduce(self, h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """A decode step's ``AllReduce(h @ w)`` (``qwen.py:152-190``): the
+        fused mode's GEMM + AllReduce entry, else the product; one rank
+        reduces nothing."""
+        if self.decode_mode == "fused":
+            return fused_linear_ar(h, w)
+        return torch.matmul(h, w)
+
+    def _mlp_decode(self, p: TPMLPParams, x: torch.Tensor) -> torch.Tensor:
+        """A decode step's MLP and its AllReduce (``qwen.py:695-734``), as
+        :meth:`_row_parallel_reduce` dispatches."""
+        if self.decode_mode == "fused":
+            return fused_mlp_ar(x, p.gate_up, p.down)
+        return mlp_forward(p, x)
 
     @torch.no_grad()
     def decode(self, params: QwenParams, cache, tokens: torch.Tensor):
@@ -253,8 +268,7 @@ class Qwen3(nn.Module):
                 x = x + self._attn_decode_paged_fused(lp.attn, h, cache, li)
             else:
                 x = x + self._attn_decode(lp.attn, h, cache, li, cos, sin)
-            x = x + fused_mlp_ar(rms_norm(x, lp.ln2, c.rms_eps),
-                                 lp.mlp.gate_up, lp.mlp.down)
+            x = x + self._mlp_decode(lp.mlp, rms_norm(x, lp.ln2, c.rms_eps))
         return self._finish(params, x), advance(cache, 1)
 
     @torch.no_grad()

@@ -106,17 +106,20 @@ def fused_attn_decode_ref(x, wqkv, q_norm, k_norm, pool_k, pool_v,
 # K4
 
 
-_sync_buffers: dict[int, torch.Tensor] = {}
+_sync_buffers: dict[tuple[str, int | None, int], torch.Tensor] = {}
 
 
-def _sync_buffer(device, n: int) -> torch.Tensor:
-    """The kernel's work and ticket counters on ``device``: zero at rest, and
-    the kernel leaves them zero.  Kept across calls, so the kernel costs no
-    clearing launch; launches on one stream use them in turn."""
-    buf = _sync_buffers.get(device.index)
+def _sync_buffer(device, stream: int, n: int) -> torch.Tensor:
+    """The kernel's work and ticket counters for launches on ``stream`` of
+    ``device``: zero at rest, and the kernel leaves them zero.  Kept across
+    calls, so the kernel costs no clearing launch.  Launches on one stream
+    run in turn and share them; each stream has its own, since launches on
+    two streams may run at once and would interleave their counters."""
+    key = (device.type, device.index, stream)
+    buf = _sync_buffers.get(key)
     if buf is None or buf.numel() < n:
         buf = torch.zeros((n,), dtype=torch.int32, device=device)
-        _sync_buffers[device.index] = buf
+        _sync_buffers[key] = buf
     return buf
 
 
@@ -229,7 +232,8 @@ def fused_attn_decode(x: torch.Tensor, wqkv: torch.Tensor,
     part_proj = torch.empty((n_kslice * b * qkv_cols,), **f32)
     part_acc = torch.empty((b * hk * n_split * g * d,), **f32)
     part_ml = torch.empty((b * hk * n_split * g * 2,), **f32)
-    sync = _sync_buffer(dev, 2 + hk * (g + 2) + 2 * hk + b * hk)
+    stream = _stream(dev)
+    sync = _sync_buffer(dev, stream, 2 + hk * (g + 2) + 2 * hk + b * hk)
     qn_, kn_ = norms if norms else (None, None)
     lib = build.library()
     err = lib.tdt_fused_attn_decode(
@@ -242,7 +246,7 @@ def fused_attn_decode(x: torch.Tensor, wqkv: torch.Tensor,
         sync.data_ptr(), b, k_dim, h, hk, d, ps, mp, n_kslice, k_chunk,
         n_split, chunk, sm_scale, float(soft_cap),
         float(qk_eps) if qk_eps is not None else 0.0, KERNEL_DTYPES[x.dtype],
-        _stream(dev))
+        stream)
     name = "fused_attn_decode_int8" if quantized else "fused_attn_decode"
     build.check(err, name)
     count(name)
