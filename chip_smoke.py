@@ -13,27 +13,39 @@ Phases, each printing JSON lines; any failure exits non-zero:
                small edge cases (f32 and bf16, GQA 1-8, soft cap, qk-norm on
                and off, ragged and empty rows, a position on a page boundary
                and in the table's last slot, shuffled page tables; for K4 the
-               pools after the append as well), then the Qwen3-8B main-path
-               shapes (B = 4, prompt 1024, cache of 2048, position 1056),
-               each timed with CUDA events beside its plain version, its
-               bound, and SDPA or (K4) the per-kernel chain it replaces.
+               pools after the append as well; for K5 empty experts, one
+               expert, a zero tail, T 1/37/1000, K and N off the tile), K1,
+               K3 and K4 once at the Qwen3-30B-A3B attention shapes, then the
+               main-path shapes (Qwen3-8B attention: B = 4, prompt 1024,
+               cache of 2048, position 1056; Qwen3-30B-A3B expert products:
+               32768 prefill rows, 32 decode rows, splits from a real
+               routing), each timed with CUDA events beside its plain
+               version, its bound, and SDPA, the per-kernel chain (K4) or
+               ``torch._grouped_mm`` (K5).
 4. serve    -- Qwen3-8B at full width and depth with seeded random weights,
                batch 4, max_length 2048: requests of 1024 prompt tokens and 64
                new tokens in five modes (contiguous, paged, paged + fused,
                paged + int8, paged + int8 + fused); the launch counters must
                rise by 36 per prefill (K1) and by 36 per decode step for the
                mode's decode kernel (K2, K3, K4, K3-int8, K4-int8), and by
-               nothing for any other kernel.  Then a torch.profiler trace of
-               one prefill and eight decode steps per mode: wall vs kernel
-               time, idle share, kernel time by class (attention, GEMM,
-               other).
+               nothing for any other kernel.  Then Qwen3-30B-A3B (48 layers,
+               128 experts, top-8; the dense model freed first) in two modes
+               (paged, paged + fused): K1 +48 and K5 +96 per prefill, the
+               mode's kernel +48 and K5 +96 per decode step; before it, one
+               MoE layer's prefill and decode forward under
+               ``torch.cuda.set_sync_debug_mode("error")``.  Then a
+               torch.profiler trace of one prefill and eight decode steps
+               per mode: wall vs kernel time, idle share, kernel time by
+               class (attention, grouped GEMM, GEMM, other).
 5. parity   -- full width at 2 layers in f32, batch 2, prompt 128, 8 new
                tokens: the port on the card (kernels) and on the CPU (plain
                versions) from the same weights give the same logits within
                1e-3 (prefill, and every decode step of the fused, int8 and
                int8 + fused modes, each from one cache state on both sides;
                int8 codes at most one apart, see phase_parity) and the same
-               greedy tokens.
+               greedy tokens; Qwen3-30B-A3B likewise in the paged and paged +
+               fused modes, with the same top-8 experts for every token,
+               layer and step.
 6. the kernels line, the card line, and the result line.
 
 The script imports nothing of JAX.
@@ -42,6 +54,7 @@ The script imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import re
 import sys
@@ -115,7 +128,7 @@ def phase_build(tt) -> None:
     names = demangle(list(per_entry))
     emit({"phase": "build_new_kernels", "instantiations": [
         f"{names[e]}: {per_entry[e]}" for e in per_entry
-        if "fused_attn_decode_kernel" in e
+        if "fused_attn_decode_kernel" in e or "grouped_gemm" in e
         or re.search(r"decode_splitI(f|13__nv_bfloat16)a", e)]})
     build.library()
 
@@ -522,8 +535,377 @@ def fused_main_rows(tt, torch, g, qd, table, lens) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# MoE: K5 and the Qwen3-30B-A3B path
+
+MOE_TOKENS = BATCH * PROMPT    # prefill tokens; x top_k rows into K5
+
+
+def phase_group_gemm_cases(tt, torch) -> list:
+    """K5 against its plain version at small shapes, f32 and bf16 (both
+    tiles, bf16 and f32 results): E 1, 8 and 128; empty groups; all rows in
+    one group; sum(splits) below T, with those rows held to exactly zero;
+    T 1, 37 and 1000; K and N that are not multiples of the tile."""
+    from triton_distributed_tpu_torch.ops import group_gemm as G
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    results = []
+    cases = (  # (T, K, N, splits)
+        (1, 48, 200, [1]),
+        (37, 48, 200, [5, 0, 7, 3, 0, 9, 4, 2]),
+        (37, 200, 48, [0, 0, 0, 30, 0, 0, 0, 0]),
+        (1000, 200, 48, [0] * 127 + [1000]),
+        (1000, 256, 136, [7 * (i % 3) for i in range(128)]),
+        (1000, 48, 200, [int(v) for v in torch.multinomial(
+            torch.ones(128), 900, replacement=True,
+            generator=torch.Generator().manual_seed(SEED)).bincount(minlength=128)]),
+    )
+    forms = [(torch.float32, None, None, F32_TOL)] + [
+        (torch.bfloat16, cfg, out, BF16_TOL)
+        for cfg in (G.DECODE_CONFIG, G.PREFILL_CONFIG)
+        for out in (None, torch.float32)]
+    for t, k, n, splits in cases:
+        e = len(splits)
+        # outputs ~ N(0, 1/4): a bf16 ulp below 2**-6 up to |y| < 4
+        x = torch.randn((t, k), generator=gen, device=dev)
+        w = torch.randn((e, k, n), generator=gen, device=dev) * (0.5 / k ** 0.5)
+        s = torch.tensor(splits, dtype=torch.int32, device=dev)
+        total = sum(splits)
+        for dtype, cfg, out_dtype, tol in forms:
+            xd, wd = x.to(dtype), w.to(dtype)
+            got = G.grouped_matmul(xd, wd, s, config=cfg, out_dtype=out_dtype)
+            want = G.grouped_matmul_ref(xd, wd, s, out_dtype=out_dtype)
+            check(got.dtype == (out_dtype or dtype), f"K5 returned {got.dtype}")
+            check(total == t or not got[total:].any(),
+                  f"K5 T={t} splits={splits}: rows past sum(splits) are not zero")
+            results.append(("grouped_matmul", f"{dtype}->{got.dtype}",
+                            (t, k, n, e, total, cfg and (cfg.bm, cfg.bn, cfg.bk)),
+                            (got.float() - want.float()).abs().max().item(), tol))
+    torch.cuda.synchronize()
+    for name, dt, case, e, tol in results:
+        emit({"phase": "kernel_case", "kernel": name, "dtype": dt,
+              "case": [str(c) for c in case], "max_abs_err": e, "tol": tol,
+              "ok": e <= tol})
+    bad = [r for r in results if not r[3] <= r[4]]
+    check(not bad, f"{len(bad)} grouped GEMM cases disagree with the plain version")
+    return results
+
+
+def phase_moe_attention_cases(tt, torch) -> None:
+    """K1, K3 and K4 once each at the Qwen3-30B-A3B attention shapes (32 q
+    heads, 4 kv heads: GQA 8; hidden 2048) against their plain versions."""
+    from triton_distributed_tpu_torch.ops import attention as A
+    from triton_distributed_tpu_torch.ops import fused_decode as FD
+
+    c = tt.QWEN3_30B_A3B
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    h, hk, d, k_dim = c.num_heads, c.num_kv_heads, c.head_dim, c.hidden
+    ps, mp = PAGE, MAX_LEN // PAGE
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(torch.bfloat16)
+
+    def err(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    rows = []
+    q, k, v = rnd(BATCH, h, PROMPT, d), rnd(BATCH, hk, PROMPT, d), rnd(BATCH, hk, PROMPT, d)
+    rows.append(("flash_attention", err(A.flash_attention(q, k, v, causal=True),
+                                        A.flash_attention_ref(q, k, v, causal=True))))
+    qd = rnd(BATCH, h, d)
+    pk, pv = rnd(BATCH * mp, hk, ps, d), rnd(BATCH * mp, hk, ps, d)
+    table = torch.randperm(BATCH * mp, generator=torch.Generator().manual_seed(SEED)) \
+        .to(torch.int32).reshape(BATCH, mp).to(dev)
+    lens = torch.full((BATCH,), DECODE_POS, dtype=torch.int32, device=dev)
+    rows.append(("paged_decode_attention",
+                 err(A.paged_decode_attention(qd, pk, pv, table, lens),
+                     A.paged_decode_attention_ref(qd, pk, pv, table, lens))))
+    x = rnd(BATCH, k_dim)
+    wqkv = rnd(k_dim, (h + 2 * hk) * d, scale=0.02)
+    qn, kn = rnd(d, scale=0.1) + 1, rnd(d, scale=0.1) + 1
+    kw = dict(rope_theta=c.rope_theta, qk_eps=c.rms_eps)
+    gk, gv, rk, rv = pk.clone(), pv.clone(), pk.clone(), pv.clone()
+    got = FD.fused_attn_decode(x, wqkv, qn, kn, gk, gv, table, lens, **kw)
+    want = FD.fused_attn_decode_ref(x, wqkv, qn, kn, rk, rv, table, lens, **kw)
+    rows.append(("fused_attn_decode", max(err(got[0], want[0]), err(gk, rk), err(gv, rv))))
+    torch.cuda.synchronize()
+    for name, e in rows:
+        emit({"phase": "kernel_case", "kernel": name, "dtype": "torch.bfloat16",
+              "case": [f"Qwen3-30B-A3B attention: h {h} hk {hk} d {d} hidden {k_dim}"],
+              "max_abs_err": e, "tol": BF16_TOL, "ok": e <= BF16_TOL})
+    bad = [r for r in rows if not r[1] <= BF16_TOL]
+    check(not bad, f"{bad}: disagree with the plain versions at the MoE attention shapes")
+
+
+def moe_routed(tt, torch, layer, x):
+    """(x_sorted, splits, h): the rows of a real routing of ``x`` through
+    the layer's router, sorted by expert, and the activation of their
+    up-projection (the input of the down-projection)."""
+    c = tt.QWEN3_30B_A3B
+    moe = tt.MoEMLP(num_experts=c.num_experts, top_k=c.top_k, swiglu=True)
+    x_sorted, splits, _, _ = moe._route_and_sort(x, layer.router)
+    h = moe._combine(tt.grouped_matmul(x_sorted, layer.w_up, splits))
+    return x_sorted, splits, h
+
+
+def group_gemm_main_rows(tt, torch) -> dict:
+    """K5 at the four products of the Qwen3-30B-A3B main path (B = 4,
+    prompts of 1024: 32768 prefill rows; 32 decode rows), with splits from a
+    real routing of random activations through a random router: error,
+    time, plain version's time, bound and one library call for the same
+    function.  The bound counts the weights of the experts the splits touch
+    once, x and out once."""
+    from triton_distributed_tpu_torch.core.utils import perf_func
+    from triton_distributed_tpu_torch.ops import group_gemm as G
+
+    c = tt.QWEN3_30B_A3B
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    layer = tt.MoEMLP(num_experts=c.num_experts, top_k=c.top_k, swiglu=True).init(
+        g, c.hidden, c.moe_intermediate, dtype=c.dtype, device=dev)
+    rows = {}
+    library = "torch._grouped_mm"
+    for stage, tokens in (("prefill", MOE_TOKENS), ("decode", BATCH)):
+        # activations N(0, 1/4): the products stay below 4 in magnitude,
+        # where a bf16 ulp (what two summation orders may round apart) is
+        # below BF16_TOL
+        x = (torch.randn((tokens, c.hidden), generator=g, device=dev) * 0.5).to(c.dtype)
+        x_sorted, splits, h = moe_routed(tt, torch, layer, x)
+        for form, a, w in (("up", x_sorted, layer.w_up), ("down", h, layer.w_dn)):
+            got = G.grouped_matmul(a, w, splits)
+            host_splits = splits.cpu()
+            want = G.grouped_matmul_ref(a, w, host_splits)
+            e = (got.float() - want.float()).abs().max().item()
+            _, ms = perf_func(lambda: G.grouped_matmul(a, w, splits), iters=50)
+            _, plain_ms = perf_func(lambda: G.grouped_matmul_ref(a, w, host_splits), iters=5)
+            offs = torch.cumsum(splits, 0, dtype=torch.int32)
+            try:
+                _, lib_ms = perf_func(lambda: torch._grouped_mm(a, w, offs=offs), iters=50)
+            except (AttributeError, RuntimeError) as exc:   # older torch: the loop
+                emit({"phase": "kernel_main", "note": f"torch._grouped_mm unusable: {exc}"})
+                library = "per-expert torch.matmul loop"
+                _, lib_ms = perf_func(lambda: G.grouped_matmul_ref(a, w, host_splits), iters=5)
+            t, k = a.shape
+            n = w.shape[2]
+            touched = int((host_splits > 0).sum())
+            b_ms, b_by = bound(2 * t * k * n,
+                               nbytes(a, got, splits) + touched * k * n * w.element_size(),
+                               H100_BF16_FLOPS)
+            name = f"grouped_matmul[{stage} {form}]"
+            rows[name] = dict(
+                name=name, route="cuda", source="triton_distributed_tpu_torch/csrc/group_gemm.cu",
+                replaces="triton_distributed_tpu/ops/group_gemm.py:69",
+                max_abs_err=e, tol=BF16_TOL, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms, library=library,
+                experts_touched=touched, max_rows_per_expert=int(host_splits.max()),
+                shape=f"x ({t},{k}) w ({w.shape[0]},{k},{n}) bf16")
+    del layer
+    torch.cuda.synchronize()
+    for row in rows.values():
+        emit({"phase": "kernel_main", **row})
+        check(row["max_abs_err"] <= BF16_TOL,
+              f"{row['name']} disagrees with its plain version: {row['max_abs_err']}")
+    return rows
+
+
+def phase_sync_check(tt, torch, params) -> None:
+    """One MoE layer's decode and prefill forward at the main shapes under
+    ``torch.cuda.set_sync_debug_mode("error")``: any read back to the host
+    inside the layer (splits, a count, a nonzero) raises."""
+    c = tt.QWEN3_30B_A3B
+    dev = torch.device("cuda")
+    moe = tt.MoEMLP(num_experts=c.num_experts, top_k=c.top_k, swiglu=True)
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    layer = params.layers[0].mlp
+    xs = {name: torch.randn((rows, c.hidden), generator=g, device=dev).to(c.dtype)
+          for name, rows in (("forward_replicated", BATCH), ("forward_tp", MOE_TOKENS))}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = {name: getattr(moe, name)(layer, x) for name, x in xs.items()}
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for name, y in outs.items():
+        check(y.shape == xs[name].shape and bool(torch.isfinite(y).all()),
+              f"MoE {name}: bad output {tuple(y.shape)}")
+    emit({"phase": "sync_check", "ok": True,
+          "calls": {n: list(x.shape) for n, x in xs.items()}})
+
+
+MOE_SERVE_MODES = (
+    ("moe paged", "paged", "psum", None, "paged_decode_attention"),
+    ("moe paged+fused", "paged", "fused", None, "fused_attn_decode"),
+)
+MOE_REQUESTS = 2
+
+
+def phase_serve_moe(tt, torch) -> tuple[dict, dict]:
+    """Qwen3-30B-A3B at full width and depth in two modes (paged K3, paged +
+    fused K4), with the launch counters set to 0 before each mode's
+    requests and read after: per prefill K1 +48 and K5 +96, per decode step
+    the mode's kernel +48 and K5 +96, nothing else.  Then the sync check
+    and a profile of each mode.  Returns the launches summed over the
+    modes, and K5's launches by form (up and down run once each per layer,
+    so each form takes half of K5's prefill or decode launches)."""
+    c = dataclasses.replace(tt.QWEN3_30B_A3B, max_length=MAX_LEN)
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tt.Qwen3(c, device=dev).init(torch.Generator(device=dev).manual_seed(SEED))
+    models = {mode: tt.Qwen3(c, device=dev, decode_mode=mode) for mode in ("psum", "fused")}
+    torch.cuda.synchronize()
+    emit({"phase": "serve_setup", "model": "Qwen3-30B-A3B",
+          "init_s": time.perf_counter() - t0,
+          "param_bytes": torch.cuda.memory_allocated()})
+    phase_sync_check(tt, torch, params)
+    engines = {}
+    totals = dict.fromkeys(tt.launch_counts(), 0)
+    prefills = steps = 0
+    for label, layout, mode, kv_dtype, kernel in MOE_SERVE_MODES:
+        eng = tt.Engine(models[mode], params, batch=BATCH, cache_layout=layout,
+                        page_size=PAGE, kv_dtype=kv_dtype)
+        tt.reset_launch_counts()
+        for req in range(MOE_REQUESTS):
+            ids = torch.randint(0, c.vocab, (BATCH, PROMPT), device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(200 + req))
+            before = tt.launch_counts()
+            tokens, stats = eng.serve(ids, GEN)
+            torch.cuda.synchronize()
+            after = tt.launch_counts()
+            delta = {k: after[k] - before[k] for k in after}
+            want = dict.fromkeys(delta, 0)
+            want["flash_attention"] = 2 * c.num_layers
+            want[kernel] = GEN * c.num_layers
+            want["grouped_matmul"] = 2 * c.num_layers * (2 + GEN)
+            emit({"phase": "serve", "layout": label, "request": req, **stats,
+                  "launches": delta})
+            check(delta == want, f"{label} request {req}: launches {delta}, want {want}")
+            check(tuple(tokens.shape) == (BATCH, GEN) and tokens.dtype == torch.int32
+                  and int(tokens.min()) >= 0 and int(tokens.max()) < c.vocab,
+                  f"{label}: bad tokens {tokens.shape} {tokens.dtype}")
+            prefills, steps = prefills + 2, steps + GEN
+        for k, n in tt.launch_counts().items():
+            totals[k] += n
+        engines[label] = (eng, ids)
+    emit({"phase": "serve_memory", "model": "Qwen3-30B-A3B",
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "device_total": torch.cuda.get_device_properties(0).total_memory})
+    for label, (eng, ids) in engines.items():
+        phase_profile(eng, ids, torch, label)
+    del engines, models, params, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(totals["grouped_matmul"] == 2 * c.num_layers * (prefills + steps),
+          "K5 launches do not add up")
+    forms = {f"grouped_matmul[{stage} {form}]": c.num_layers * n
+             for stage, n in (("prefill", prefills), ("decode", steps))
+             for form in ("up", "down")}
+    return totals, forms
+
+
+def phase_parity_moe(tt, torch) -> None:
+    """Qwen3-30B-A3B at full width and 2 layers in f32: card (kernels) vs
+    CPU (plain versions) from the same weights.  Prefill logits; then, for
+    the paged psum and paged fused modes from one cache state (the CPU's
+    prefill, copied to the card), 8 greedy decode steps with the CPU's token
+    fed to both sides, every step's logits within PARITY_TOL, the same
+    greedy tokens, and the same top-8 experts for every token in every
+    layer and step (prefill included): no choice may differ."""
+    import triton_distributed_tpu_torch.layers.moe as moe_mod
+
+    c = dataclasses.replace(tt.QWEN3_30B_A3B, num_layers=2, dtype=torch.float32,
+                            max_length=256)
+    dev = torch.device("cuda")
+    b, s, gen = 2, 128, 8
+    params = tt.Qwen3(c, device=dev).init(torch.Generator(device=dev).manual_seed(SEED + 11))
+    cparams = to_cpu(torch, params)
+    ids = torch.randint(0, c.vocab, (b, s), generator=torch.Generator().manual_seed(SEED + 12))
+    routes = {"card": [], "cpu": []}
+    side = ["card"]
+    route = moe_mod.topk_route
+
+    def recording_route(logits, k, **kw):   # the expert ids each side chose
+        eid, wts = route(logits, k, **kw)
+        routes[side[0]].append(eid)
+        return eid, wts
+
+    def differing():
+        """Choices (token, layer, step) in which the card's top-8 set differs
+        from the CPU's, and both sides' routing calls so far."""
+        n = 0
+        for a, b_ in zip(routes["card"], routes["cpu"]):
+            a_sorted, b_sorted = a.cpu().sort(-1).values, b_.sort(-1).values
+            n += sum(len(set(x.tolist()) - set(y.tolist()))
+                     for x, y in zip(a_sorted, b_sorted))
+        return n, len(routes["card"]), len(routes["cpu"])
+
+    def paged(where):
+        return tt.init_paged_cache(c.num_layers, b, c.num_kv_heads, c.max_length,
+                                   c.head_dim, c.dtype, page_size=PAGE, device=where)
+
+    def copy(cache, where):
+        return dataclasses.replace(cache, **{
+            f.name: getattr(cache, f.name).to(where, copy=True)
+            for f in dataclasses.fields(cache) if getattr(cache, f.name) is not None})
+
+    moe_mod.topk_route = recording_route
+    try:
+        gpu, cpu = tt.Qwen3(c, device=dev), tt.Qwen3(c, device="cpu")
+        glog, _ = gpu.prefill(params, paged(dev), ids.to(dev))
+        side[0] = "cpu"
+        clog, ccache = cpu.prefill(cparams, paged("cpu"), ids)
+        err = (glog.cpu() - clog).abs()
+        ok_logits = bool((err <= PARITY_TOL + PARITY_TOL * clog.abs()).all())
+        prefill_diff = differing()
+        out = {"phase": "parity", "config": "Qwen3-30B-A3B width, 2 layers, f32",
+               "batch": b, "prompt": s, "new_tokens": gen,
+               "prefill_logits_max_abs_err": err.max().item(), "tol": PARITY_TOL,
+               "logits_ok": ok_logits, "prefill_expert_choices_differing": prefill_diff[0],
+               "routing_calls": prefill_diff[1:]}
+        emit(out)
+        check(ok_logits, f"MoE prefill logits differ card vs CPU by {err.max().item()}")
+        check(prefill_diff[0] == 0 and prefill_diff[1] == prefill_diff[2] == c.num_layers,
+              f"MoE prefill expert choices differ card vs CPU: {prefill_diff}")
+        tok0 = clog[:, -1].argmax(-1).to(torch.int32)
+        for label, mode in (("moe paged", "psum"), ("moe paged+fused", "fused")):
+            card, host = (tt.Qwen3(c, device=w, decode_mode=mode) for w in (dev, "cpu"))
+            hcache = copy(ccache, "cpu")
+            gcache = copy(ccache, dev)
+            routes["card"].clear()
+            routes["cpu"].clear()
+            tok, worst, share, same = tok0, 0.0, 0.0, True
+            for _ in range(gen):
+                side[0] = "card"
+                g_ = card.decode(params, gcache, tok.to(dev))[0].cpu()
+                side[0] = "cpu"
+                c_ = host.decode(cparams, hcache, tok)[0]
+                e = (g_ - c_).abs()
+                limit = PARITY_TOL + PARITY_TOL * c_.abs()
+                worst = max(worst, e.max().item())
+                share = max(share, (e / limit).max().item())
+                same = same and torch.equal(g_.argmax(-1), c_.argmax(-1))
+                tok = c_.argmax(-1).to(torch.int32)
+            n_diff, n_card, n_cpu = differing()
+            emit({"phase": "parity", "mode": label, "decode_steps": gen,
+                  "decode_logits_max_abs_err": worst, "tol": PARITY_TOL,
+                  "worst_share_of_tol": share, "tokens_equal": same,
+                  "expert_choices_differing": n_diff, "routing_calls": [n_card, n_cpu]})
+            check(share <= 1.0, f"{label}: decode logits differ card vs CPU by {worst}")
+            check(same, f"{label}: greedy tokens differ between the card and the CPU")
+            check(n_diff == 0 and n_card == n_cpu == gen * c.num_layers,
+                  f"{label}: {n_diff} expert choices differ card vs CPU")
+    finally:
+        moe_mod.topk_route = route
+    del params, cparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 KERNEL_CLASSES = (("attention", ("flash_fwd", "decode_split", "decode_combine",
                                  "fused_attn_decode")),
+                  ("grouped_gemm", ("grouped_gemm",)),   # K5, before "gemm"
                   ("gemm", ("nvjet", "gemm", "cutlass", "sm90_xmma")))
 
 
@@ -562,7 +944,7 @@ def phase_profile(eng, ids, torch, layout: str) -> None:
         by_name: dict[str, float] = {}
         for e in ks:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / n
-        classes = {"attention": 0.0, "gemm": 0.0, "other": 0.0}
+        classes = {"attention": 0.0, "grouped_gemm": 0.0, "gemm": 0.0, "other": 0.0}
         for name, ms in by_name.items():
             cls = next((c for c, keys in KERNEL_CLASSES
                         if any(k in name for k in keys)), "other")
@@ -632,7 +1014,8 @@ def phase_serve(tt, torch) -> dict:
         engines[label] = (eng, ids)
     for label, (eng, ids) in engines.items():
         phase_profile(eng, ids, torch, label)
-    del engines, models, params
+    del engines, models, params, eng
+    gc.collect()
     torch.cuda.empty_cache()
     return totals
 
@@ -779,22 +1162,30 @@ def main() -> int:
         phase = "kernel_cases"
         phase_kernel_cases(tt, torch)
         phase_fused_cases(tt, torch)
+        phase_group_gemm_cases(tt, torch)
+        phase_moe_attention_cases(tt, torch)
         phase = "kernels_main"
         rows = phase_kernels_main(tt, torch)
+        rows.update(group_gemm_main_rows(tt, torch))
         phase = "serve"
         launches = phase_serve(tt, torch)
+        phase = "serve_moe"
+        moe_launches, k5_forms = phase_serve_moe(tt, torch)
+        for name, n in moe_launches.items():
+            launches[name] += n
         for name, n in launches.items():
             check(n > 0, f"{name} was not launched on the main path")
         phase = "parity"
         phase_parity(tt, torch)
+        phase_parity_moe(tt, torch)
         phase = "report"
         kernels = []
         for name, row in rows.items():
             kernels.append({k: row[k] for k in (
                 "name", "route", "source", "replaces")} | {
-                "launches": launches[name], **{k: row[k] for k in (
+                "launches": k5_forms.get(name, launches.get(name)), **{k: row[k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "chain_ms") if k in row}})
+                    "library_ms", "library", "chain_ms") if k in row}})
         emit({"kernels": kernels})
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",

@@ -43,6 +43,7 @@ SIGNATURES = {
     "tdt_decode_attention": [*[_P] * 10, *[_I] * 9, _F, _F, _I, _P],
     "tdt_fused_attn_decode": [*[_P] * 19, *[_I] * 11, _F, _F, _F, _I, _P],
     "tdt_fused_attn_decode_blocks_per_sm": [_I, _I, _I, _I],
+    "tdt_grouped_matmul": [*[_P] * 4, *[_I] * 9, _P],
 }
 
 

@@ -15,6 +15,7 @@ KERNELS = (
     "paged_decode_attention_int8",   # K3, int8 pages
     "fused_attn_decode",             # K4, full-precision pages
     "fused_attn_decode_int8",        # K4, int8 pages
+    "grouped_matmul",                # K5
 )
 
 _counts = dict.fromkeys(KERNELS, 0)

@@ -32,8 +32,8 @@ class ModelConfig:
     top_k: int = 8
     moe_intermediate: int = 0      # 768; per-expert SwiGLU width
     norm_topk: bool = True         # renormalize routing weights over top-k
-    moe_strategy: str = "tp"       # "tp" | "ep"
-    moe_fp8_wire: bool | str = False
+    moe_strategy: str = "tp"       # "tp" (served at tp = 1) | "ep" (later slice)
+    moe_fp8_wire: bool | str = False  # the EP wire codec (later slice)
 
     @property
     def is_moe(self) -> bool:
@@ -52,3 +52,22 @@ num_attention_heads 32, num_key_value_heads 8, head_dim 128, vocab_size
 (untied lm_head), Q/K RMSNorm per head.  ``max_length`` is the serving cap of
 the cache, not the model's 40960-position limit.  Nothing is downloaded: the
 port builds random weights from a seed."""
+
+
+QWEN3_30B_A3B = ModelConfig(
+    num_layers=48, hidden=2048, intermediate=6144, num_heads=32,
+    num_kv_heads=4, head_dim=128, vocab=151936, max_length=32768,
+    rope_theta=1e6, rms_eps=1e-6, qk_norm=True, dtype=torch.bfloat16,
+    num_experts=128, top_k=8, moe_intermediate=768, norm_topk=True,
+)
+"""Qwen3-30B-A3B, from the public ``Qwen/Qwen3-30B-A3B`` ``config.json``:
+hidden_size 2048, intermediate_size 6144 (unused: ``mlp_only_layers`` is
+empty and ``decoder_sparse_step`` 1, so every layer is MoE),
+num_hidden_layers 48, num_attention_heads 32, num_key_value_heads 4,
+head_dim 128, vocab_size 151936, num_experts 128, num_experts_per_tok 8,
+moe_intermediate_size 768, norm_topk_prob true, rope_theta 1e6,
+rms_norm_eps 1e-6, bf16, tie_word_embeddings false (untied lm_head), Q/K
+RMSNorm per head.  ``max_length`` is the serving cap of the cache.  About
+61.1 GB of bf16 weights (58.0 GB of them experts): it fits one 80 GB H100
+whole.  Nothing is downloaded: the port builds random weights from a
+seed."""

@@ -5,7 +5,9 @@ after ``jax.tree.map(np.asarray, ...)``, read duck-typed (``.embed``,
 ``.layers[i].ln1``, ``.attn.wqkv``, ``.block_table``, ...): nothing of the
 JAX package is imported.  At tp = 1 both packages store ``wqkv`` as
 ``[q | k | v]``, ``gate_up`` as ``[gate | up]`` and the caches in the same
-layouts, so the tensors carry over unchanged.
+layouts, so the tensors carry over unchanged.  MoE layers carry their
+router and expert weights across the same way: at tp = 1 the JAX ``w_up``
+is plain per-expert ``[gate | up]``.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from ..core.platform import resolve_device
+from ..layers.moe import MoEParams
 from ..layers.tp_attn import TPAttnParams
 from ..layers.tp_mlp import TPMLPParams
 from .config import ModelConfig
@@ -36,10 +39,8 @@ def to_tensor(a, device) -> torch.Tensor | None:
 
 def from_jax_params(params, config: ModelConfig, device=None) -> QwenParams:
     """The port's :class:`QwenParams` holding the same weights as the JAX
-    tree ``params`` (dense layers only)."""
+    tree ``params`` (dense or MoE layers, as ``config`` says)."""
     dev = resolve_device(device)
-    if config.is_moe:
-        raise NotImplementedError("MoE layers belong to a later slice of the port")
     if len(params.layers) != config.num_layers:
         raise ValueError(f"{len(params.layers)} layers in params, config has "
                          f"{config.num_layers}")
@@ -53,7 +54,10 @@ def from_jax_params(params, config: ModelConfig, device=None) -> QwenParams:
             attn=TPAttnParams(wqkv=t(lp.attn.wqkv), wo=t(lp.attn.wo),
                               q_norm=t(lp.attn.q_norm), k_norm=t(lp.attn.k_norm)),
             ln2=t(lp.ln2),
-            mlp=TPMLPParams(gate_up=t(lp.mlp.gate_up), down=t(lp.mlp.down)),
+            mlp=(MoEParams(router=t(lp.mlp.router), w_up=t(lp.mlp.w_up),
+                           w_dn=t(lp.mlp.w_dn)) if config.is_moe
+                 else TPMLPParams(gate_up=t(lp.mlp.gate_up),
+                                  down=t(lp.mlp.down))),
         )
         for lp in params.layers
     ]

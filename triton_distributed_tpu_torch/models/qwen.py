@@ -1,4 +1,4 @@
-"""Dense Qwen3 decoder at tp = 1 (counterpart of
+"""Qwen3 decoder at tp = 1, dense or MoE (counterpart of
 ``triton_distributed_tpu/models/qwen.py::Qwen3``).
 
 At tp = 1 every collective of the JAX model falls back to a plain matrix
@@ -10,6 +10,10 @@ prefill; in each decode step the contiguous or paged decode kernel
 (``decode_mode="psum"``), or, on a paged cache in ``decode_mode="fused"``,
 the attention megakernel that also projects, normalizes, rotates and
 appends (``ops.fused_decode``).  Both modes serve int8 page pools.
+A MoE config (Qwen3-MoE) swaps every layer's MLP for the routed experts of
+``layers.moe`` under the TP strategy at one rank: ``forward_tp`` in prefill,
+``forward_replicated`` in each decode step of either mode, their expert
+products on the grouped-GEMM kernel.
 
 The model is a static definition; parameters (:class:`QwenParams`) and the
 cache travel separately, as in the JAX package, so a test can hand both
@@ -24,6 +28,7 @@ import torch
 from torch import nn
 
 from ..core.platform import resolve_device
+from ..layers.moe import MoEMLP, MoEParams
 from ..layers.norm import rms_norm
 from ..layers.tp_attn import TPAttnParams, init_attn
 from ..layers.tp_mlp import TPMLPParams, init_mlp, mlp_forward
@@ -53,7 +58,7 @@ class QwenLayerParams:
     ln1: torch.Tensor
     attn: TPAttnParams
     ln2: torch.Tensor
-    mlp: TPMLPParams
+    mlp: TPMLPParams | MoEParams   # MoEParams when config.is_moe
 
 
 @dataclasses.dataclass
@@ -99,11 +104,23 @@ class Qwen3(nn.Module):
         if decode_mode not in DECODE_MODES:
             raise ValueError(f"decode_mode {decode_mode!r} not in "
                              f"{DECODE_MODES + LATER_DECODE_MODES}")
-        if config.is_moe:
-            raise NotImplementedError("MoE layers belong to a later slice of the port")
+        if config.is_moe and config.moe_strategy != "tp":
+            raise NotImplementedError(
+                f"moe_strategy {config.moe_strategy!r} (experts partitioned "
+                "across ranks, all-to-all dispatch) belongs to the EP slice of "
+                "the port; 'tp' at one rank is served")
+        if config.is_moe and config.moe_fp8_wire:
+            raise NotImplementedError(
+                "moe_fp8_wire (the e4m3 all-to-all wire) belongs to the EP "
+                "slice of the port")
         self.config = config
         self.device = resolve_device(device)
         self.decode_mode = decode_mode
+
+    def _moe_layer(self) -> MoEMLP:
+        c = self.config
+        return MoEMLP(num_experts=c.num_experts, top_k=c.top_k, swiglu=True,
+                      renormalize=c.norm_topk)
 
     # -- parameters -------------------------------------------------------
 
@@ -118,14 +135,21 @@ class Qwen3(nn.Module):
             generator = torch.Generator(device=dev).manual_seed(0)
         layers = []
         for _ in range(c.num_layers):
+            attn = init_attn(generator, c.hidden, c.num_heads, c.num_kv_heads,
+                             c.head_dim, qk_norm=c.qk_norm, dtype=c.dtype,
+                             scale=scale, device=dev)
+            if c.is_moe:
+                mlp = self._moe_layer().init(generator, c.hidden,
+                                             c.moe_intermediate, dtype=c.dtype,
+                                             scale=scale, device=dev)
+            else:
+                mlp = init_mlp(generator, c.hidden, c.intermediate,
+                               dtype=c.dtype, scale=scale, device=dev)
             layers.append(QwenLayerParams(
                 ln1=torch.ones((c.hidden,), dtype=c.dtype, device=dev),
-                attn=init_attn(generator, c.hidden, c.num_heads,
-                               c.num_kv_heads, c.head_dim, qk_norm=c.qk_norm,
-                               dtype=c.dtype, scale=scale, device=dev),
+                attn=attn,
                 ln2=torch.ones((c.hidden,), dtype=c.dtype, device=dev),
-                mlp=init_mlp(generator, c.hidden, c.intermediate,
-                             dtype=c.dtype, scale=scale, device=dev),
+                mlp=mlp,
             ))
         embed = torch.randn((c.vocab, c.hidden), generator=generator,
                             dtype=c.dtype, device=dev) * scale
@@ -182,7 +206,7 @@ class Qwen3(nn.Module):
             out = flash_attention(q, k, v, causal=True)
             out = out.transpose(1, 2).reshape(b * s, c.num_heads * c.head_dim)
             x = x + torch.matmul(out, lp.attn.wo)
-            x = x + mlp_forward(lp.mlp, rms_norm(x, lp.ln2, c.rms_eps))
+            x = x + self._mlp_forward(lp.mlp, rms_norm(x, lp.ln2, c.rms_eps))
         logits = self._finish(params, x)
         return logits.reshape(b, s, c.vocab), with_length(cache, s)
 
@@ -235,9 +259,19 @@ class Qwen3(nn.Module):
             return fused_linear_ar(h, w)
         return torch.matmul(h, w)
 
-    def _mlp_decode(self, p: TPMLPParams, x: torch.Tensor) -> torch.Tensor:
-        """A decode step's MLP and its AllReduce (``qwen.py:695-734``), as
-        :meth:`_row_parallel_reduce` dispatches."""
+    def _mlp_forward(self, p, x: torch.Tensor) -> torch.Tensor:
+        """The prefill MLP (``qwen.py:211-221``): the dense SwiGLU, or the
+        routed experts of the TP strategy."""
+        if self.config.is_moe:
+            return self._moe_layer().forward_tp(p, x)
+        return mlp_forward(p, x)
+
+    def _mlp_decode(self, p, x: torch.Tensor) -> torch.Tensor:
+        """A decode step's MLP and its AllReduce (``qwen.py:223-231``,
+        ``:695-734``): the routed experts on the replicated batch in either
+        mode; else as :meth:`_row_parallel_reduce` dispatches."""
+        if self.config.is_moe:
+            return self._moe_layer().forward_replicated(p, x)
         if self.decode_mode == "fused":
             return fused_mlp_ar(x, p.gate_up, p.down)
         return mlp_forward(p, x)
