@@ -181,6 +181,7 @@ def test_wrappers_refuse_unserved_arguments():
 def test_port_import_leaves_jax_out():
     code = (
         "import sys, triton_distributed_tpu_torch\n"
+        "import triton_distributed_tpu_torch.ops.swizzle\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'triton_distributed_tpu'"
         " or m.startswith('triton_distributed_tpu.')]\n"

@@ -32,6 +32,7 @@ from ..ops.moe_utils import (
     unsort_combine,
 )
 
+
 @dataclasses.dataclass
 class MoEParams:
     """router: (K, E); w_up: (E, K, F), or (E, K, 2F) as ``[gate | up]``
