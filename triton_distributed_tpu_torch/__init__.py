@@ -16,7 +16,7 @@ the kernels' plain PyTorch versions run instead.  Without CUDA and without
 that request they raise.
 """
 
-from .core.launches import launch_counts, reset_launch_counts
+from .core.launches import launch_counts, launch_forms, reset_launch_counts
 from .core.platform import card_identity, init_seed, resolve_device
 from .core.utils import assert_allclose, cdiv, clip_block, perf_func
 from .layers.moe import MoEMLP, MoEParams
@@ -50,7 +50,7 @@ __all__ = [
     "decode_attention", "flash_attention", "from_jax_cache",
     "from_jax_params", "fused_attn_decode", "fused_linear_ar", "fused_mlp_ar",
     "grouped_matmul", "init_cache", "init_paged_cache", "init_seed",
-    "kv_page_bytes", "launch_counts", "paged_decode_attention", "perf_func",
-    "reset_launch_counts", "resolve_device", "rms_norm", "rope_freqs",
-    "sample_token",
+    "kv_page_bytes", "launch_counts", "launch_forms",
+    "paged_decode_attention", "perf_func", "reset_launch_counts",
+    "resolve_device", "rms_norm", "rope_freqs", "sample_token",
 ]

@@ -44,6 +44,7 @@ SIGNATURES = {
     "tdt_fused_attn_decode": [*[_P] * 19, *[_I] * 11, _F, _F, _F, _I, _P],
     "tdt_fused_attn_decode_blocks_per_sm": [_I, _I, _I, _I],
     "tdt_grouped_matmul": [*[_P] * 4, *[_I] * 9, _P],
+    "tdt_grouped_schedule": [_P, _I, _I, _I, _P, _P],
 }
 
 

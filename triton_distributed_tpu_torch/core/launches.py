@@ -3,7 +3,9 @@
 Each wrapper adds one to its kernel's count where it launches the kernel,
 and nowhere else (a CPU tensor, which takes the plain version, counts
 nothing), so a caller can show that a run went through the kernels: reset,
-run, read.
+run, read.  A wrapper whose kernel serves several products of a path also
+names the product's form (its shape), which is counted beside the total,
+so the launches of each form are read from the counter as well.
 """
 
 from __future__ import annotations
@@ -19,16 +21,25 @@ KERNELS = (
 )
 
 _counts = dict.fromkeys(KERNELS, 0)
+_forms: dict[tuple[str, tuple], int] = {}
 
 
-def count(name: str) -> None:
+def count(name: str, form: tuple | None = None) -> None:
     _counts[name] += 1
+    if form is not None:
+        _forms[name, form] = _forms.get((name, form), 0) + 1
 
 
 def reset_launch_counts() -> None:
     for name in _counts:
         _counts[name] = 0
+    _forms.clear()
 
 
 def launch_counts() -> dict[str, int]:
     return dict(_counts)
+
+
+def launch_forms() -> dict[tuple[str, tuple], int]:
+    """Launches by ``(kernel, form)``, for the wrappers that name a form."""
+    return dict(_forms)

@@ -410,6 +410,31 @@ int launch_bf16(const void* x, const void* w, const void* splits, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// the schedule alone: derive_slot's result for every slot, written out so
+// that the derivation can be held to ops/swizzle.py::grouped_tile_schedule
+
+constexpr int kScheduleScratchInts = 11520;  // the largest E + cdiv(T, BM) K5 takes
+
+__global__ void __launch_bounds__(kThreads)
+grouped_schedule(const int* __restrict__ splits, int E, int T, int BM,
+                 int* __restrict__ out) {
+  __shared__ int scratch[kScheduleScratchInts];
+  __shared__ int warp_sums[kThreads / 32];
+  const int s = blockIdx.x, S = gridDim.x;
+  Slot sl;
+  const bool valid =
+      derive_slot<kThreads>(splits, E, T, BM, s, scratch, warp_sums, sl);
+  if (threadIdx.x == 0) {
+    out[s] = valid;
+    out[S + s] = valid ? sl.lo / BM : 0;
+    out[2 * S + s] = valid ? sl.group : 0;
+    out[3 * S + s] = valid ? sl.row_start : 0;
+    out[4 * S + s] = valid ? sl.row_end : 0;
+    out[5 * S + s] = valid ? sl.is_first : 0;
+  }
+}
+
 }  // namespace
 }  // namespace tdt
 
@@ -442,4 +467,18 @@ extern "C" int tdt_grouped_matmul(const void* x, const void* w,
     return static_cast<int>(cudaGetLastError());
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The slots K5's blocks derive from splits (E,) for T rows in m-tiles of bm:
+// out (6, E + cdiv(T, bm)) int32, rows valid, m-tile, group, row_start,
+// row_end, is_first, zeros on the padding slots.  Computes no product.
+extern "C" int tdt_grouped_schedule(const void* splits, int T, int E, int bm,
+                                    void* out, void* stream) {
+  using namespace tdt;
+  if (T <= 0 || E <= 0 || bm <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int slots = E + (T + bm - 1) / bm;
+  if (slots > kScheduleScratchInts) return static_cast<int>(cudaErrorInvalidValue);
+  grouped_schedule<<<slots, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(splits), E, T, bm, static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
 }

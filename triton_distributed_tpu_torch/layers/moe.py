@@ -1,19 +1,20 @@
 """MoE MLP layer: top-k routed SwiGLU experts under the TP strategy at one
 rank (counterpart of ``triton_distributed_tpu/layers/moe.py``).
 
-Prefill (:meth:`MoEMLP.forward_tp`) routes and sorts the tokens, runs the
-up-projection (``ag_group_gemm``), the activation, and the down-projection
-with the weighted top-k fold (``moe_reduce_rs``); a decode step
-(:meth:`MoEMLP.forward_replicated`) runs the same two grouped products on
-the replicated batch and folds.  Every expert product is
+Prefill (:meth:`MoEMLP.forward_tp`) and a decode step
+(:meth:`MoEMLP.forward_replicated`) compute one function at one rank: route
+and sort the tokens, the grouped up-projection, the activation, the grouped
+down-projection, and the weighted top-k fold.  Every expert product is
 ``ops.group_gemm.grouped_matmul`` (K5 on the card); the router is a plain
 product.  The dtypes follow JAX: router logits in the model dtype, softmax,
 top-k and renormalization in f32, the routing weights cast to the expert
 output's dtype in the fold, the result in x's dtype.
 
-At one rank the collectives of the TP strategy reduce nothing.  More ranks,
-the EP strategy (``forward_ep``) and the fp8 wire belong to later slices of
-the port and raise.
+At one rank the collectives of the TP strategy (JAX's ``ag_group_gemm``,
+``moe_reduce_rs`` and the decode ``psum``) gather and reduce nothing, so
+both entry points run one body.  More ranks, with those collectives, the EP
+strategy (``forward_ep``) and the fp8 wire belong to later slices of the
+port and raise.
 """
 
 from __future__ import annotations
@@ -23,10 +24,9 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from ..ops.group_gemm import ag_group_gemm, grouped_matmul, moe_reduce_rs
+from ..ops.group_gemm import grouped_matmul
 from ..ops.moe_utils import (
     flatten_topk,
-    global_presort_index,
     sort_by_expert,
     topk_route,
     unsort_combine,
@@ -115,24 +115,22 @@ class MoEMLP:
         xs, splits, unsort = sort_by_expert(xr, eflat, self.num_experts)
         return xs, splits, wflat, unsort
 
-    def forward_tp(self, params: MoEParams, x: torch.Tensor) -> torch.Tensor:
-        """Prefill: route -> grouped up-projection -> activation -> grouped
-        down-projection and weighted top-k fold.  ``x``: (M, K); returns
-        (M, K) in x's dtype."""
-        x_sorted, splits, wflat, unsort = self._route_and_sort(x, params.router)
-        h, total_splits, perm = ag_group_gemm(x_sorted, params.w_up, splits,
-                                              self.world_size)
-        h = self._combine(h)
-        presort = global_presort_index(perm, unsort.reshape(1, -1))
-        return moe_reduce_rs(h, params.w_dn, total_splits, presort, wflat,
-                             self.top_k, self.world_size)
-
-    def forward_replicated(self, params: MoEParams,
-                           x: torch.Tensor) -> torch.Tensor:
-        """Decode: the two grouped products on the (B, K) batch, the
-        weighted fold, and the cast to x's dtype (JAX's psum over one rank
-        is the identity)."""
+    def _forward(self, params: MoEParams, x: torch.Tensor) -> torch.Tensor:
+        """Route -> grouped up-projection -> activation -> grouped
+        down-projection -> weighted top-k fold, in x's dtype."""
         x_sorted, splits, wflat, unsort = self._route_and_sort(x, params.router)
         h = self._combine(grouped_matmul(x_sorted, params.w_up, splits))
         y = grouped_matmul(h, params.w_dn, splits)
         return unsort_combine(y, unsort, wflat, self.top_k).to(x.dtype)
+
+    def forward_tp(self, params: MoEParams, x: torch.Tensor) -> torch.Tensor:
+        """Prefill: (M, K) -> (M, K) in x's dtype.  At one rank the
+        AllGather before the up-projection and the ReduceScatter after the
+        fold are the identity."""
+        return self._forward(params, x)
+
+    def forward_replicated(self, params: MoEParams,
+                           x: torch.Tensor) -> torch.Tensor:
+        """Decode: (B, K) -> (B, K) in x's dtype.  At one rank the psum of
+        the partial sums is the identity."""
+        return self._forward(params, x)

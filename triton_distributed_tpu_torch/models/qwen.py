@@ -109,18 +109,14 @@ class Qwen3(nn.Module):
                 f"moe_strategy {config.moe_strategy!r} (experts partitioned "
                 "across ranks, all-to-all dispatch) belongs to the EP slice of "
                 "the port; 'tp' at one rank is served")
-        if config.is_moe and config.moe_fp8_wire:
-            raise NotImplementedError(
-                "moe_fp8_wire (the e4m3 all-to-all wire) belongs to the EP "
-                "slice of the port")
+        # every MoE layer's MLP (it refuses the fp8 wire itself)
+        self.moe = (MoEMLP(num_experts=config.num_experts, top_k=config.top_k,
+                           swiglu=True, renormalize=config.norm_topk,
+                           fp8_wire=config.moe_fp8_wire)
+                    if config.is_moe else None)
         self.config = config
         self.device = resolve_device(device)
         self.decode_mode = decode_mode
-
-    def _moe_layer(self) -> MoEMLP:
-        c = self.config
-        return MoEMLP(num_experts=c.num_experts, top_k=c.top_k, swiglu=True,
-                      renormalize=c.norm_topk)
 
     # -- parameters -------------------------------------------------------
 
@@ -139,9 +135,8 @@ class Qwen3(nn.Module):
                              c.head_dim, qk_norm=c.qk_norm, dtype=c.dtype,
                              scale=scale, device=dev)
             if c.is_moe:
-                mlp = self._moe_layer().init(generator, c.hidden,
-                                             c.moe_intermediate, dtype=c.dtype,
-                                             scale=scale, device=dev)
+                mlp = self.moe.init(generator, c.hidden, c.moe_intermediate,
+                                    dtype=c.dtype, scale=scale, device=dev)
             else:
                 mlp = init_mlp(generator, c.hidden, c.intermediate,
                                dtype=c.dtype, scale=scale, device=dev)
@@ -263,7 +258,7 @@ class Qwen3(nn.Module):
         """The prefill MLP (``qwen.py:211-221``): the dense SwiGLU, or the
         routed experts of the TP strategy."""
         if self.config.is_moe:
-            return self._moe_layer().forward_tp(p, x)
+            return self.moe.forward_tp(p, x)
         return mlp_forward(p, x)
 
     def _mlp_decode(self, p, x: torch.Tensor) -> torch.Tensor:
@@ -271,7 +266,7 @@ class Qwen3(nn.Module):
         ``:695-734``): the routed experts on the replicated batch in either
         mode; else as :meth:`_row_parallel_reduce` dispatches."""
         if self.config.is_moe:
-            return self._moe_layer().forward_replicated(p, x)
+            return self.moe.forward_replicated(p, x)
         if self.decode_mode == "fused":
             return fused_mlp_ar(x, p.gate_up, p.down)
         return mlp_forward(p, x)

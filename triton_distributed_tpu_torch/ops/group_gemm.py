@@ -1,5 +1,4 @@
-"""Grouped (per-expert) GEMM of expert-sorted rows, and the one-rank forms
-of the MoE products that use it (counterpart of
+"""Grouped (per-expert) GEMM of expert-sorted rows (counterpart of
 ``triton_distributed_tpu/ops/group_gemm.py``).
 
 :func:`grouped_matmul` launches K5 (``csrc/group_gemm.cu``), which replaces
@@ -10,7 +9,11 @@ card, and choosing per shape between it and another backend comes with the
 autotuner's port.  Its plain version :func:`grouped_matmul_ref` is a loop
 over the groups with f32 accumulation; the wrapper takes it only for CPU
 tensors.  A CUDA tensor launches K5 or raises.  One launch per product,
-counted under ``"grouped_matmul"``; ``splits`` stays on the device.
+counted under ``"grouped_matmul"`` with its (T, K, N) as the form;
+``splits`` stays on the device.  ``ag_group_gemm`` and ``moe_reduce_rs``,
+the collectives around it, come with the multi-GPU slice of the port: at
+one rank they gather and reduce nothing, and ``layers.moe`` calls
+:func:`grouped_matmul` directly.
 """
 
 from __future__ import annotations
@@ -23,7 +26,6 @@ from ..core import build
 from ..core.launches import count
 from ..core.utils import cdiv
 from .attention import KERNEL_DTYPES, _check_tensors, _stream, check_int32
-from .moe_utils import unsort_combine
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,43 +130,6 @@ def grouped_matmul(x_sorted: torch.Tensor, w: torch.Tensor,
         t, k, n_dim, e, cfg.bm, cfg.bn, cfg.bk, KERNEL_DTYPES[x_sorted.dtype],
         KERNEL_DTYPES[out_dtype], _stream(x_sorted.device))
     build.check(err, "grouped_matmul")
-    count("grouped_matmul")
+    count("grouped_matmul", (t, k, n_dim))
     return out
 
-
-def group_gemm(x_sorted: torch.Tensor, w: torch.Tensor,
-               splits: torch.Tensor) -> torch.Tensor:
-    """Per-expert matmul of expert-sorted rows (the JAX ``group_gemm``,
-    ``lax.ragged_dot`` there): :func:`grouped_matmul` in x's dtype."""
-    return grouped_matmul(x_sorted, w, splits)
-
-
-def _one_rank(world_size: int, name: str) -> None:
-    if world_size != 1:
-        raise NotImplementedError(
-            f"{name} over {world_size} ranks (the AllGather / ReduceScatter "
-            "around the grouped GEMM) belongs to the multi-GPU slice of the "
-            "port")
-
-
-def ag_group_gemm(x_sorted: torch.Tensor, w: torch.Tensor,
-                  splits: torch.Tensor, world_size: int = 1):
-    """AllGather the sorted tokens and group-GEMM them against the
-    column-sharded expert weights; at one rank the grouped product alone.
-    Returns ``(y, total_splits, perm)`` as the JAX function does, ``perm``
-    the identity."""
-    _one_rank(world_size, "ag_group_gemm")
-    return (group_gemm(x_sorted, w, splits), splits,
-            torch.arange(x_sorted.shape[0], device=x_sorted.device))
-
-
-def moe_reduce_rs(y_sorted: torch.Tensor, w: torch.Tensor,
-                  total_splits: torch.Tensor, presort_idx: torch.Tensor,
-                  weights: torch.Tensor, topk: int,
-                  world_size: int = 1) -> torch.Tensor:
-    """Down-project the expert outputs, fold the top-k copies with their
-    routing weights, and ReduceScatter the partial sums; at one rank the
-    grouped product and the fold."""
-    _one_rank(world_size, "moe_reduce_rs")
-    part = grouped_matmul(y_sorted, w, total_splits)
-    return unsort_combine(part, presort_idx, weights, topk)

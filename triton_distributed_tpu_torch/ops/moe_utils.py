@@ -9,9 +9,9 @@ copies with their routing weights.
 Everything runs on the input's device and nothing is read back to the host:
 the sorts are ``torch.argsort(stable=True)`` and the rows per expert are
 counted with ``scatter_add_`` into zeros (``torch.bincount`` on CUDA reads
-the largest id back to the host first).  The e4m3 aliases and
-``expert_block_permutation`` (more than one rank) belong to the EP and
-multi-GPU slices of the port.
+the largest id back to the host first).  The e4m3 aliases,
+``expert_block_permutation`` and ``global_presort_index`` (more than one
+rank) belong to the EP and multi-GPU slices of the port.
 """
 
 from __future__ import annotations
@@ -65,17 +65,3 @@ def unsort_combine(y_sorted: torch.Tensor, unsort_idx: torch.Tensor,
     w = weights.reshape(tk // k, k, 1).to(y.dtype)
     return (y * w).sum(dim=1)
 
-
-def global_presort_index(perm: torch.Tensor,
-                         per_rank_unsort: torch.Tensor) -> torch.Tensor:
-    """Compose the block-merge permutation ``perm`` (n*T,) with each rank's
-    local unsort ``per_rank_unsort`` (n, T): ``y_global_sorted[g]``
-    enumerates rows in the original (rank, token, choice) order.  At one
-    rank ``perm`` is the identity and the result is the unsort index."""
-    n, tkk = per_rank_unsort.shape
-    inv = torch.argsort(perm, stable=True)
-    block_idx = (per_rank_unsort
-                 + torch.arange(n, dtype=per_rank_unsort.dtype,
-                                device=per_rank_unsort.device)[:, None] * tkk
-                 ).reshape(-1)
-    return torch.index_select(inv, 0, block_idx.long())

@@ -14,8 +14,9 @@ and reads nothing back to the host.  :func:`grouped_tile_schedule` is its
 mirror in PyTorch (on the input's device, no host read either), equal to
 the JAX schedule array for array where the rows divide into tiles; unlike
 the JAX version it also takes a row count that does not, the last tile then
-being partial.  The ring orders of the collective kernels belong to the
-multi-GPU slice.
+being partial.  :func:`derived_tile_schedule` runs K5's own derivation on
+the card and writes it out, so that the two can be held equal.  The ring
+orders of the collective kernels belong to the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..core import build
 from ..core.utils import cdiv
 
 
@@ -90,3 +92,29 @@ def grouped_tile_schedule(group_sizes: torch.Tensor, num_rows: int,
     covers = (valid & (row_start == lo) & (row_end == lo + bm)).to(i32)
     return GroupedSchedule(tile, group, row_start, row_end, is_first,
                            valid.to(i32), covers)
+
+
+SLOT_FIELDS = ("valid", "tile_ids", "group_ids", "row_starts", "row_ends",
+               "is_first")
+
+
+def derived_tile_schedule(group_sizes: torch.Tensor, num_rows: int,
+                          bm: int) -> dict[str, torch.Tensor]:
+    """The slots of :func:`grouped_tile_schedule` that K5 uses, by
+    :data:`SLOT_FIELDS`, each field 0 on the padding slots.  On a CUDA
+    tensor, K5's own derivation (``derive_slot`` in
+    ``csrc/group_gemm.cu``), one block a slot and no product; on a CPU
+    tensor, :func:`grouped_tile_schedule`."""
+    (num_groups,) = group_sizes.shape
+    if group_sizes.device.type == "cpu":
+        sched = grouped_tile_schedule(group_sizes, num_rows, bm)
+        valid = sched.valid
+        return {f: getattr(sched, f) * valid for f in SLOT_FIELDS}
+    sizes = group_sizes.to(torch.int32).contiguous()
+    out = torch.empty((len(SLOT_FIELDS), num_groups + cdiv(num_rows, bm)),
+                      dtype=torch.int32, device=sizes.device)
+    err = build.library().tdt_grouped_schedule(
+        sizes.data_ptr(), num_rows, num_groups, bm, out.data_ptr(),
+        torch.cuda.current_stream(sizes.device).cuda_stream)
+    build.check(err, "grouped_schedule")
+    return dict(zip(SLOT_FIELDS, out))
