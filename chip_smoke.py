@@ -24,6 +24,27 @@ Phases, each printing JSON lines; any failure exits non-zero:
                routing), each timed with CUDA events beside its plain
                version, its bound, and SDPA, the per-kernel chain (K4) or
                ``torch._grouped_mm`` (K5).
+   local_ops -- the local ops beside the serving path (K6-K8).  K6, the
+               tiled GEMM, against its plain version at the edges (M 1, 37,
+               1000, 4096; N and K 136 and 4104; every built tile; bf16 ->
+               bf16 and f32, and f32), bf16 held to BF16_TOL + 2**-7 |plain|
+               and shown to reject a k-tile left out and a neighbour's
+               n-tile.  Then the path, counted: K6 at each main shape
+               (bench.py's 7168^3 and 4096 x 7168 x 7168, Qwen3-8B's prefill
+               projections at 4096 rows) with its default tile,
+               fresh_tune_matmul at 7168^3 and at gate_up (the crown, every
+               candidate's time and the roofline share printed; K6's counter
+               must rise by exactly the sweep's K6 calls), K7's states of a
+               ragged Qwen3-8B decode over the contiguous cache and over bf16
+               and int8 pages of 64, and K8 folding four 1024-key chunks at
+               q_offset 3072 (the last rank of a 4-way ring).  Then each
+               against its plain version (K7 split by split, empty splits
+               exact, merged and normalized against K2; K8's fold against the
+               plain fold and its finalized output against K1 over the whole
+               4096; outputs held to BF16_TOL rms(row) + 2**-7 |plain|, shown
+               to reject a state with one chunk's or split's V from the
+               neighbouring kv head and one with a 64-key tile left out),
+               timed beside its bound and torch.matmul or SDPA.
 4. serve    -- Qwen3-8B at full width and depth with seeded random weights,
                batch 4, max_length 2048: requests of 1024 prompt tokens and 64
                new tokens in five modes (contiguous, paged, paged + fused,
@@ -59,6 +80,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import re
 import sys
 import time
@@ -787,6 +809,521 @@ def group_gemm_main_rows(tt, torch) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# local ops: K6 (the tuned matmul), K7 (decode states), K8 (the chunk fold)
+
+K6_RTOL = 2.0 ** -7   # bf16 results: BF16_TOL + K6_RTOL |plain|, as K5's
+# K7 and K8 states against their plain versions: acc / l (the attention the
+# state stands for) within BF16_TOL rms(row) + STATE_RTOL |plain| per element,
+# the rms over the row's D values of the plain side (an attention row over N
+# keys has a spread of ~sqrt(e / N), 0.027 at 4096 keys, so an absolute 0.02
+# would be as large as the values); l within STATE_RTOL relative, m within
+# STATE_M_TOL; p is rounded to bf16 at running maxima that differ in the two
+STATE_RTOL = 2.0 ** -7
+STATE_M_TOL = 1e-3
+FAULT_TILE = 64   # the keys a faulty state leaves out: one kernel kv tile
+STATE_TOL = {"out": [BF16_TOL, "x rms(row)", STATE_RTOL, "x |plain|"],
+             "l_rtol": STATE_RTOL, "m": STATE_M_TOL}
+MATMUL_MAIN = (   # (label, M, K, N): bench.py's GEMMs, Qwen3-8B's prefill at B = 4 x 1024
+    ("bench 7168^3", 7168, 7168, 7168),
+    ("bench 4096x7168x7168", 4096, 7168, 7168),
+    ("Qwen3-8B qkv", BATCH * PROMPT, 4096, 6144),
+    ("Qwen3-8B o", BATCH * PROMPT, 4096, 4096),
+    ("Qwen3-8B gate_up", BATCH * PROMPT, 4096, 24576),
+    ("Qwen3-8B down", BATCH * PROMPT, 12288, 4096),
+    ("Qwen3-8B lm_head", BATCH * PROMPT, 4096, 151936),
+)
+FRESH_TUNES = ("bench 7168^3", "Qwen3-8B gate_up")
+STATE_LENS = (DECODE_POS, 1, MAX_LEN, 700)   # K7's ragged kv_len, B = 4
+RING, RING_CHUNK = 4, 1024   # K8: the last rank of a 4-way ring at 4096 context
+
+
+def k6_operands(torch, gen, m, k, n, dtype):
+    """Unit-variance A and B scaled by 1/sqrt(K): outputs of unit variance."""
+    a = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    b = (torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5).to(dtype)
+    return a, b
+
+
+def k6_limits(torch, out_dtype) -> tuple[float, float]:
+    return (BF16_TOL, K6_RTOL) if out_dtype == torch.bfloat16 else (F32_TOL, 0.0)
+
+
+def phase_matmul_cases(tt, torch) -> None:
+    """K6 against its plain version at the edges: M 1, 37, 1000, 4096 (partial
+    last tiles), N and K 136 and 4104 (off every tile), every built tile,
+    bf16 -> bf16, bf16 -> f32 and f32."""
+    from triton_distributed_tpu_torch.ops import matmul as M
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    results = []
+    for m in (1, 37, 1000, 4096):
+        for n in (136, 4104):
+            for k in (136, 4104):
+                a32, b32 = k6_operands(torch, gen, m, k, n, torch.float32)
+                for dtype, outs in ((torch.bfloat16, (None, torch.float32)),
+                                    (torch.float32, (None,))):
+                    a, b = a32.to(dtype), b32.to(dtype)
+                    for tile in M.KERNEL_TILES[dtype]:
+                        for out in outs:
+                            got = M.matmul(a, b, config=tile, out_dtype=out)
+                            want = M.matmul_ref(a, b, out)
+                            atol, rtol = k6_limits(torch, got.dtype)
+                            check(got.dtype == (out or dtype), f"K6 returned {got.dtype}")
+                            results.append((f"{dtype}->{got.dtype}", (m, n, k, tile),
+                                            (got.float() - want.float()).abs().max().item(),
+                                            [atol, rtol], k5_share(got, want, atol, rtol)))
+    torch.cuda.synchronize()
+    for dt, case, e, tol, share in results:
+        emit({"phase": "kernel_case", "kernel": "matmul", "dtype": dt,
+              "case": [str(c) for c in case], "max_abs_err": e, "tol": tol,
+              "worst_share_of_tol": share, "ok": share <= 1.0})
+    bad = [r for r in results if not r[4] <= 1.0]
+    check(not bad, f"{len(bad)} matmul cases disagree with the plain version")
+
+
+def count_sweep_calls(at, calls: dict):
+    """Wrap the tuner's ``autotune`` so each candidate thunk's calls are
+    counted in ``calls`` (str(candidate) -> n): the sweep's K6 launches,
+    counted apart from the kernel's own counter.  Returns the original."""
+    real = at.autotune
+
+    def counting(name, key, candidates, make_thunk, **kw):
+        def make(c):
+            thunk = make_thunk(c)
+
+            def run():
+                calls[str(c)] = calls.get(str(c), 0) + 1
+                return thunk()
+            return run
+        return real(name, key, candidates, make, **kw)
+
+    at.autotune = counting
+    return real
+
+
+def local_inputs(tt, torch) -> dict:
+    """The main-path inputs of K6, K7 and K8, made from the seed."""
+    c = tt.QWEN3_8B
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    bf = torch.bfloat16
+    h, hk, d = c.num_heads, c.num_kv_heads, c.head_dim
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(bf)
+
+    ins = {"gemm": {label: k6_operands(torch, gen, m, k, n, bf)
+                    for label, m, k, n in MATMUL_MAIN}}
+    ins["q"] = rnd(BATCH, h, d)
+    ins["kv"] = (rnd(BATCH, hk, MAX_LEN, d), rnd(BATCH, hk, MAX_LEN, d))
+    ins["lens"] = torch.tensor(STATE_LENS, dtype=torch.int32, device="cuda")
+    mp = MAX_LEN // PAGE
+    ins["pages"] = (rnd(BATCH * mp, hk, PAGE, d), rnd(BATCH * mp, hk, PAGE, d))
+    ins["int8_pages"] = int8_pools(torch, gen, BATCH * mp, hk, PAGE, d)
+    ins["table"] = torch.randperm(BATCH * mp, generator=torch.Generator().manual_seed(SEED)) \
+        .to(torch.int32).reshape(BATCH, mp).to("cuda")
+    s = RING * RING_CHUNK
+    ins["ring"] = (rnd(1, h, s, d), rnd(1, hk, s, d), rnd(1, hk, s, d))
+    return ins
+
+
+def local_ops_path(tt, torch, at, ins) -> dict:
+    """The local ops through the entry points a user calls, with the launch
+    counters set to 0 just before and read just after: K6 with its default
+    tile at each main shape, two fresh tunes (their sweeps launch every
+    tile) and the call that serves each crown; K7 over the contiguous cache
+    and over bf16 and int8 pages, merged; K8 folding the four chunks of the
+    ring's last rank."""
+    tile = (128, 128, 32)
+    calls: dict = {}
+    out: dict = {"tunes": {}}
+    q, (k, v), lens, table = ins["q"], ins["kv"], ins["lens"], ins["table"]
+    qr, kr, vr = ins["ring"]
+    sq = RING_CHUNK
+    q_last = qr[:, :, -sq:].contiguous()
+    chunks = [(kr[:, :, j * sq:(j + 1) * sq].contiguous(),
+               vr[:, :, j * sq:(j + 1) * sq].contiguous()) for j in range(RING)]
+    q_off = torch.tensor((RING - 1) * sq, dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    tt.reset_launch_counts()
+    real = count_sweep_calls(at, calls)
+    try:
+        for label, (a, b) in ins["gemm"].items():
+            out[label] = tt.matmul(a, b, bm=tile[0], bn=tile[1], bk=tile[2])
+        for label in FRESH_TUNES:
+            a, b = ins["gemm"][label]
+            before = dict(calls)
+            crown = tt.fresh_tune_matmul(a, b)
+            cands, res = at.last_result("matmul")
+            served = tt.matmul(a, b)   # config=None: the crown, from memory
+            k6_calls = sum(calls.get(str(c), 0) - before.get(str(c), 0)
+                           for c in cands if not isinstance(c, at.LibraryBackend))
+            out["tunes"][label] = dict(crown=crown, candidates=cands,
+                                       result=res, served=served,
+                                       k6_calls=k6_calls)
+    finally:
+        at.autotune = real
+    out["state"] = tt.decode_attention_state(q, k, v, lens)
+    out["merged"] = tt.merge_decode_states(*out["state"])
+    pk, pv = ins["pages"]
+    out["paged_state"] = tt.paged_decode_attention_state(q, pk, pv, table, lens)
+    ik, iv, iks, ivs = ins["int8_pages"]
+    out["int8_state"] = tt.paged_decode_attention_state(
+        q, ik, iv, table, lens, k_scale=iks, v_scale=ivs)
+    b, h, _, d = q_last.shape
+    state = tt.init_attention_state(b, h, sq, d)
+    for j, (kc, vc) in enumerate(chunks):
+        state = tt.flash_attention_chunk(q_last, kc, vc, state, q_off, j * sq)
+    out["fold"] = state
+    torch.cuda.synchronize()
+    out["launches"], out["forms"] = tt.launch_counts(), tt.launch_forms()
+    out["chunks"], out["q_last"] = chunks, q_last
+    return out
+
+
+def out_share(torch, got, want) -> tuple[float, float]:
+    """An attention output (rows along the last axis) against its plain
+    version: the worst |got - want| as a share of BF16_TOL rms(row of want)
+    + STATE_RTOL |want| (1 or below passes), and the worst |got - want|."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    limit = BF16_TOL * w.square().mean(-1, keepdim=True).sqrt() + STATE_RTOL * w.abs()
+    share = torch.where(diff > 0, diff / limit.clamp_min(1e-30), torch.zeros_like(diff))
+    return share.max().item(), diff.max().item()
+
+
+def state_shares(torch, got, want) -> dict:
+    """Each part of a decode or chunk state against its plain version, as a
+    share of its limit (1 or below passes): the attention it stands for
+    (acc / l, where l > 0) by :func:`out_share`, l against STATE_RTOL
+    |plain|, m against STATE_M_TOL; and whether both have the same empty
+    rows.  ``out_max_abs_err`` is the attention's worst absolute error."""
+    num, m, l = (x.float() for x in got)
+    rn, rm, rl = (x.float() for x in want)
+    live = rl > 0
+    zero = torch.zeros_like(num)
+    out, err = out_share(torch, torch.where(live[..., None], num / l.clamp_min(1e-30)[..., None], zero),
+                         torch.where(live[..., None], rn / rl.clamp_min(1e-30)[..., None], zero))
+    return {"out": out,
+            "l": ((l - rl).abs() / (1e-6 + STATE_RTOL * rl.abs())).max().item(),
+            "m": torch.where(live, (m - rm).abs(), torch.zeros_like(m)).max().item()
+            / STATE_M_TOL,
+            "same_empty": bool(torch.equal(l > 0, live)),
+            "out_max_abs_err": err}
+
+
+def worst(shares: dict) -> float:
+    return max(shares["out"], shares["l"], shares["m"])
+
+
+def empties_exact(torch, state, starts, lens) -> bool:
+    """Every split starting at or past its sequence's length holds exactly
+    num = 0, m = -1e30, l = 0 (the JAX masked tile's state)."""
+    num, m, l = state
+    empty = starts[None, :] >= lens[:, None].long()          # (B, S)
+    e = empty[:, None, :].expand_as(m)
+    return bool((m[e] == -1e30).all() and not l[e].any()
+                and not num[e[..., None].expand_as(num)].any())
+
+
+def matmul_rows(tt, torch, ins, path) -> dict:
+    """K6 at the main shapes: each built tile held to the plain version
+    (and the limit shown to reject a k-tile left out and a neighbour's
+    n-tile) and timed; the row takes the fastest tile, beside the plain
+    version, ``torch.matmul`` and the bound."""
+    from triton_distributed_tpu_torch.core.utils import perf_func
+    from triton_distributed_tpu_torch.ops import matmul as M
+
+    rows = {}
+    for label, m, k, n in MATMUL_MAIN:
+        a, b = ins["gemm"][label]
+        want = M.matmul_ref(a, b)
+        tiles = {}
+        for tile in M.KERNEL_TILES[torch.bfloat16]:
+            got = M.matmul(a, b, config=tile)
+            share = k5_share(got, want, BF16_TOL, K6_RTOL)
+            err = (got.float() - want.float()).abs().max().item()
+            del got
+            _, ms = perf_func(lambda: M.matmul(a, b, config=tile), iters=10)
+            tiles[str(tile)] = dict(ms=ms, max_abs_err=err, worst_share_of_tol=share)
+        default = path[label]
+        tiles["(128, 128, 32)"]["path_share_of_tol"] = k5_share(default, want, BF16_TOL, K6_RTOL)
+        faulty = {
+            "k_tile_left_out": k5_share(M.matmul_ref(a[:, 32:], b[32:]), want, BF16_TOL, K6_RTOL),
+            "neighbour_n_tile": k5_share(want.roll(-128, dims=1), want, BF16_TOL, K6_RTOL)}
+        _, plain_ms = perf_func(lambda: M.matmul_ref(a, b), iters=3)
+        _, lib_ms = perf_func(lambda: torch.matmul(a, b), iters=10)
+        best = min(tiles, key=lambda t: tiles[t]["ms"])
+        b_ms, b_by = bound(2 * m * n * k, nbytes(a, b, want), H100_BF16_FLOPS)
+        name = f"matmul[{label}]"
+        rows[name] = dict(
+            name=name, route="cuda", source="triton_distributed_tpu_torch/csrc/matmul.cu",
+            replaces="triton_distributed_tpu/ops/matmul.py:37",
+            max_abs_err=max(t["max_abs_err"] for t in tiles.values()),
+            tol=[BF16_TOL, K6_RTOL],
+            worst_share_of_tol=max(max(t["worst_share_of_tol"] for t in tiles.values()),
+                                   tiles["(128, 128, 32)"]["path_share_of_tol"]),
+            faulty_share_of_tol=faulty, ms=tiles[best]["ms"], tile=best, tiles=tiles,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            library="torch.matmul", counter="matmul", form=(m, n, k),
+            shape=f"a ({m},{k}) b ({k},{n}) bf16")
+        del want
+    return rows
+
+
+def decode_state_rows(tt, torch, ins, path) -> dict:
+    """K7 at the Qwen3-8B decode shapes (B = 4, cache 2048, pages of 64):
+    the path's states (ragged kv_len 1056, 1, 2048, 700) held to the plain
+    versions split by split and page by page, empty splits held exact, and
+    the merged contiguous states, normalized, held to K2; the limit shown to
+    reject a state with one split's V from the neighbouring kv head and one
+    with a 64-key tile of a split left out; then each form timed at kv_len
+    1056, as K2 and K3 are."""
+    import torch.nn.functional as F
+
+    from triton_distributed_tpu_torch.core.utils import perf_func
+    from triton_distributed_tpu_torch.ops import attention as A
+
+    q, (k, v), lens, table = ins["q"], ins["kv"], ins["lens"], ins["table"]
+    pk, pv = ins["pages"]
+    ik, iv, iks, ivs = ins["int8_pages"]
+    b, h, d = q.shape
+    hk = k.shape[1]
+    sm = d ** -0.5
+    n_split = A.auto_n_split(MAX_LEN)
+    mp = table.shape[1]
+    forms = {
+        "decode_attention_state": (
+            path["state"], lambda kl: A.decode_attention_state(q, k, v, kl),
+            lambda kl: A.decode_attention_state_ref(q, k, v, kl, n_split, sm_scale=sm),
+            torch.arange(n_split, device="cuda") * (MAX_LEN // n_split)),
+        "paged_decode_attention_state": (
+            path["paged_state"],
+            lambda kl: A.paged_decode_attention_state(q, pk, pv, table, kl),
+            lambda kl: A.paged_decode_attention_state_ref(q, pk, pv, table, kl, sm_scale=sm),
+            torch.arange(mp, device="cuda") * PAGE),
+        "paged_decode_attention_state_int8": (
+            path["int8_state"],
+            lambda kl: A.paged_decode_attention_state(q, ik, iv, table, kl,
+                                                      k_scale=iks, v_scale=ivs),
+            lambda kl: A.paged_decode_attention_state_ref(
+                q, ik, iv, table, kl, sm_scale=sm, k_scale=iks, v_scale=ivs),
+            torch.arange(mp, device="cuda") * PAGE)}
+    merged_num, _, merged_l = path["merged"]
+    k2 = A.decode_attention(q, k, v, lens)
+    merged_share, merged_err = out_share(torch, A.safe_normalize_decode(
+        merged_num[:, :, 0], merged_l[:, :, 0, None], q.dtype), k2)
+    emit({"phase": "kernel_case", "kernel": "merge_decode_states", "dtype": str(q.dtype),
+          "case": ["K7 states merged and normalized vs K2", str(STATE_LENS)],
+          "max_abs_err": merged_err, "share_of_tol": merged_share,
+          "tol": [BF16_TOL, "x rms(row)", STATE_RTOL], "ok": merged_share <= 1.0})
+    check(merged_share <= 1.0, f"merged K7 states differ from K2: {merged_share} of the limit")
+    # the limit must reject a faulty state: one split's V from the
+    # neighbouring kv head, or one 64-key tile of a split left out
+    keep = torch.arange(MAX_LEN, device="cuda")[None, :] < lens[:, None]
+    s1 = MAX_LEN // n_split
+    v_bad = v.clone()
+    v_bad[:, :, s1:2 * s1] = v[:, :, s1:2 * s1].roll(1, dims=1)
+    keep_bad = keep.clone()
+    keep_bad[:, s1:s1 + FAULT_TILE] = False
+    want = A.decode_attention_state_ref(q, k, v, lens, n_split, sm_scale=sm)
+    faulty = {
+        "neighbour_kv_head_v": state_shares(torch, A.decode_attention_state_ref(
+            q, k, v_bad, lens, n_split, sm_scale=sm), want)["out"],
+        "kv_tile_left_out": state_shares(torch, A.decode_states_ref(
+            q, k, v, keep_bad, n_split, sm_scale=sm), want)["out"]}
+    del v_bad, want
+    uniform = torch.full((b,), DECODE_POS, dtype=torch.int32, device="cuda")
+    gk = A.gather_pages(pk, table)[0][:, :, :DECODE_POS]
+    gv = A.gather_pages(pv, table)[0][:, :, :DECODE_POS]
+    dk = (A.gather_pages(ik, table, iks)[0].float()
+          * A.gather_pages(ik, table, iks)[1][..., None])[:, :, :DECODE_POS].to(q.dtype)
+    dv = (A.gather_pages(iv, table, ivs)[0].float()
+          * A.gather_pages(iv, table, ivs)[1][..., None])[:, :, :DECODE_POS].to(q.dtype)
+    library_kv = {"decode_attention_state": (k[:, :, :DECODE_POS], v[:, :, :DECODE_POS]),
+                  "paged_decode_attention_state": (gk, gv),
+                  "paged_decode_attention_state_int8": (dk, dv)}
+    rows = {}
+    for name, (got, kernel, plain, starts) in forms.items():
+        shares = state_shares(torch, got, plain(lens))
+        exact = empties_exact(torch, got, starts, lens)
+        check(shares["same_empty"] and exact,
+              f"{name}: empty splits are not num = 0, m = -1e30, l = 0 exactly")
+        check(worst(shares) <= 1.0, f"{name} disagrees with its plain version: {shares}")
+        _, ms = perf_func(lambda: kernel(uniform), iters=50)
+        _, plain_ms = perf_func(lambda: plain(uniform), iters=10)
+        lk, lv = library_kv[name]
+        _, lib_ms = perf_func(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], lk, lv, enable_gqa=True), iters=50)
+        st = kernel(uniform)
+        kv_bytes = 2 * b * hk * DECODE_POS * d * (1 if name.endswith("int8") else 2)
+        extra = b * mp * 4 + (2 * b * mp * hk * 4 if name.endswith("int8") else 0) \
+            if name.startswith("paged") else 0
+        b_ms, b_by = bound(4 * b * h * DECODE_POS * d,
+                           kv_bytes + extra + nbytes(q, uniform, *st), H100_BF16_FLOPS)
+        rows[name] = dict(
+            name=name, route="cuda", source="triton_distributed_tpu_torch/csrc/decode_attention.cu",
+            replaces=("triton_distributed_tpu/ops/attention.py:584" if not name.startswith("paged")
+                      else "triton_distributed_tpu/ops/attention.py:1096"),
+            max_abs_err=shares["out_max_abs_err"], share_of_limits=shares,
+            worst_share_of_tol=worst(shares), tol=STATE_TOL,
+            **({"faulty_share_of_tol": faulty} if name == "decode_attention_state" else {}),
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            library="scaled_dot_product_attention (normalized, over the kv_len prefix)",
+            shape=(f"q ({b},{h},{d}) " + ("cache" if not name.startswith("paged") else "pool")
+                   + f" bf16{' int8' if name.endswith('int8') else ''}, states at kv_len "
+                   f"{list(STATE_LENS)}, timed at {DECODE_POS}"))
+    return rows
+
+
+def fold_rows(tt, torch, ins, path) -> dict:
+    """K8 at Qwen3-8B's heads: the ring's last rank (queries 3072-4095)
+    folds four chunks of 1024 keys; the folded state is held to the plain
+    fold, and its finalized output to K1 over the whole 4096 (rows
+    3072-4095); the limits shown to reject a fold with one chunk's V from
+    the neighbouring kv head and one with a 64-key tile left out.  Each
+    chunk timed beside its bound and SDPA over the same
+    (q, chunk); the row is the whole fold."""
+    import torch.nn.functional as F
+
+    from triton_distributed_tpu_torch.core.utils import perf_func
+    from triton_distributed_tpu_torch.ops import attention as A
+
+    qr, kr, vr = ins["ring"]
+    q, chunks, fold = path["q_last"], path["chunks"], path["fold"]
+    b, h, sq, d = q.shape
+    sm = d ** -0.5
+    q_off = torch.tensor((RING - 1) * sq, dtype=torch.int32, device="cuda")
+    states = [A.init_attention_state(b, h, sq, d)]
+    ref = states[0]
+    for j, (kc, vc) in enumerate(chunks):
+        ref = A.flash_attention_chunk_ref(q, kc, vc, ref, q_off, j * sq, sm_scale=sm)
+        states.append(A.flash_attention_chunk(q, kc, vc, states[-1], q_off, j * sq))
+    def as_state(st):   # (m, l, acc) -> (num, m, l), as state_shares reads it
+        return st[2], st[0], st[1]
+
+    def plain_fold(j_bad=-1, bad=None):   # the plain fold, chunk j_bad as bad(k, v, kv_offset)
+        st = states[0]
+        for j, (kc, vc) in enumerate(chunks):
+            kc, vc, off = bad(kc, vc, j * sq) if j == j_bad else (kc, vc, j * sq)
+            st = A.flash_attention_chunk_ref(q, kc, vc, st, q_off, off, sm_scale=sm)
+        return st
+
+    shares = state_shares(torch, as_state(fold), as_state(ref))
+    full = A.flash_attention(qr, kr, vr, causal=True)[:, :, -sq:]
+    k1_share, k1_err = out_share(torch, A.finalize_attention_state(fold, q.dtype), full)
+    # the limits must reject a faulty fold: one chunk's V from the
+    # neighbouring kv head, or one 64-key tile of a chunk left out
+    faulty = {
+        "neighbour_kv_head_v": state_shares(torch, as_state(plain_fold(
+            2, lambda kc, vc, off: (kc, vc.roll(1, dims=1), off))), as_state(ref))["out"],
+        "kv_tile_left_out": state_shares(torch, as_state(plain_fold(
+            1, lambda kc, vc, off: (kc[:, :, FAULT_TILE:], vc[:, :, FAULT_TILE:],
+                                    off + FAULT_TILE))), as_state(ref))["out"]}
+    emit({"phase": "kernel_case", "kernel": "flash_attention_chunk", "dtype": str(q.dtype),
+          "case": [f"{RING} chunks of {sq} at q_offset {(RING - 1) * sq}", "vs plain fold",
+                   "vs K1 over the whole context"],
+          "share_of_limits": shares, "k1_share_of_tol": k1_share, "k1_max_abs_err": k1_err,
+          "faulty_share_of_tol": faulty, "tol": STATE_TOL,
+          "ok": worst(shares) <= 1.0 and k1_share <= 1.0})
+    check(shares["same_empty"] and worst(shares) <= 1.0,
+          f"K8's fold disagrees with the plain fold: {shares}")
+    check(k1_share <= 1.0, f"K8's fold differs from K1: {k1_share} of the limit ({k1_err})")
+    check(all(torch.equal(x, y) for x, y in zip(states[-1], fold)),
+          "K8 is not deterministic: the path's fold differs from the same fold again")
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0)
+    flops_total = 0.0
+    for j, (kc, vc) in enumerate(chunks):
+        s_j = states[j]
+        diag = j == RING - 1
+        _, ms = perf_func(lambda: A.flash_attention_chunk(q, kc, vc, s_j, q_off, j * sq))
+        _, plain_ms = perf_func(lambda: A.flash_attention_chunk_ref(
+            q, kc, vc, s_j, q_off, j * sq, sm_scale=sm), iters=5)
+        _, lib_ms = perf_func(lambda: F.scaled_dot_product_attention(
+            q, kc, vc, is_causal=diag, enable_gqa=True))
+        flops = 4 * b * h * sq * sq * d * ((sq + 1) / (2 * sq) if diag else 1.0)
+        flops_total += flops
+        b_ms, b_by = bound(flops, nbytes(q, kc, vc, *s_j, *states[j + 1]), H100_BF16_FLOPS)
+        emit({"phase": "kernel_main", "kernel": "flash_attention_chunk", "chunk": j,
+              "kv_offset": j * sq, "q_offset": (RING - 1) * sq, "diagonal": diag,
+              "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+              "bound_by": b_by})
+        total["ms"] += ms
+        total["plain_ms"] += plain_ms
+        total["library_ms"] += lib_ms
+    b_ms, b_by = bound(flops_total, nbytes(q, *[t for c in chunks for t in c], *states[0], *fold),
+                       H100_BF16_FLOPS)
+    return {"flash_attention_chunk": dict(
+        name="flash_attention_chunk", route="cuda",
+        source="triton_distributed_tpu_torch/csrc/flash_attention.cu",
+        replaces="triton_distributed_tpu/ops/attention.py:361",
+        max_abs_err=shares["out_max_abs_err"], share_of_limits=shares,
+        k1_share_of_tol=k1_share, k1_max_abs_err=k1_err,
+        worst_share_of_tol=max(worst(shares), k1_share), faulty_share_of_tol=faulty,
+        tol=STATE_TOL, **total,
+        bound_ms=b_ms, bound_by=b_by,
+        library="scaled_dot_product_attention per chunk (normalized), summed",
+        shape=f"q ({b},{h},{sq},{d}) bf16 at {(RING - 1) * sq}, {RING} chunks kv ({b},{kr.shape[1]},{sq},{d})")}
+
+
+def phase_local_ops(tt, torch) -> tuple[dict, dict, dict]:
+    """K6, K7 and K8: edge cases, then the path (counted), then each
+    kernel at the main shapes against its plain version and timed.
+    Returns the kernel rows and the path's launches, total and by form."""
+    from triton_distributed_tpu_torch.ops import matmul as M
+    from triton_distributed_tpu_torch.tune import autotuner as at
+
+    t0 = time.perf_counter()
+    phase_matmul_cases(tt, torch)
+    ins = local_inputs(tt, torch)
+    path = local_ops_path(tt, torch, at, ins)
+    launches, forms = path["launches"], path["forms"]
+    emit({"phase": "local_ops_path",
+          "launches": {k: n for k, n in launches.items() if n},
+          "matmul_by_form": [[list(f), n] for (name, f), n in forms.items()
+                             if name == "matmul"]})
+    for label, t in path["tunes"].items():
+        res = t["result"]
+        emit({"phase": "fresh_tune", "shape": label, "crown": str(t["crown"]),
+              "candidates_ms": {str(c): ms for c, ms in zip(t["candidates"], res.candidate_ms)},
+              "winner_ms": res.time_ms, "sol_fraction": res.sol_fraction,
+              "k6_launches_in_sweep": t["k6_calls"]})
+        check(t["k6_calls"] > 0, f"the {label} sweep launched no K6 tile")
+        a, b = ins["gemm"][label]
+        check(k5_share(t["served"], M.matmul_ref(a, b), BF16_TOL, K6_RTOL) <= 1.0,
+              f"the crowned backend at {label} disagrees with the plain version")
+    for label, m, k, n in MATMUL_MAIN:
+        want = 1
+        t = path["tunes"].get(label)
+        if t is not None:
+            want += t["k6_calls"] + (not isinstance(t["crown"], at.LibraryBackend))
+        got = forms.get(("matmul", (m, n, k)), 0)
+        check(got == want, f"K6 launches at {label}: {got}, want {want}")
+    check(launches["matmul"] == sum(n for (name, _), n in forms.items() if name == "matmul"),
+          "K6's launches by form do not add up to its total")
+    want = {"decode_attention_state": 1, "paged_decode_attention_state": 1,
+            "paged_decode_attention_state_int8": 1, "flash_attention_chunk": RING}
+    check(all(launches[k] == n for k, n in want.items()),
+          f"K7/K8 launches {[launches[k] for k in want]}, want {list(want.values())}")
+    rows = matmul_rows(tt, torch, ins, path)
+    rows.update(decode_state_rows(tt, torch, ins, path))
+    rows.update(fold_rows(tt, torch, ins, path))
+    for row in rows.values():
+        emit({"phase": "kernel_main", **{k: v for k, v in row.items() if k != "form"}})
+    for row in rows.values():
+        if "faulty_share_of_tol" in row:
+            check(row["worst_share_of_tol"] <= 1.0,
+                  f"{row['name']} disagrees with its plain version: {row['max_abs_err']}")
+            check(min(row["faulty_share_of_tol"].values()) > 1.0,
+                  f"{row['name']}: the limit does not reject a faulty result "
+                  f"{row['faulty_share_of_tol']}")
+    del ins, path
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "local_ops", "seconds": time.perf_counter() - t0})
+    return rows, launches, forms
+
+
 def phase_sync_check(tt, torch, params) -> None:
     """One MoE layer's decode and prefill forward at the main shapes under
     ``torch.cuda.set_sync_debug_mode("error")``: any read back to the host
@@ -1231,6 +1768,10 @@ def main() -> int:
         return 2
     import triton_distributed_tpu_torch as tt
 
+    # the tuner's winners go to a file of the checkout's build directory
+    tune_cache = here / "build" / "autotune_smoke.json"
+    tune_cache.unlink(missing_ok=True)
+    os.environ["TDT_AUTOTUNE_CACHE"] = str(tune_cache)
     # f32 products in full f32 (the parity phase compares against the CPU)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1253,12 +1794,16 @@ def main() -> int:
         phase = "kernels_main"
         rows = phase_kernels_main(tt, torch)
         rows.update(group_gemm_main_rows(tt, torch))
+        phase = "local_ops"
+        local_rows, local_launches, local_forms = phase_local_ops(tt, torch)
+        rows.update(local_rows)
         phase = "serve"
         launches = phase_serve(tt, torch)
         phase = "serve_moe"
-        moe_launches, k5_forms = phase_serve_moe(tt, torch)
-        for name, n in moe_launches.items():
+        moe_launches, forms = phase_serve_moe(tt, torch)
+        for name, n in [*moe_launches.items(), *local_launches.items()]:
             launches[name] += n
+        forms.update(local_forms)
         for name, n in launches.items():
             check(n > 0, f"{name} was not launched on the main path")
         phase = "parity"
@@ -1267,9 +1812,9 @@ def main() -> int:
         phase = "report"
         kernels = []
         for name, row in rows.items():
-            # K5's rows: the launches of the row's form, as counted
-            n = (k5_forms.get(("grouped_matmul", row["form"]), 0) if "form" in row
-                 else launches.get(name))
+            # K5's and K6's rows: the launches of the row's form, as counted
+            n = (forms.get((row.get("counter", "grouped_matmul"), row["form"]), 0)
+                 if "form" in row else launches.get(name))
             check(n > 0, f"{name}: no launch of its form on the main path")
             kernels.append({k: row[k] for k in (
                 "name", "route", "source", "replaces")} | {

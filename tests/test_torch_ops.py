@@ -182,6 +182,11 @@ def test_port_import_leaves_jax_out():
     code = (
         "import sys, triton_distributed_tpu_torch\n"
         "import triton_distributed_tpu_torch.ops.swizzle\n"
+        "import triton_distributed_tpu_torch.ops.matmul\n"
+        "import triton_distributed_tpu_torch.tune.autotuner\n"
+        "import triton_distributed_tpu_torch.analysis.footprint\n"
+        "import triton_distributed_tpu_torch.obs.costs\n"
+        "import triton_distributed_tpu_torch.tools.perf_model\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'triton_distributed_tpu'"
         " or m.startswith('triton_distributed_tpu.')]\n"
@@ -207,3 +212,11 @@ def test_entry_points_refuse_missing_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         tt.Qwen3(cfg, device="cuda")
     assert tt.Qwen3(cfg, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tt.init_attention_state(1, 2, 8, 16)
+    assert tt.init_attention_state(1, 2, 8, 16, device="cpu")[2].device.type == "cpu"
+    assert tt.device_kind() == "cpu"
+    # CPU tensors take the plain versions; the tuner measures nothing
+    x = torch.ones(8, 8)
+    assert tt.fresh_tune_matmul(x, x) == tt.LibraryBackend()
+    assert torch.equal(tt.matmul(x, x, bm=64, bn=64, bk=16), x @ x)

@@ -9,7 +9,16 @@ full-precision or int8 pages, in ``decode_mode`` "psum" (the per-kernel
 chain) or "fused" (one attention megakernel per layer on a paged cache).
 Attention and the MoE expert products run through hand-written CUDA kernels
 (``csrc/``), built by ``nvcc`` for ``sm_90a`` at first use; every other
-product is ``torch.matmul``.
+product of the model is ``torch.matmul``.
+
+Local ops beside the serving path: :func:`matmul`, the tuned GEMM, which
+weighs the hand-written tiled GEMM against cuBLAS per shape through the
+contextual autotuner (``tune``: :func:`tuned_matmul`,
+:func:`fresh_tune_matmul`); and the state-carrying attention passes that
+sequence parallelism folds: :func:`decode_attention_state` and
+:func:`paged_decode_attention_state` with :func:`merge_decode_states`, and
+:func:`flash_attention_chunk` between :func:`init_attention_state` and
+:func:`finalize_attention_state`.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``, where
 the kernels' plain PyTorch versions run instead.  Without CUDA and without
@@ -17,7 +26,7 @@ that request they raise.
 """
 
 from .core.launches import launch_counts, launch_forms, reset_launch_counts
-from .core.platform import card_identity, init_seed, resolve_device
+from .core.platform import card_identity, device_kind, init_seed, resolve_device
 from .core.utils import assert_allclose, cdiv, clip_block, perf_func
 from .layers.moe import MoEMLP, MoEParams
 from .layers.norm import rms_norm
@@ -34,23 +43,36 @@ from .models.kv_cache import (
 )
 from .models.qwen import Qwen3, QwenParams
 from .ops.attention import (
+    auto_n_split,
     decode_attention,
+    decode_attention_state,
+    finalize_attention_state,
     flash_attention,
+    flash_attention_chunk,
+    init_attention_state,
+    merge_decode_states,
     paged_decode_attention,
+    paged_decode_attention_state,
 )
 from .ops.fused_decode import fused_attn_decode, fused_linear_ar, fused_mlp_ar
 from .ops.group_gemm import GroupGemmConfig, grouped_matmul
+from .ops.matmul import matmul, matmul_callable
 from .ops.rope import apply_rope, apply_rope_at, rope_freqs
+from .tune import LibraryBackend, fresh_tune_matmul, tuned_matmul
 
 __all__ = [
-    "Engine", "GroupGemmConfig", "KVCache", "MoEMLP", "MoEParams",
-    "ModelConfig", "PagePoolExhausted", "PagedKVCache", "QWEN3_30B_A3B",
-    "QWEN3_8B", "Qwen3", "QwenParams", "apply_rope", "apply_rope_at",
-    "assert_allclose", "card_identity", "cdiv", "clip_block",
-    "decode_attention", "flash_attention", "from_jax_cache",
+    "Engine", "GroupGemmConfig", "KVCache", "LibraryBackend", "MoEMLP",
+    "MoEParams", "ModelConfig", "PagePoolExhausted", "PagedKVCache",
+    "QWEN3_30B_A3B", "QWEN3_8B", "Qwen3", "QwenParams", "apply_rope",
+    "apply_rope_at", "assert_allclose", "auto_n_split", "card_identity",
+    "cdiv", "clip_block", "decode_attention", "decode_attention_state",
+    "device_kind", "finalize_attention_state", "flash_attention",
+    "flash_attention_chunk", "fresh_tune_matmul", "from_jax_cache",
     "from_jax_params", "fused_attn_decode", "fused_linear_ar", "fused_mlp_ar",
-    "grouped_matmul", "init_cache", "init_paged_cache", "init_seed",
-    "kv_page_bytes", "launch_counts", "launch_forms",
-    "paged_decode_attention", "perf_func", "reset_launch_counts",
-    "resolve_device", "rms_norm", "rope_freqs", "sample_token",
+    "grouped_matmul", "init_attention_state", "init_cache",
+    "init_paged_cache", "init_seed", "kv_page_bytes", "launch_counts",
+    "launch_forms", "matmul", "matmul_callable", "merge_decode_states",
+    "paged_decode_attention", "paged_decode_attention_state", "perf_func",
+    "reset_launch_counts", "resolve_device", "rms_norm", "rope_freqs",
+    "sample_token", "tuned_matmul",
 ]

@@ -18,6 +18,11 @@ KERNELS = (
     "fused_attn_decode",             # K4, full-precision pages
     "fused_attn_decode_int8",        # K4, int8 pages
     "grouped_matmul",                # K5
+    "matmul",                        # K6
+    "decode_attention_state",        # K7, contiguous cache
+    "paged_decode_attention_state",  # K7, full-precision pages
+    "paged_decode_attention_state_int8",  # K7, int8 pages
+    "flash_attention_chunk",         # K8
 )
 
 _counts = dict.fromkeys(KERNELS, 0)

@@ -44,6 +44,15 @@ def init_seed(seed: int) -> None:
     torch.manual_seed(seed)
 
 
+def device_kind() -> str:
+    """The device part of every tuner key (JAX ``platform.device_kind()``):
+    the current CUDA device's name as ``torch.cuda.get_device_name`` gives
+    it, or ``"cpu"`` without CUDA."""
+    if not torch.cuda.is_available():
+        return "cpu"
+    return torch.cuda.get_device_name(torch.cuda.current_device())
+
+
 def card_identity() -> str:
     """The card's name and power limit, as
     ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints

@@ -1,5 +1,6 @@
-"""Small shared helpers: integer tiling math, comparison, and kernel timing
-with CUDA events (counterpart of ``triton_distributed_tpu/core/utils.py``)."""
+"""Small shared helpers: integer tiling math, comparison, kernel timing with
+CUDA events, the autotuner's interleaved host-clock timing, and the
+cross-process mean (counterpart of ``triton_distributed_tpu/core/utils.py``)."""
 
 from __future__ import annotations
 
@@ -87,3 +88,96 @@ def perf_func(func: Callable[[], object], iters: int = 20,
         events.append((start, end))
     torch.cuda.synchronize()
     return out, statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def sync() -> None:
+    """Wait until the device has finished the work queued so far (JAX
+    ``sync``): ``torch.cuda.synchronize()`` once CUDA is in use, nothing on
+    a CPU-only process, whose PyTorch ops finish before they return."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def timed_run(func: Callable[[], object], k: int) -> float:
+    """Host seconds for ``k`` back-to-back calls of ``func`` ended by one
+    :func:`sync` (JAX ``timed_run``)."""
+    t0 = time.perf_counter()
+    for _ in range(k):
+        func()
+    sync()
+    return time.perf_counter() - t0
+
+
+def interleaved_time_samples(thunks: dict, iters: int, rounds: int,
+                             target_window_s: float | None = None) -> dict:
+    """Per-thunk ``(slope_dt, raw_dt)`` second-per-call samples over
+    interleaved rounds, the measurement core of the autotuner (JAX
+    ``core/utils.py:132``, ported line for line; the windows are host-clock
+    spans ended by ``torch.cuda.synchronize()``).
+
+    Thunks timed back to back in a round share the card's clock and thermal
+    state; the order alternates between rounds so a monotonic drift biases
+    no thunk.  ``slope_dt`` is the slope between a 1-call and a (1 + k)-call
+    window (the fixed sync cost cancels: an unbiased absolute); ``raw_dt`` is
+    the (1 + k)-call window over 1 + k (sync cost included, but common to
+    every thunk, so the right basis for ratios and crowning).  With
+    ``target_window_s`` each thunk's call count is recalibrated every round
+    from its latest raw time so every window lasts about that long.  Two
+    thunks run A B B A windows after round 0, so a linear drift cancels in
+    their ratio.  Callers warm the thunks up first and drop round 0 of the
+    raw samples (taken before the windows were calibrated)."""
+    samples = {name: [] for name in thunks}
+    trips = {name: iters for name in thunks}
+
+    def recalibrate(name, raw_dt):
+        if target_window_s and raw_dt > 0:
+            trips[name] = max(iters, min(int(target_window_s / raw_dt), 8192))
+
+    for r in range(rounds):
+        order = list(thunks.items())
+        if r % 2:
+            order.reverse()
+        if len(order) == 2 and r > 0:
+            (na, fa), (nb, fb) = order
+            ka, kb = trips[na], trips[nb]
+            # the 1-call calibrations sit beside the long window they are
+            # differenced against, placed symmetrically so both thunks'
+            # mean window times still coincide
+            a1 = timed_run(fa, 1 + ka)
+            cal_a = timed_run(fa, 1)
+            b1 = timed_run(fb, 1 + kb)
+            b2 = timed_run(fb, 1 + kb)
+            cal_b = timed_run(fb, 1)
+            a2 = timed_run(fa, 1 + ka)
+            raw_a = (a1 + a2) / (2 * (1 + ka))
+            raw_b = (b1 + b2) / (2 * (1 + kb))
+            samples[na].append(((a1 - cal_a) / ka, raw_a))
+            samples[nb].append(((b2 - cal_b) / kb, raw_b))
+            recalibrate(na, raw_a)
+            recalibrate(nb, raw_b)
+            continue
+        for name, thunk in order:
+            k = trips[name]
+            t_long = timed_run(thunk, 1 + k)
+            raw_dt = t_long / (1 + k)
+            samples[name].append(((t_long - timed_run(thunk, 1)) / k, raw_dt))
+            recalibrate(name, raw_dt)
+    return samples
+
+
+def process_mean(values) -> list[float]:
+    """Elementwise mean of a small float vector over the processes of the
+    default ``torch.distributed`` group, identical on every process (JAX
+    ``process_mean``: what lets every rank's tuner crown the same winner).
+    Unchanged when ``torch.distributed`` is not initialized or has one
+    process."""
+    import torch.distributed as dist
+
+    values = [float(v) for v in values]
+    if not (dist.is_available() and dist.is_initialized()) \
+            or dist.get_world_size() == 1:
+        return values
+    device = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    t = torch.tensor(values, dtype=torch.float64, device=device)
+    dist.all_reduce(t)
+    return (t / dist.get_world_size()).tolist()

@@ -1,5 +1,5 @@
-// The split-KV decode state, shared by K2/K3 (decode_attention.cu) and K4
-// (fused_decode.cu): one block of kThreads threads reads positions
+// The split-KV decode state, shared by K2/K3 and K7 (decode_attention.cu)
+// and K4 (fused_decode.cu): one block of kThreads threads reads positions
 // [start, end) of one (sequence, kv head) once for all G query heads of the
 // group and writes their unnormalized (acc, m, l) state; merge_* below
 // combine the states of the splits.
@@ -28,15 +28,18 @@ constexpr int kThreads = kWarps * 32;
 // is this sequence's row of the block table and `head` the kv head; else
 // `table` is null and `head` the (batch * Hkv + kv head) row block of a
 // contiguous (B, Hkv, capacity, D) cache.  k_scale/v_scale: (P * Hkv) f32
-// for int8 codes, else null.  acc_out (G, D) and ml_out (G, 2) receive the
-// state; an empty range gives m = kNegInf, l = 0, acc = 0.
+// for int8 codes, else null.  Head h of the group receives its state at
+// acc_out[h * acc_stride + (0..D)], m_out[h * ml_stride] and
+// l_out[h * ml_stride]; an empty range gives m = kNegInf, l = 0, acc = 0,
+// exactly.
 template <typename T, typename S, int D, int G, bool PAGED>
-__device__ __forceinline__ void split_state(
+__device__ __forceinline__ void split_state_to(
     const T* __restrict__ q, const S* __restrict__ k, const S* __restrict__ v,
     const float* __restrict__ k_scale, const float* __restrict__ v_scale,
     const int* __restrict__ table, int head, int Hkv, int capacity,
     int page_size, int start, int end, float sm_scale, float soft_cap,
-    float* __restrict__ acc_out, float* __restrict__ ml_out) {
+    float* __restrict__ acc_out, int acc_stride, float* __restrict__ m_out,
+    float* __restrict__ l_out, int ml_stride) {
   constexpr bool QUANT = sizeof(S) == 1;
   typedef typename KVLoad<S>::Raw Raw;
   constexpr int E = KVLoad<S>::E;  // elements per lane load
@@ -177,16 +180,31 @@ __device__ __forceinline__ void split_state(
     float num = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) num += s_acc[w][h][d] * expf(s_m[w][h] - mn);
-    acc_out[h * D + d] = num;
+    acc_out[h * acc_stride + d] = num;
     if (d == 0) {
       float den = 0.f;
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) den += s_l[w][h] * expf(s_m[w][h] - mn);
-      ml_out[h * 2] = mn;
-      ml_out[h * 2 + 1] = den;
+      m_out[h * ml_stride] = mn;
+      l_out[h * ml_stride] = den;
     }
   }
   __syncthreads();  // the shared state may be reused by the caller
+}
+
+// split_state_to with the state of the G heads packed: acc_out (G, D) and
+// ml_out (G, 2) = (m, l), the layout the merge below reads.
+template <typename T, typename S, int D, int G, bool PAGED>
+__device__ __forceinline__ void split_state(
+    const T* __restrict__ q, const S* __restrict__ k, const S* __restrict__ v,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+    const int* __restrict__ table, int head, int Hkv, int capacity,
+    int page_size, int start, int end, float sm_scale, float soft_cap,
+    float* __restrict__ acc_out, float* __restrict__ ml_out) {
+  split_state_to<T, S, D, G, PAGED>(q, k, v, k_scale, v_scale, table, head,
+                                    Hkv, capacity, page_size, start, end,
+                                    sm_scale, soft_cap, acc_out, D, ml_out,
+                                    ml_out + 1, 2);
 }
 
 // The merged (m, l) of query head `h` of G over the n_split states starting

@@ -1,7 +1,17 @@
-// K1: flash-attention prefill for Hopper (sm_90a).
+// K1: flash-attention prefill for Hopper (sm_90a), and K8, its chunk fold.
 //
-// Replaces triton_distributed_tpu/ops/attention.py::_attn_kernel (the Pallas
-// causal/non-causal flash prefill with GQA and tanh soft_cap).  It computes
+// K1 replaces triton_distributed_tpu/ops/attention.py::_attn_kernel (the
+// Pallas causal/non-causal flash prefill with GQA and tanh soft_cap).  K8
+// replaces ::_attn_chunk_kernel (flash_attention_chunk: one KV chunk folded
+// into a carried (m, l, acc) f32 state, the step of ring attention): the
+// same kernel with CHUNK set, which starts each row from the state it is
+// given instead of (-1e30, 0, 0), applies causality by absolute position
+// (query q_offset + i against key kv_offset + j, the offsets read on the
+// device from int32 tensors or passed as ints), and writes the state back
+// unnormalized.  A query tile whose rows all precede the chunk reads no K/V
+// and copies its state through, so a chunk wholly in the future does no
+// work; a row with no visible key keeps its state exactly (its masked
+// scores give p = 0 and a rescale of exp(0) = 1), never NaN.  It computes
 // what that kernel computes, not block for block: q is scaled in f32 and cast
 // to the storage type before the q.k dot, scores and the online-softmax state
 // (m, l, acc) are f32, p is cast to the V type before the p.v dot, a masked
@@ -24,7 +34,7 @@
 // causal tail finishes early.
 // The f32 storage path is plain scalar FMA: it serves parity checks, not the
 // serving path.
-#include "common.cuh"
+#include "ptx.cuh"
 
 namespace tdt {
 namespace {
@@ -38,58 +48,54 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared without passing through registers; when `in` is
-// false nothing is read and the 16 bytes are zero-filled.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(in ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// Four 8x8 b16 matrices from shared memory; lane l gives the address of row
-// l % 8 of matrix l / 8, and register i receives this thread's mma fragment
-// of matrix i (transposed with .trans).
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)) : "memory");
-}
-
 constexpr float kLog2e = 1.4426950408889634f;
 
-// d (16x8 f32) += a (16x16 bf16, row-major) * b (16x8 bf16, k-major)
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// The chunk fold's carried state and offsets (K8); unused by K1.  m, l:
+// (B * H, Sq), acc: (B * H, Sq, D), f32; the offsets come from the int32
+// pointers when they are not null, else from the ints.
+struct ChunkState {
+  const float *m_in, *l_in, *acc_in;
+  float *m_out, *l_out, *acc_out;
+  const int *q_off_ptr, *kv_off_ptr;
+  int q_off, kv_off;
+};
+
+// q_offset - kv_offset: a key at chunk position j is visible to the query at
+// position i when j <= i + delta.
+__device__ __forceinline__ int chunk_delta(const ChunkState& cs) {
+  const int qo = cs.q_off_ptr ? *cs.q_off_ptr : cs.q_off;
+  const int ko = cs.kv_off_ptr ? *cs.kv_off_ptr : cs.kv_off;
+  return qo - ko;
 }
 
+// kv tiles of `bk` rows a causal query tile whose last row is `last` (chunk
+// positions, offset by delta) must read: none when last < 0.
+__device__ __forceinline__ int causal_tiles(int last, int bk, int n_kt) {
+  return last < 0 ? 0 : min(n_kt, last / bk + 1);
+}
+
+// Copy the state of rows [r0, r1) of (batch * head) bh through unchanged.
 template <int D>
+__device__ void copy_state(const ChunkState& cs, int bh, int Sq, int r0,
+                           int r1) {
+  r1 = min(r1, Sq);
+  const size_t base = static_cast<size_t>(bh) * Sq;
+  for (int i = threadIdx.x; i < (r1 - r0) * D; i += blockDim.x) {
+    const size_t row = base + r0 + i / D;
+    cs.acc_out[row * D + i % D] = cs.acc_in[row * D + i % D];
+    if (i % D == 0) {
+      cs.m_out[row] = cs.m_in[row];
+      cs.l_out[row] = cs.l_in[row];
+    }
+  }
+}
+
+template <int D, bool CHUNK>
 __global__ void __launch_bounds__(kThreads, 3)
 flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, bf16* __restrict__ o, int H,
                int Hkv, int Sq, int Skv, int causal, float sm_scale,
-               float soft_cap) {
+               float soft_cap, ChunkState cs) {
   constexpr int LD = D + 8;      // padded shared-memory row, in elements
   constexpr int CH = D / 8;      // 16-byte chunks per row
   constexpr int KSTEPS = D / 16; // k steps of the q.k product
@@ -116,6 +122,11 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int q0 = qt * kBQ;
+  const int delta = CHUNK ? chunk_delta(cs) : 0;
+  if (CHUNK && causal && q0 + kBQ - 1 + delta < 0) {
+    copy_state<D>(cs, bh, Sq, q0, q0 + kBQ);  // every key is in these rows' future
+    return;
+  }
 
   // K/V tile j -> buffer `buf`, asynchronously; rows past Skv are zeros
   auto load_kv = [&](int j, int buf) {
@@ -166,10 +177,35 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
   }
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-  const int row0 = q0 + r_lo, row1 = row0 + 8;  // absolute query positions
+  const int row0 = q0 + r_lo, row1 = row0 + 8;  // query positions in q
 
   int n_kt = (Skv + kBK - 1) / kBK;
-  if (causal) n_kt = min(n_kt, (q0 + kBQ - 1) / kBK + 1);  // stop at the diagonal
+  if (causal) n_kt = causal_tiles(q0 + kBQ - 1 + delta, kBK, n_kt);  // stop at the diagonal
+  if (CHUNK) {  // start from the carried state
+    const size_t base = static_cast<size_t>(bh) * Sq;
+    if (row0 < Sq) {
+      m0 = cs.m_in[base + row0];
+      l0 = cs.l_in[base + row0];
+    }
+    if (row1 < Sq) {
+      m1 = cs.m_in[base + row1];
+      l1 = cs.l_in[base + row1];
+    }
+#pragma unroll
+    for (int dn = 0; dn < DT; ++dn) {
+      const int col = dn * 8 + 2 * t;
+      if (row0 < Sq) {
+        const float2 a = *reinterpret_cast<const float2*>(cs.acc_in + (base + row0) * D + col);
+        acc[dn][0] = a.x;
+        acc[dn][1] = a.y;
+      }
+      if (row1 < Sq) {
+        const float2 a = *reinterpret_cast<const float2*>(cs.acc_in + (base + row1) * D + col);
+        acc[dn][2] = a.x;
+        acc[dn][3] = a.y;
+      }
+    }
+  }
 
   // ldmatrix row addresses of this lane (see ldmatrix_x4): K matrices are
   // (8 kv rows) x (8 head-dim columns) at column offsets 0, 8, 16, 24; V
@@ -207,7 +243,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     // soft cap, then the mask (ragged kv edge, causal diagonal)
-    const bool need_mask = (k0 + kBK > Skv) || (causal && k0 + kBK - 1 > q0);
+    const bool need_mask = (k0 + kBK > Skv) || (causal && k0 + kBK - 1 > q0 + delta);
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
@@ -217,7 +253,7 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
         if (need_mask) {
           const int col = k0 + nt * 8 + 2 * t + (e & 1);
           const int row = e < 2 ? row0 : row1;
-          if (col >= Skv || (causal && col > row)) x = kNegInf;
+          if (col >= Skv || (causal && col > row + delta)) x = kNegInf;
         }
         s[nt][e] = x;
       }
@@ -282,6 +318,28 @@ flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // every warp is done with `buf` before it is refilled
   }
 
+  if (CHUNK) {  // the unnormalized state; one thread of the quad writes m, l
+    const size_t base = static_cast<size_t>(bh) * Sq;
+#pragma unroll
+    for (int dn = 0; dn < DT; ++dn) {
+      const int col = dn * 8 + 2 * t;
+      if (row0 < Sq)
+        *reinterpret_cast<float2*>(cs.acc_out + (base + row0) * D + col) =
+            make_float2(acc[dn][0], acc[dn][1]);
+      if (row1 < Sq)
+        *reinterpret_cast<float2*>(cs.acc_out + (base + row1) * D + col) =
+            make_float2(acc[dn][2], acc[dn][3]);
+    }
+    if (t == 0 && row0 < Sq) {
+      cs.m_out[base + row0] = m0;
+      cs.l_out[base + row0] = l0;
+    }
+    if (t == 0 && row1 < Sq) {
+      cs.m_out[base + row1] = m1;
+      cs.l_out[base + row1] = l1;
+    }
+    return;
+  }
 #pragma unroll
   for (int dn = 0; dn < DT; ++dn) {
     const int col = dn * 8 + 2 * t;
@@ -302,12 +360,12 @@ constexpr int kF32BQ = 32;
 constexpr int kF32BK = 32;
 constexpr int kF32Warps = 8;
 
-template <int D>
+template <int D, bool CHUNK>
 __global__ void __launch_bounds__(kF32Warps * 32)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, int H,
               int Hkv, int Sq, int Skv, int causal, float sm_scale,
-              float soft_cap) {
+              float soft_cap, ChunkState cs) {
   constexpr int RPW = kF32BQ / kF32Warps;  // query rows per warp
   constexpr int DPL = D / 32;              // output columns per lane
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -324,6 +382,13 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* op = o + static_cast<size_t>(bh) * Sq * D;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kF32BQ;
+  const int delta = CHUNK ? chunk_delta(cs) : 0;
+  int n_kt = (Skv + kF32BK - 1) / kF32BK;
+  if (causal) n_kt = causal_tiles(q0 + kF32BQ - 1 + delta, kF32BK, n_kt);
+  if (CHUNK && n_kt == 0) {
+    copy_state<D>(cs, bh, Sq, q0, q0 + kF32BQ);
+    return;
+  }
 
   for (int i = tid; i < kF32BQ * D; i += kF32Warps * 32) {
     const int r = i / D, c = i % D;
@@ -332,13 +397,14 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   float m[RPW], l[RPW], acc[RPW][DPL];
 #pragma unroll
   for (int i = 0; i < RPW; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
+    const int row = q0 + warp * RPW + i;
+    const size_t at = static_cast<size_t>(bh) * Sq + row;
+    const bool carried = CHUNK && row < Sq;
+    m[i] = carried ? cs.m_in[at] : kNegInf;
+    l[i] = carried ? cs.l_in[at] : 0.f;
 #pragma unroll
-    for (int c = 0; c < DPL; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < DPL; ++c) acc[i][c] = carried ? cs.acc_in[at * D + lane + 32 * c] : 0.f;
   }
-  int n_kt = (Skv + kF32BK - 1) / kF32BK;
-  if (causal) n_kt = min(n_kt, (q0 + kF32BQ - 1) / kF32BK + 1);
 
   for (int j = 0; j < n_kt; ++j) {
     const int k0 = j * kF32BK;
@@ -360,7 +426,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll 8
       for (int d = 0; d < D; ++d) s = fmaf(sQ[r * D + d], sK[lane * (D + 1) + d], s);
       if (soft_cap > 0.f) s = tanhf(s / soft_cap) * soft_cap;
-      if (col >= Skv || (causal && col > row)) s = kNegInf;
+      if (col >= Skv || (causal && col > row + delta)) s = kNegInf;
       float mx = fmaxf(m[i], s);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFullMask, mx, off));
@@ -384,6 +450,16 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < RPW; ++i) {
     const int row = q0 + warp * RPW + i;
     if (row >= Sq) continue;
+    if (CHUNK) {
+      const size_t at = static_cast<size_t>(bh) * Sq + row;
+#pragma unroll
+      for (int c = 0; c < DPL; ++c) cs.acc_out[at * D + lane + 32 * c] = acc[i][c];
+      if (lane == 0) {
+        cs.m_out[at] = m[i];
+        cs.l_out[at] = l[i];
+      }
+      continue;
+    }
 #pragma unroll
     for (int c = 0; c < DPL; ++c) {
       op[static_cast<size_t>(row) * D + lane + 32 * c] = l[i] > 0.f ? acc[i][c] / l[i] : 0.f;
@@ -391,38 +467,56 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, bool CHUNK>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         int B, int H, int Hkv, int Sq, int Skv, int causal,
-                        float sm_scale, float soft_cap, cudaStream_t stream) {
+                        float sm_scale, float soft_cap, const ChunkState& cs,
+                        cudaStream_t stream) {
   // two K tiles + two V tiles (the q tile is staged in the second K tile)
   const int smem = 4 * kBK * (D + 8) * static_cast<int>(sizeof(bf16));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_bf16<D, CHUNK>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-  flash_fwd_bf16<D><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_bf16<D, CHUNK><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), H, Hkv, Sq, Skv,
-      causal, sm_scale, soft_cap);
+      causal, sm_scale, soft_cap, cs);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool CHUNK>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        int B, int H, int Hkv, int Sq, int Skv, int causal,
-                       float sm_scale, float soft_cap, cudaStream_t stream) {
+                       float sm_scale, float soft_cap, const ChunkState& cs,
+                       cudaStream_t stream) {
   const int smem = (kF32BQ * D + kF32BK * (D + 1) + kF32BK * D) *
                    static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_f32<D, CHUNK>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (Sq + kF32BQ - 1) / kF32BQ);
-  flash_fwd_f32<D><<<grid, kF32Warps * 32, smem, stream>>>(
+  flash_fwd_f32<D, CHUNK><<<grid, kF32Warps * 32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), H, Hkv, Sq, Skv,
-      causal, sm_scale, soft_cap);
+      causal, sm_scale, soft_cap, cs);
   return cudaGetLastError();
+}
+
+template <bool CHUNK>
+int dispatch(const void* q, const void* k, const void* v, void* o, int B,
+             int H, int Hkv, int Sq, int Skv, int D, int causal,
+             float sm_scale, float soft_cap, int dtype, const ChunkState& cs,
+             cudaStream_t st) {
+  if (dtype == 1 && D == 128)
+    return launch_bf16<128, CHUNK>(q, k, v, o, B, H, Hkv, Sq, Skv, causal, sm_scale, soft_cap, cs, st);
+  if (dtype == 1 && D == 64)
+    return launch_bf16<64, CHUNK>(q, k, v, o, B, H, Hkv, Sq, Skv, causal, sm_scale, soft_cap, cs, st);
+  if (dtype == 0 && D == 128)
+    return launch_f32<128, CHUNK>(q, k, v, o, B, H, Hkv, Sq, Skv, causal, sm_scale, soft_cap, cs, st);
+  if (dtype == 0 && D == 64)
+    return launch_f32<64, CHUNK>(q, k, v, o, B, H, Hkv, Sq, Skv, causal, sm_scale, soft_cap, cs, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -436,14 +530,26 @@ extern "C" int tdt_flash_attention(const void* q, const void* k, const void* v,
                                    int Skv, int D, int causal, float sm_scale,
                                    float soft_cap, int dtype, void* stream) {
   using namespace tdt;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && D == 128)
-    return launch_bf16<128>(q, k, v, o, B, H, Hkv, Sq, Skv, causal, sm_scale, soft_cap, st);
-  if (dtype == 1 && D == 64)
-    return launch_bf16<64>(q, k, v, o, B, H, Hkv, Sq, Skv, causal, sm_scale, soft_cap, st);
-  if (dtype == 0 && D == 128)
-    return launch_f32<128>(q, k, v, o, B, H, Hkv, Sq, Skv, causal, sm_scale, soft_cap, st);
-  if (dtype == 0 && D == 64)
-    return launch_f32<64>(q, k, v, o, B, H, Hkv, Sq, Skv, causal, sm_scale, soft_cap, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<false>(q, k, v, o, B, H, Hkv, Sq, Skv, D, causal, sm_scale,
+                         soft_cap, dtype, ChunkState{},
+                         static_cast<cudaStream_t>(stream));
+}
+
+// K8: q (B, H, Sq, D) at positions q_offset + [0, Sq), k/v (B, Hkv, Sc, D)
+// at kv_offset + [0, Sc), all contiguous; the state in and out: m, l
+// (B, H, Sq) and acc (B, H, Sq, D), f32, distinct buffers.  The offsets are
+// read from q_off_ptr / kv_off_ptr (int32 on the device) when those are not
+// null, else taken from q_off / kv_off.  dtype: 0 = float32, 1 = bfloat16.
+extern "C" int tdt_flash_attention_chunk(
+    const void* q, const void* k, const void* v, const float* m_in,
+    const float* l_in, const float* acc_in, float* m_out, float* l_out,
+    float* acc_out, const int* q_off_ptr, const int* kv_off_ptr, int B, int H,
+    int Hkv, int Sq, int Sc, int D, int causal, int q_off, int kv_off,
+    float sm_scale, float soft_cap, int dtype, void* stream) {
+  using namespace tdt;
+  const ChunkState cs{m_in, l_in, acc_in, m_out, l_out, acc_out,
+                      q_off_ptr, kv_off_ptr, q_off, kv_off};
+  return dispatch<true>(q, k, v, nullptr, B, H, Hkv, Sq, Sc, D, causal,
+                        sm_scale, soft_cap, dtype, cs,
+                        static_cast<cudaStream_t>(stream));
 }

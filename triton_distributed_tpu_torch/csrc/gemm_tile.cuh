@@ -1,0 +1,127 @@
+// The tiled GEMM main loop of the port: acc += A[m0:m0+BM, :] @ B[:, n0:n0+BN]
+// for one block, bf16 operands, f32 accumulation, on mma.sync tensor-core
+// tiles.  It is the Hopper form of triton_distributed_tpu/ops/blocks.py
+// ::matmul_body (the MXU loop that the JAX matmul and every fused GEMM run
+// per tile): K6 (matmul.cu) runs it as a kernel of its own, and the ports of
+// the fused and overlapped GEMMs (B6-B8, B14-B16) are to call it per tile.
+//
+// Operands are row-major, A (M, K) and B (K, N), with K and N multiples of 8
+// so that every 16-byte chunk of a row lies wholly inside or outside the
+// matrix.  Rows of A past M, columns of B past N and k past K are zero-filled
+// in shared memory without a read, so partial tiles on every edge are
+// allowed; the caller stores only the rows and columns inside the matrix.
+//
+// Operand tiles stream through a ring of STAGES shared-memory buffers with
+// cp.async (tile kt + STAGES - 1 is in flight while tile kt is computed);
+// rows are padded by 8 elements so the ldmatrix reads of eight rows hit
+// distinct banks.  A fragments come by ldmatrix, B fragments by
+// ldmatrix.trans from the (K, N) row-major tile.  Each warp owns a WM x WN
+// piece of the block tile: MT x NT m16n8k16 products per 16-deep k step.
+#pragma once
+
+#include "ptx.cuh"
+
+namespace tdt {
+namespace gemm {
+
+// A block tile of BM x BN outputs, BK deep a stage, WARPS_M x WARPS_N warps.
+template <int BM_, int BN_, int BK_, int WARPS_M_, int WARPS_N_, int STAGES_>
+struct Tile {
+  static constexpr int BM = BM_, BN = BN_, BK = BK_;
+  static constexpr int WARPS_M = WARPS_M_, WARPS_N = WARPS_N_, STAGES = STAGES_;
+  static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
+  static constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;  // warp tile
+  static constexpr int MT = WM / 16, NT = WN / 8;             // mma tiles a warp
+  static constexpr int LDA = BK + 8, LDB = BN + 8;            // padded rows
+  static constexpr int A_ELEMS = BM * LDA, B_ELEMS = BK * LDB;
+  static constexpr int STAGE = A_ELEMS + B_ELEMS;             // elements
+  static constexpr int SMEM_BYTES = STAGES * STAGE * 2;
+  static_assert(WM % 16 == 0 && WN % 16 == 0 && BK % 16 == 0, "tile shape");
+  static_assert((BM * BK / 8) % THREADS == 0 && (BK * BN / 8) % THREADS == 0,
+                "every thread copies the same number of chunks a stage");
+};
+
+// Copy k-tile starting at k0 into `stage` (A then B), asynchronously.
+template <class L>
+__device__ __forceinline__ void load_stage(const bf16* __restrict__ A,
+                                           const bf16* __restrict__ B, int M,
+                                           int N, int K, int m0, int n0,
+                                           int k0, bf16* stage) {
+  const int tid = threadIdx.x;
+  bf16* sa = stage;
+  bf16* sb = stage + L::A_ELEMS;
+#pragma unroll
+  for (int it = 0; it < L::BM * L::BK / 8 / L::THREADS; ++it) {
+    const int i = tid + it * L::THREADS;
+    const int r = i / (L::BK / 8), c = (i % (L::BK / 8)) * 8;
+    const bool in = m0 + r < M && k0 + c < K;
+    cp_async16(sa + r * L::LDA + c,
+               in ? A + static_cast<size_t>(m0 + r) * K + k0 + c : A, in);
+  }
+#pragma unroll
+  for (int it = 0; it < L::BK * L::BN / 8 / L::THREADS; ++it) {
+    const int i = tid + it * L::THREADS;
+    const int r = i / (L::BN / 8), c = (i % (L::BN / 8)) * 8;
+    const bool in = k0 + r < K && n0 + c < N;
+    cp_async16(sb + r * L::LDB + c,
+               in ? B + static_cast<size_t>(k0 + r) * N + n0 + c : B, in);
+  }
+}
+
+// acc (this warp's MT x NT fragments, zeroed by the caller) += the block
+// tile's product over all of K.  `smem` holds L::SMEM_BYTES.  Warp w owns
+// rows (w / WARPS_N) * WM and columns (w % WARPS_N) * WN of the tile; the
+// fragment acc[i][j][e] is row i * 16 + lane / 4 + (e / 2) * 8 and column
+// j * 8 + 2 * (lane % 4) + e % 2 of that piece.
+template <class L>
+__device__ __forceinline__ void mainloop(const bf16* __restrict__ A,
+                                         const bf16* __restrict__ B, int M,
+                                         int N, int K, int m0, int n0,
+                                         bf16* smem,
+                                         float (&acc)[L::MT][L::NT][4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp / L::WARPS_N, wn = warp % L::WARPS_N;
+  const int ktiles = (K + L::BK - 1) / L::BK;
+#pragma unroll
+  for (int st = 0; st < L::STAGES - 1; ++st) {
+    if (st < ktiles) load_stage<L>(A, B, M, N, K, m0, n0, st * L::BK, smem + st * L::STAGE);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<L::STAGES - 2>();
+    __syncthreads();  // tile kt landed for all; buffer (kt - 1) % STAGES free
+    const int next = kt + L::STAGES - 1;
+    if (next < ktiles)
+      load_stage<L>(A, B, M, N, K, m0, n0, next * L::BK,
+                    smem + (next % L::STAGES) * L::STAGE);
+    cp_async_commit();
+    const bf16* sa = smem + (kt % L::STAGES) * L::STAGE;
+    const bf16* sb = sa + L::A_ELEMS;
+#pragma unroll
+    for (int kk = 0; kk < L::BK; kk += 16) {
+      uint32_t a[L::MT][4], b[L::NT][2];
+#pragma unroll
+      for (int i = 0; i < L::MT; ++i)
+        ldmatrix_x4(a[i], sa + (wm * L::WM + i * 16 + (lane & 15)) * L::LDA
+                              + kk + (lane >> 4) * 8);
+#pragma unroll
+      for (int j = 0; j < L::NT; j += 2) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, sb + (kk + (lane & 15)) * L::LDB + wn * L::WN
+                                 + j * 8 + (lane >> 4) * 8);
+        b[j][0] = r[0];
+        b[j][1] = r[1];
+        b[j + 1][0] = r[2];
+        b[j + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < L::MT; ++i)
+#pragma unroll
+        for (int j = 0; j < L::NT; ++j) mma_bf16(acc[i][j], a[i], b[j]);
+    }
+  }
+  cp_async_wait<0>();
+}
+
+}  // namespace gemm
+}  // namespace tdt

@@ -10,7 +10,14 @@ PyTorch version beside it (``*_ref``) and a hand-written CUDA kernel in
 - ``decode_attention``: ``decode_attention.cu``, replacing
   ``_decode_fused_kernel``;
 - ``paged_decode_attention``: ``decode_attention.cu``, replacing
-  ``_paged_decode_kernel`` with pages in q's type or int8 pages.
+  ``_paged_decode_kernel`` with pages in q's type or int8 pages;
+- ``decode_attention_state`` and ``paged_decode_attention_state`` (K7):
+  ``decode_attention.cu``, replacing ``_decode_kernel`` and the ``_state``
+  form of ``_paged_decode_kernel``; ``merge_decode_states`` is plain torch
+  ops, as JAX computes it in jnp;
+- ``flash_attention_chunk`` (K8): ``flash_attention.cu``, replacing
+  ``_attn_chunk_kernel``, with ``init_attention_state`` and
+  ``finalize_attention_state`` around it.
 
 A wrapper takes the plain version only for tensors on the CPU.  For CUDA
 tensors it launches its kernel or raises; it never falls back.  Each wrapper
@@ -35,6 +42,7 @@ import torch
 
 from ..core import build
 from ..core.launches import count
+from ..core.platform import resolve_device
 from ..core.utils import cdiv
 
 _NEG_INF = -1e30
@@ -411,3 +419,324 @@ def check_int32(**tensors) -> None:
     for name, t in tensors.items():
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32 for the kernel, got {t.dtype}")
+
+
+# ---------------------------------------------------------------------------
+# K7: the split-KV decode state, and its merge
+
+
+def auto_n_split(seq_kv: int) -> int:
+    """Default split count of :func:`decode_attention_state` (JAX
+    ``auto_n_split``): 4, halved until it divides the cache length."""
+    n = 4
+    while n > 1 and seq_kv % n:
+        n //= 2
+    return n
+
+
+def decode_states_ref(q, k, v, keep, n_split: int, *, sm_scale: float,
+                      soft_cap: float = 0.0, p_dtype=None, k_scale=None,
+                      v_scale=None):
+    """Plain version of the state pass: the unnormalized (num, m, l) of each
+    of ``n_split`` equal splits of the positions of ``k``/``v`` (B, Hkv, S,
+    D) where ``keep`` (B, S) holds, for every query head of ``q`` (B, H, D).
+    int8 codes come with per-position scales (B, Hkv, S).  A split with no
+    kept position gives num = 0, m = -1e30, l = 0, as the JAX kernel's
+    masked tile does.  Returns num (B, H, n_split, D), m and l (B, H,
+    n_split)."""
+    b, h, d = q.shape
+    hk, s_len = k.shape[1], k.shape[2]
+    g, sp = h // hk, s_len // n_split
+    qs = _scaled_q(q, sm_scale).float().reshape(b, hk, g, 1, d)
+    s = torch.matmul(qs, k.float().unsqueeze(2).transpose(-1, -2))  # (b,hk,g,1,S)
+    if k_scale is not None:
+        s = s * k_scale[:, :, None, None, :]
+    if soft_cap:
+        s = torch.tanh(s / soft_cap) * soft_cap
+    s = s.reshape(b, hk, g, n_split, sp)
+    keep = keep.reshape(b, 1, 1, n_split, sp)
+    s = torch.where(keep, s, torch.full_like(s, _NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(keep & (m > _NEG_INF / 2), torch.exp(s - m),
+                    torch.zeros_like(s))
+    l = p.sum(dim=-1)
+    pr = p.to(p_dtype or v.dtype).float()
+    if v_scale is not None:
+        pr = pr * v_scale.reshape(b, hk, 1, n_split, sp)
+    num = torch.einsum("bkgns,bknsd->bkgnd", pr,
+                       v.float().reshape(b, hk, n_split, sp, d))
+    return (num.reshape(b, h, n_split, d), m[..., 0].reshape(b, h, n_split),
+            l.reshape(b, h, n_split))
+
+
+def decode_attention_state_ref(q, k, v, kv_len, n_split: int, *,
+                               sm_scale: float, soft_cap: float = 0.0):
+    """Plain version of :func:`decode_attention_state`."""
+    lens = _lens(kv_len, q.shape[0], q.device)
+    keep = torch.arange(k.shape[2], device=q.device)[None, :] < lens[:, None]
+    return decode_states_ref(q, k, v, keep, n_split, sm_scale=sm_scale,
+                             soft_cap=soft_cap)
+
+
+def paged_decode_attention_state_ref(q, pool_k, pool_v, block_table, seq_lens,
+                                     *, sm_scale: float, soft_cap: float = 0.0,
+                                     k_scale=None, v_scale=None):
+    """Plain version of :func:`paged_decode_attention_state`: the pages
+    gathered into a contiguous cache, one split per page."""
+    ps, mp = pool_k.shape[2], block_table.shape[1]
+    k, ks = gather_pages(pool_k, block_table, k_scale)
+    v, vs = gather_pages(pool_v, block_table, v_scale)
+    keep = torch.arange(mp * ps, device=q.device)[None, :] < seq_lens[:, None]
+    return decode_states_ref(q, k, v, keep, mp, sm_scale=sm_scale,
+                             soft_cap=soft_cap, p_dtype=q.dtype, k_scale=ks,
+                             v_scale=vs)
+
+
+def merge_decode_states(num, m, l):
+    """Combine split states over the split axis (JAX
+    ``merge_decode_states``, plain torch ops as JAX computes it in jnp):
+    rescale each numerator and denominator by exp(m_i - m*) and sum.
+    ``num`` (..., S, D), ``m``/``l`` (..., S); returns (num, m, l) with the
+    split axis reduced to size 1.  Associative, so states merge in any
+    grouping (splits, then ranks)."""
+    m_star = m.amax(dim=-1, keepdim=True)
+    scale = torch.exp(m - m_star)
+    num = (num * scale[..., None]).sum(dim=-2, keepdim=True)
+    l = (l * scale).sum(dim=-1, keepdim=True)
+    return num, m_star, l
+
+
+def safe_normalize_decode(num, l, dtype) -> torch.Tensor:
+    """``num / l``, with rows of l == 0 (a sequence of length 0) zeros
+    instead of 0 / 0 (JAX ``safe_normalize_decode``)."""
+    return torch.where(l > 0, num / l.clamp_min(1e-38),
+                       torch.zeros_like(num)).to(dtype)
+
+
+def _launch_state(q, k, v, lens, table, capacity: int, page_size: int,
+                  max_pages: int, n_split: int, chunk: int, sm_scale: float,
+                  soft_cap: float, name: str, k_scale=None, v_scale=None):
+    b, h, d = q.shape
+    num = torch.empty((b, h, n_split, d), dtype=torch.float32, device=q.device)
+    m = torch.empty((b, h, n_split), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    err = build.library().tdt_decode_attention_state(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+        _ptr(table), _ptr(k_scale), _ptr(v_scale), num.data_ptr(),
+        m.data_ptr(), l.data_ptr(), b, h, k.shape[1], d, capacity, page_size,
+        max_pages, n_split, chunk, sm_scale, float(soft_cap),
+        KERNEL_DTYPES[q.dtype], _stream(q.device))
+    build.check(err, name)
+    count(name)
+    return num, m, l
+
+
+def decode_attention_state(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           kv_len, *, n_split: int | None = None,
+                           sm_scale: float | None = None,
+                           soft_cap: float = 0.0, block_k: int | None = None):
+    """Split-KV decode pass returning the mergeable softmax state (K7).
+
+    ``q`` (B, H, D); ``k``/``v`` (B, Hkv, Skv, D); ``kv_len`` an int, 0-d or
+    (B,) tensor of ragged lengths.  Split s covers [s * Skv / n_split,
+    (s + 1) * Skv / n_split) (JAX's boundaries; ``n_split=None`` is
+    :func:`auto_n_split`).  Returns num (B, H, n_split, D) unnormalized and
+    m, l (B, H, n_split); merging any set of states with
+    :func:`merge_decode_states` and dividing gives exact attention.
+    ``block_k`` (the Pallas kv tile) has no meaning for K7, whose blocks
+    stream a split in rows of 16-byte loads; it is accepted and not used."""
+    del block_k
+    b, h, d, hk = _check_decode_q(q, k, ("q", "k"))
+    _check_tensors(("k", "v"), (k, v))
+    if k.shape[0] != b or v.shape != k.shape:
+        raise ValueError(f"shape mismatch: q={tuple(q.shape)} k={tuple(k.shape)} "
+                         f"v={tuple(v.shape)}")
+    seq_kv = k.shape[2]
+    n_split = auto_n_split(seq_kv) if n_split is None else int(n_split)
+    if n_split < 1 or seq_kv % n_split:
+        raise ValueError(f"Skv={seq_kv} not divisible by n_split={n_split}")
+    sm_scale = d ** -0.5 if sm_scale is None else float(sm_scale)
+    if q.device.type == "cpu":
+        return decode_attention_state_ref(q, k, v, kv_len, n_split,
+                                          sm_scale=sm_scale, soft_cap=soft_cap)
+    _check_kernel_shape(d, h // hk)
+    lens = _lens(kv_len, b, q.device)
+    return _launch_state(q, k, v, lens, None, seq_kv, 0, 0, n_split,
+                         seq_kv // n_split, sm_scale, soft_cap,
+                         "decode_attention_state")
+
+
+def paged_decode_attention_state(q: torch.Tensor, pool_k: torch.Tensor,
+                                 pool_v: torch.Tensor,
+                                 block_table: torch.Tensor,
+                                 seq_lens: torch.Tensor, *,
+                                 sm_scale: float | None = None,
+                                 soft_cap: float = 0.0,
+                                 k_scale: torch.Tensor | None = None,
+                                 v_scale: torch.Tensor | None = None):
+    """Split-KV decode over a paged cache returning one mergeable state per
+    logical page (K7; JAX ``paged_decode_attention_state``): arguments as
+    :func:`paged_decode_attention`; returns num (B, H, max_pages, D) and m,
+    l (B, H, max_pages), the page axis in place of the split axis.  Pages at
+    or past a sequence's length give num = 0, m = -1e30, l = 0 and are never
+    read.  int8 pools come with their (P, Hkv) f32 scales."""
+    quantized = check_page_scales(pool_k, pool_v, k_scale, v_scale)
+    b, h, d, hk = _check_decode_q(q, pool_k, ("q", "pool_k"))
+    _check_tensors(("pool_k", "pool_v"), (pool_k, pool_v),
+                   float_like=not quantized)
+    _check_tensors(("block_table", "seq_lens"), (block_table, seq_lens),
+                   float_like=False)
+    if pool_v.shape != pool_k.shape:
+        raise ValueError(f"pool_k {tuple(pool_k.shape)} != pool_v "
+                         f"{tuple(pool_v.shape)}")
+    if block_table.dim() != 2 or block_table.shape[0] != b \
+            or tuple(seq_lens.shape) != (b,):
+        raise ValueError(f"block_table {tuple(block_table.shape)} / seq_lens "
+                         f"{tuple(seq_lens.shape)} inconsistent with B={b}")
+    if block_table.device != q.device or seq_lens.device != q.device:
+        raise ValueError("block_table and seq_lens must be on q's device")
+    sm_scale = d ** -0.5 if sm_scale is None else float(sm_scale)
+    ps, mp = pool_k.shape[2], block_table.shape[1]
+    if q.device.type == "cpu":
+        return paged_decode_attention_state_ref(
+            q, pool_k, pool_v, block_table, seq_lens, sm_scale=sm_scale,
+            soft_cap=soft_cap, k_scale=k_scale, v_scale=v_scale)
+    _check_kernel_shape(d, h // hk)
+    check_int32(block_table=block_table, seq_lens=seq_lens)
+    name = ("paged_decode_attention_state_int8" if quantized
+            else "paged_decode_attention_state")
+    return _launch_state(q, pool_k, pool_v, seq_lens, block_table, mp * ps,
+                         ps, mp, mp, ps, sm_scale, soft_cap, name, k_scale,
+                         v_scale)
+
+
+# ---------------------------------------------------------------------------
+# K8: one KV chunk folded into a carried attention state
+
+
+def init_attention_state(b: int, h: int, seq_q: int, d: int, *, device=None):
+    """A fresh (m, l, acc) state for :func:`flash_attention_chunk`: m
+    -1e30, l and acc zeros, f32, on ``device`` (the current CUDA device by
+    default; ``"cpu"`` for the plain versions)."""
+    dev = resolve_device(device)
+    return (torch.full((b, h, seq_q), _NEG_INF, dtype=torch.float32, device=dev),
+            torch.zeros((b, h, seq_q), dtype=torch.float32, device=dev),
+            torch.zeros((b, h, seq_q, d), dtype=torch.float32, device=dev))
+
+
+def _offset(x, device):
+    """An int offset, or a 0-d integer tensor on q's device."""
+    if isinstance(x, torch.Tensor):
+        if x.dim() != 0 or x.dtype.is_floating_point or x.device != device:
+            raise ValueError(f"an offset tensor must be 0-d, integer and on "
+                             f"{device}, got {tuple(x.shape)} {x.dtype} on {x.device}")
+        return x
+    return int(x)
+
+
+def flash_attention_chunk_ref(q, k, v, state, q_offset, kv_offset, *,
+                              causal: bool = True, sm_scale: float,
+                              soft_cap: float = 0.0):
+    """Plain version of :func:`flash_attention_chunk`: the whole chunk in
+    one online-softmax step (JAX ``_tile_update`` over the chunk)."""
+    b, h, sq, d = q.shape
+    hk, sc = k.shape[1], k.shape[2]
+    g = h // hk
+    m, l, acc = (t.reshape(b, hk, g, sq, *t.shape[3:]) for t in state)
+    qs = _scaled_q(q, sm_scale).float().reshape(b, hk, g, sq, d)
+    s = torch.matmul(qs, k.float().unsqueeze(2).transpose(-1, -2))
+    if soft_cap:
+        s = torch.tanh(s / soft_cap) * soft_cap
+    m_prev = m[..., None]
+    if causal:
+        qpos = q_offset + torch.arange(sq, device=q.device)
+        kpos = kv_offset + torch.arange(sc, device=q.device)
+        keep = kpos[None, :] <= qpos[:, None]
+        s = torch.where(keep, s, torch.full_like(s, _NEG_INF))
+    m_cur = torch.maximum(m_prev, s.amax(dim=-1, keepdim=True))
+    p = torch.exp(s - m_cur)
+    if causal:
+        p = torch.where(m_cur > _NEG_INF / 2, p, torch.zeros_like(p))
+    alpha = torch.exp(m_prev - m_cur)
+    l_cur = l[..., None] * alpha + p.sum(dim=-1, keepdim=True)
+    acc = acc * alpha + torch.matmul(p.to(v.dtype).float(),
+                                     v.float().unsqueeze(2))
+    return (m_cur.reshape(b, h, sq), l_cur.reshape(b, h, sq),
+            acc.reshape(b, h, sq, d))
+
+
+def flash_attention_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          state, q_offset, kv_offset, *, causal: bool = True,
+                          sm_scale: float | None = None,
+                          soft_cap: float = 0.0, block_q: int = 512,
+                          block_k: int = 512,
+                          segment_ids_q: torch.Tensor | None = None,
+                          segment_ids_kv: torch.Tensor | None = None):
+    """Fold one KV chunk into a carried attention state (K8).
+
+    ``q`` (B, H, Sq, D) at positions ``q_offset + [0, Sq)``; ``k``/``v``
+    (B, Hkv, Sc, D) at ``kv_offset + [0, Sc)``; ``state`` (m, l, acc) from
+    :func:`init_attention_state` or a previous call.  The offsets are ints
+    or 0-d int32 tensors on q's device, which the kernel reads itself (no
+    host sync).  Causal masking is by absolute position; a chunk wholly in
+    the future of every query returns the state unchanged.  Returns the new
+    state (new tensors: the one given is not changed); normalize it with
+    :func:`finalize_attention_state` after the last chunk.  ``block_q`` and
+    ``block_k`` (the Pallas tiles) have no meaning for K8, whose tiles are
+    fixed; they are accepted and not used."""
+    del block_q, block_k
+    if segment_ids_q is not None or segment_ids_kv is not None:
+        raise NotImplementedError(
+            "segment_ids_q/segment_ids_kv (packed varlen chunks) belong to a "
+            "later slice of the port")
+    _check_tensors(("q", "k", "v"), (q, k, v))
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"shape mismatch: q={tuple(q.shape)} k={tuple(k.shape)} "
+                         f"v={tuple(v.shape)}")
+    b, h, sq, d = q.shape
+    bk_, hk, sc, dk = k.shape
+    if (bk_, dk) != (b, d):
+        raise ValueError(f"shape mismatch: q={tuple(q.shape)} k={tuple(k.shape)}")
+    if h % hk:
+        raise ValueError(f"GQA requires H % Hkv == 0, got {h} % {hk}")
+    m, l, acc = state
+    _check_tensors(("m", "l", "acc"), (m, l, acc))
+    if m.dtype != torch.float32 or tuple(m.shape) != (b, h, sq) \
+            or l.shape != m.shape or tuple(acc.shape) != (b, h, sq, d) \
+            or m.device != q.device:
+        raise ValueError(f"state (m {tuple(m.shape)}, l {tuple(l.shape)}, acc "
+                         f"{tuple(acc.shape)}) is not f32 (B, H, Sq) / "
+                         f"(B, H, Sq, D) = ({b}, {h}, {sq}[, {d}]) on {q.device}")
+    q_off, kv_off = _offset(q_offset, q.device), _offset(kv_offset, q.device)
+    sm_scale = d ** -0.5 if sm_scale is None else float(sm_scale)
+    if q.device.type == "cpu":
+        return flash_attention_chunk_ref(q, k, v, state, q_off, kv_off,
+                                         causal=causal, sm_scale=sm_scale,
+                                         soft_cap=soft_cap)
+    _check_kernel_shape(d)
+    offs = []
+    for x in (q_off, kv_off):
+        if isinstance(x, torch.Tensor):
+            x = x if x.dtype == torch.int32 else x.to(torch.int32)
+            offs.append((x, x.data_ptr(), 0))
+        else:
+            offs.append((None, None, x))
+    m_out, l_out, acc_out = torch.empty_like(m), torch.empty_like(l), torch.empty_like(acc)
+    err = build.library().tdt_flash_attention_chunk(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(), l.data_ptr(),
+        acc.data_ptr(), m_out.data_ptr(), l_out.data_ptr(), acc_out.data_ptr(),
+        offs[0][1], offs[1][1], b, h, hk, sq, sc, d, int(bool(causal)),
+        offs[0][2], offs[1][2], sm_scale, float(soft_cap),
+        KERNEL_DTYPES[q.dtype], _stream(q.device))
+    build.check(err, "flash_attention_chunk")
+    count("flash_attention_chunk")
+    return m_out, l_out, acc_out
+
+
+def finalize_attention_state(state, dtype) -> torch.Tensor:
+    """Normalize a carried state into the attention output (B, H, Sq, D)
+    (JAX ``finalize_attention_state``: acc / l; a row that saw no key has
+    l = 0 and gives NaN there too)."""
+    m, l, acc = state
+    del m
+    return (acc / l[..., None]).to(dtype)
