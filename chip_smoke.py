@@ -45,6 +45,21 @@ Phases, each printing JSON lines; any failure exits non-zero:
                to reject a state with one chunk's or split's V from the
                neighbouring kv head and one with a 64-key tile left out),
                timed beside its bound and torch.matmul or SDPA.
+   collectives -- K9-K11 (AllGather, ReduceScatter, AllReduce) on ranks
+               co-located on the card, one cooperative launch per call:
+               every method at n 2, 3, 4, 8, f32 and bf16, shards of 1, 3
+               and 17 rows at widths 8, 136, 4104 and 5, held bitwise to the
+               plain versions (the schedules walked with PyTorch ops), every
+               signal pad back at zero after every call; three interleaved
+               repeats; a {"dp": 2, "tp": 4} mesh over either axis.  A child
+               process runs a gather in which one rank never credits its
+               puts: it must fail by name (rank 0, flag recv[1]) when the
+               bounded wait runs out.  Then the main rows at Qwen3-8B's width
+               under tp = 4 (bf16; AG of 1024 x 4096 and 1 x 4096 shards, RS
+               of 4096 x 4096 partials, one-shot AR 4 x 4096, two-shot AR
+               4096 x 4096), counted, timed beside the HBM bound of all the
+               ranks' bytes, the NVLink time four cards would take (not
+               measured), the plain version and one PyTorch call.
 4. serve    -- Qwen3-8B at full width and depth with seeded random weights,
                batch 4, max_length 2048: requests of 1024 prompt tokens and 64
                new tokens in five modes (contiguous, paged, paged + fused,
@@ -1324,6 +1339,289 @@ def phase_local_ops(tt, torch) -> tuple[dict, dict, dict]:
     return rows, launches, forms
 
 
+# ---------------------------------------------------------------------------
+# the collectives (K9-K11) on ranks co-located on the card
+
+H100_NVLINK_BYTES_PER_S = 450e9   # NVLink, each way, per card (not exercised here)
+COLL_RANKS = (2, 3, 4, 8)
+COLL_ROWS = (1, 3, 17)
+COLL_WIDTHS = (8, 136, 4104, 5)   # 5: rows that are no whole 16-byte vector
+COLL_TP = 4                       # Qwen3-8B served at tp = 4
+COLL_WIDTH = 4096                 # Qwen3-8B's hidden size
+COLL_SOURCE = "triton_distributed_tpu_torch/csrc/collectives.cu"
+
+
+def pads_at_rest() -> bool:
+    """Every signal pad made so far reads zero (the protocol's drains took
+    every credit)."""
+    from triton_distributed_tpu_torch.core import symm
+
+    return all(int(p.data.count_nonzero()) == 0 for p in symm.signal_pads().values())
+
+
+def coll_calls(torch, mesh, axis, x, xr) -> list:
+    """(label, kernel thunk, plain thunk) of every method: the gather of
+    ``x``, the ReduceScatter of ``xr`` (n times x's rows), and both
+    AllReduces into either output dtype (one-shot on ``x``, two-shot on
+    ``xr``, whose rows divide by n)."""
+    from triton_distributed_tpu_torch import comm
+
+    calls = []
+    for m in list(comm.AllGatherMethod)[1:]:
+        calls.append((f"all_gather/{m.value}", lambda m=m: comm.all_gather(x, mesh, axis, method=m),
+                      lambda m=m: comm.all_gather_ref(x, mesh, axis, m)))
+    calls.append(("reduce_scatter/ring", lambda: comm.reduce_scatter(xr, mesh, axis),
+                  lambda: comm.reduce_scatter_ref(xr, mesh, axis)))
+    for m, inp in ((comm.AllReduceMethod.ONE_SHOT, x), (comm.AllReduceMethod.TWO_SHOT, xr)):
+        for odt in (torch.float32, torch.bfloat16):
+            calls.append((f"all_reduce/{m.value}->{str(odt)[6:]}",
+                          lambda m=m, inp=inp, odt=odt: comm.all_reduce(inp, mesh, axis, method=m,
+                                                                       out_dtype=odt),
+                          lambda m=m, inp=inp, odt=odt: comm.all_reduce_ref(inp, mesh, axis, m,
+                                                                           odt)))
+    return calls
+
+
+def check_calls(torch, calls, what: str) -> None:
+    """Each kernel call bitwise equal to its plain version on the card, and
+    every pad at rest after it."""
+    for label, kern, plain in calls:
+        got = kern()
+        want = plain()
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise PhaseError(f"{what} {label}: the kernel differs from its plain version "
+                             f"(max |diff| {(got.float() - want.float()).abs().max().item()})")
+        check(pads_at_rest(), f"{what} {label}: a signal pad is not at rest after the call")
+
+
+def phase_collective_cases(tt, torch) -> None:
+    """Edge cases of K9-K11: n 2, 3, 4, 8; f32 and bf16; shards of 1, 3 and
+    17 rows at widths 8, 136, 4104 and 5 (the two-shot and the ReduceScatter on
+    n times the rows); every method; then three back-to-back repeats with the
+    families interleaved on one mesh, and a {"dp": 2, "tp": 4} mesh."""
+    from triton_distributed_tpu_torch import comm
+    from triton_distributed_tpu_torch.core.mesh import make_mesh
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+
+    def rnd(*shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    for n in COLL_RANKS:
+        mesh = make_mesh({"tp": n})
+        for dt in (torch.float32, torch.bfloat16):
+            for rows in COLL_ROWS:
+                for w in COLL_WIDTHS:
+                    calls = coll_calls(torch, mesh, "tp", rnd(n, rows, w, dtype=dt),
+                                       rnd(n, n * rows, w, dtype=dt))
+                    check_calls(torch, calls, f"n={n} {dt} {rows}x{w}")
+                    emit({"phase": "collective_case", "n": n, "dtype": str(dt), "rows": rows,
+                          "width": w, "calls": [c[0] for c in calls], "bitwise": True,
+                          "pads_at_rest": True})
+    # repeats, interleaved: every family three times on one mesh, no sync between
+    mesh = make_mesh({"tp": 4})
+    x, xr = rnd(4, 17, 4104, dtype=torch.bfloat16), rnd(4, 68, 4104, dtype=torch.bfloat16)
+    calls = coll_calls(torch, mesh, "tp", x, xr)
+    outs = [[kern() for _, kern, _ in calls] for _ in range(3)]
+    torch.cuda.synchronize()
+    for rep in outs:
+        for (label, _, plain), got in zip(calls, rep):
+            check(torch.equal(got, plain()), f"repeat {label}: differs from its plain version")
+    check(pads_at_rest(), "a signal pad is not at rest after the interleaved repeats")
+    emit({"phase": "collective_case", "repeats": 3, "interleaved": [c[0] for c in calls],
+          "bitwise": True, "pads_at_rest": True})
+    # two axes: each dp group gathers and reduces only its own tp ranks
+    mesh = make_mesh({"dp": 2, "tp": 4})
+    x, xr = rnd(2, 4, 3, 136, dtype=torch.float32), rnd(2, 4, 12, 136, dtype=torch.float32)
+    check_calls(torch, coll_calls(torch, mesh, "tp", x, xr), "dp x tp")
+    g = comm.all_gather(x, mesh, "tp", method=comm.AllGatherMethod.RING_BIDIR)
+    s = comm.reduce_scatter(xr, mesh, "tp")
+    for d in range(2):
+        check(all(torch.equal(g[d, r], x[d].reshape(12, 136)) for r in range(4)),
+              f"dp group {d} gathered another group's shards")
+        total = xr[d].double().sum(0)
+        check(all((s[d, r].double() - total[3 * r:3 * r + 3]).abs().max().item() < 1e-4
+                  for r in range(4)), f"dp group {d} reduced another group's partials")
+    check_calls(torch, coll_calls(torch, mesh, "dp", x, rnd(2, 4, 6, 136, dtype=torch.float32)),
+                "dp x tp, over dp")
+    emit({"phase": "collective_case", "mesh": {"dp": 2, "tp": 4}, "axes": ["tp", "dp"],
+          "bitwise": True, "pads_at_rest": True, "groups_own_data": True})
+
+
+def stalled_rank_child() -> int:
+    """Run in a child process by phase_wait_bound: a gather in which rank 1
+    never credits its puts, so rank 0's wait runs out and the launch fails.
+    Exits non-zero through the uncaught error, which names the rank and the
+    flag."""
+    import torch
+
+    from triton_distributed_tpu_torch.comm import AllGatherMethod
+    from triton_distributed_tpu_torch.comm.allgather import _all_gather
+    from triton_distributed_tpu_torch.core import symm
+    from triton_distributed_tpu_torch.core.mesh import make_mesh
+
+    mesh = make_mesh({"tp": 2})
+    x = torch.ones(2, 4, 64, device="cuda")
+    _all_gather(x, mesh, "tp", AllGatherMethod.RING_1D, stall_rank=1)
+    try:
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        print(f"the launch failed: {e}", file=sys.stderr, flush=True)
+        symm.raise_if_timed_out()
+        raise
+    print("the stalled launch finished", file=sys.stderr)
+    return 0
+
+
+def phase_wait_bound(torch) -> None:
+    """A wait cannot hang the run: the child's stalled gather must fail by
+    name (rank 0, flag recv[1]) within the bounded wait, and this process's
+    context carries on."""
+    import subprocess
+
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--stalled-rank-child"],
+                         capture_output=True, text=True, timeout=300)
+    text = res.stdout + res.stderr
+    named = [ln for ln in text.splitlines() if "CollectiveTimeout" in ln]
+    emit({"phase": "wait_bound", "child_rc": res.returncode,
+          "child_s": time.perf_counter() - t0, "named": named[-1:]})
+    check(res.returncode != 0, "the stalled gather finished: a wait did not run out")
+    check(bool(named) and "rank 0 " in named[-1] and "recv[1]" in named[-1],
+          f"the child did not name the stuck rank and flag:\n{text[-3000:]}")
+    torch.cuda.synchronize()   # this process's context is unharmed
+
+
+def coll_bytes(kind: str, n: int, p: int, po: int) -> tuple[int, int, int]:
+    """(the function's bytes, the schedule's bytes, the bytes one rank sends
+    to its peers) of one call over all n co-located ranks; ``p`` is a rank's
+    input in bytes, ``po`` its output (AllReduce) or 0.
+
+    The function's bytes are the bound's: every rank's input read once and
+    every rank's output written once (a gather's n shards, a ReduceScatter's
+    one chunk, an AllReduce's whole sum).  The schedule's bytes add every
+    landing write and read the design needs: a gather writes n chunks a rank
+    and (rings) reads each chunk it forwards; the ReduceScatter ring writes
+    and reads n - 1 slots a rank; the one-shot writes and reads n slots a
+    rank; the two-shot does the ring, then writes n and forwards n - 1
+    out-chunks a rank."""
+    c = p // n
+    if kind in ("push", "ring", "bidir"):
+        fn = n * p + n * n * p
+        sched = fn if kind == "push" else fn + n * (n - 1) * p
+        return fn, sched, (n - 1) * p
+    if kind == "rs":
+        return n * p + n * c, n * p + 2 * n * (n - 1) * c + n * c, (n - 1) * c
+    fn = n * p + n * po
+    if kind == "one_shot":
+        return fn, n * p + 2 * n * n * p + n * po, (n - 1) * p
+    co = po // n
+    return fn, n * (p + 2 * (n - 1) * c + (2 * n - 1) * co), (n - 1) * (c + co)
+
+
+def collective_main_rows(tt, torch) -> tuple[dict, dict, dict]:
+    """K9-K11 at Qwen3-8B's width under tp = 4 (B = 4, prompts of 1024), bf16:
+    the path (each row once, counted), then each row held bitwise to its
+    plain version and timed beside its bound, the plain version and one
+    PyTorch call computing the same rank-stacked result."""
+    from triton_distributed_tpu_torch import comm
+    from triton_distributed_tpu_torch.core.mesh import make_mesh
+    from triton_distributed_tpu_torch.core.utils import perf_func
+
+    n, w, bf = COLL_TP, COLL_WIDTH, torch.bfloat16
+    mesh = make_mesh({"tp": n})
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(bf)
+
+    x_pre, x_dec = rnd(n, BATCH * PROMPT // n, w), rnd(n, 1, w)
+    x_part, x_ar1 = rnd(n, BATCH * PROMPT, w), rnd(n, BATCH, w)
+    # (name, kind, x, kernel, plain, (library label, call), replaces, counter, form, po)
+    specs = []
+    for x in (x_pre, x_dec):
+        label = f"{x.shape[1]}x{w}"
+        for kind, m, line in (("push", comm.AllGatherMethod.PUSH_1SHOT, 80),
+                              ("ring", comm.AllGatherMethod.RING_1D, 107),
+                              ("bidir", comm.AllGatherMethod.RING_BIDIR, 121)):
+            specs.append((f"all_gather[{m.value} {label}]", kind, x,
+                          lambda x=x, m=m: comm.all_gather(x, mesh, "tp", method=m),
+                          lambda x=x, m=m: comm.all_gather_ref(x, mesh, "tp", m),
+                          ("expand(...).contiguous()",
+                           lambda x=x: x.reshape(1, -1, w).expand(n, -1, w).contiguous()),
+                          f"triton_distributed_tpu/comm/allgather.py:{line}", "all_gather",
+                          (m.value, n, tuple(x.shape[1:])), 0))
+    # sum(0) over the stacked partials is (M, w), rank r's chunk at rows r M / n:
+    # the rank-stacked result itself
+    specs.append((f"reduce_scatter[ring {x_part.shape[1]}x{w}]", "rs", x_part,
+                  lambda: comm.reduce_scatter(x_part, mesh, "tp"),
+                  lambda: comm.reduce_scatter_ref(x_part, mesh, "tp"),
+                  ("sum(0)", lambda: x_part.sum(0)),
+                  "triton_distributed_tpu/comm/reduce_scatter.py:50",
+                  "reduce_scatter", ("ring", n, tuple(x_part.shape[1:])), 0))
+    for kind, m, x, line in (("one_shot", comm.AllReduceMethod.ONE_SHOT, x_ar1, 89),
+                             ("two_shot", comm.AllReduceMethod.TWO_SHOT, x_part, 131)):
+        specs.append((f"all_reduce[{m.value} {x.shape[1]}x{w}]", kind, x,
+                      lambda x=x, m=m: comm.all_reduce(x, mesh, "tp", method=m, out_dtype=bf),
+                      lambda x=x, m=m: comm.all_reduce_ref(x, mesh, "tp", m, bf),
+                      ("sum(0, keepdim=True).expand(n, ...).contiguous()",
+                       lambda x=x: x.sum(0, keepdim=True).expand(n, -1, -1).contiguous()),
+                      f"triton_distributed_tpu/comm/allreduce.py:{line}",
+                      "all_reduce", (m.value, n, tuple(x.shape[1:])), x[0].numel() * 2))
+    # the path: every row once, through the kernels, counted
+    torch.cuda.synchronize()
+    tt.reset_launch_counts()
+    outs = {s[0]: s[3]() for s in specs}
+    torch.cuda.synchronize()
+    launches, forms = tt.launch_counts(), tt.launch_forms()
+    check(pads_at_rest(), "a signal pad is not at rest after the collectives' path")
+    rows = {}
+    for name, kind, x, kern, plain, (library, lib), replaces, counter, form, po in specs:
+        want = plain()
+        got = outs.pop(name)
+        check(torch.equal(got, want), f"{name}: the kernel differs from its plain version")
+        check(lib().numel() == got.numel(),
+              f"{name}: the library call writes another number of elements")
+        del got, want
+        _, ms = perf_func(kern, iters=20)
+        _, plain_ms = perf_func(plain, iters=3)
+        _, lib_ms = perf_func(lib, iters=20)
+        p = x[0].numel() * x.element_size()
+        fn_bytes, sched_bytes, sent = coll_bytes(kind, n, p, po)
+        rows[name] = dict(
+            name=name, route="cuda", source=COLL_SOURCE, replaces=replaces, max_abs_err=0.0,
+            ms=ms, plain_ms=plain_ms, bound_ms=fn_bytes / H100_BYTES_PER_S * 1e3,
+            bound_by="bytes", library_ms=lib_ms, library=library,
+            function_bytes=fn_bytes, schedule_bytes=sched_bytes,
+            schedule_bound_ms=sched_bytes / H100_BYTES_PER_S * 1e3,
+            nvlink_bound_ms=sent / H100_NVLINK_BYTES_PER_S * 1e3,
+            nvlink_bound="not measured: a rank's sent bytes over 450 GB/s each way across "
+                         "four cards; co-located ranks exchange through device memory",
+            rank_sent_bytes=sent, shape=f"{tuple(x.shape)} bf16", counter=counter, form=form)
+        gc.collect()
+    check(pads_at_rest(), "a signal pad is not at rest after the timed calls")
+    return rows, launches, forms
+
+
+def phase_collectives(tt, torch) -> tuple[dict, dict, dict]:
+    """K9-K11: edge cases, the timeout child, then the main rows (counted and
+    timed).  Returns the kernel rows and the path's launches, total and by
+    form."""
+    t0 = time.perf_counter()
+    phase_collective_cases(tt, torch)
+    phase_wait_bound(torch)
+    rows, launches, forms = collective_main_rows(tt, torch)
+    emit({"phase": "collectives_path",
+          "launches": {k: v for k, v in launches.items() if v},
+          "by_form": [[name, list(f), v] for (name, f), v in forms.items()]})
+    for row in rows.values():
+        emit({"phase": "kernel_main", **{k: v for k, v in row.items() if k != "form"}})
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "collectives", "seconds": time.perf_counter() - t0})
+    return rows, launches, forms
+
+
 def phase_sync_check(tt, torch, params) -> None:
     """One MoE layer's decode and prefill forward at the main shapes under
     ``torch.cuda.set_sync_debug_mode("error")``: any read back to the host
@@ -1755,6 +2053,8 @@ def phase_parity(tt, torch) -> None:
 
 
 def main() -> int:
+    if sys.argv[1:] == ["--stalled-rank-child"]:
+        return stalled_rank_child()
     here = Path(__file__).resolve().parent
     if not (here / "triton_distributed_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: triton_distributed_tpu_torch/ not found beside the "
@@ -1797,13 +2097,18 @@ def main() -> int:
         phase = "local_ops"
         local_rows, local_launches, local_forms = phase_local_ops(tt, torch)
         rows.update(local_rows)
+        phase = "collectives"
+        coll_rows, coll_launches, coll_forms = phase_collectives(tt, torch)
+        rows.update(coll_rows)
         phase = "serve"
         launches = phase_serve(tt, torch)
         phase = "serve_moe"
         moe_launches, forms = phase_serve_moe(tt, torch)
-        for name, n in [*moe_launches.items(), *local_launches.items()]:
+        for name, n in [*moe_launches.items(), *local_launches.items(),
+                        *coll_launches.items()]:
             launches[name] += n
         forms.update(local_forms)
+        forms.update(coll_forms)
         for name, n in launches.items():
             check(n > 0, f"{name} was not launched on the main path")
         phase = "parity"

@@ -187,6 +187,12 @@ def test_port_import_leaves_jax_out():
         "import triton_distributed_tpu_torch.analysis.footprint\n"
         "import triton_distributed_tpu_torch.obs.costs\n"
         "import triton_distributed_tpu_torch.tools.perf_model\n"
+        "import triton_distributed_tpu_torch.comm\n"
+        "import triton_distributed_tpu_torch.comm.ring\n"
+        "import triton_distributed_tpu_torch.core.mesh\n"
+        "import triton_distributed_tpu_torch.core.symm\n"
+        "import triton_distributed_tpu_torch.lang.primitives\n"
+        "import triton_distributed_tpu_torch.tools.calibrate\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'triton_distributed_tpu'"
         " or m.startswith('triton_distributed_tpu.')]\n"

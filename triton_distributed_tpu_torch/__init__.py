@@ -20,13 +20,22 @@ sequence parallelism folds: :func:`decode_attention_state` and
 :func:`flash_attention_chunk` between :func:`init_attention_state` and
 :func:`finalize_attention_state`.
 
+Collectives (``comm``) on a mesh of ranks co-located on one card
+(:func:`make_mesh`, the rank-stacked layout of :func:`shard` and
+:func:`unshard`): ``comm.all_gather`` (K9), ``comm.reduce_scatter`` (K10)
+and ``comm.all_reduce`` (K11), each one cooperative launch over every rank,
+on the signal pads and symmetric buffers of ``core/symm.py``.
+
 Entry points run on CUDA unless the caller passes ``device="cpu"``, where
 the kernels' plain PyTorch versions run instead.  Without CUDA and without
 that request they raise.
 """
 
+from . import comm
 from .core.launches import launch_counts, launch_forms, reset_launch_counts
+from .core.mesh import DP_AXIS, EP_AXIS, PP_AXIS, SP_AXIS, TP_AXIS, make_mesh, shard, unshard
 from .core.platform import card_identity, device_kind, init_seed, resolve_device
+from .core.symm import SymmetricBuffer, symm_buffer, symm_signal
 from .core.utils import assert_allclose, cdiv, clip_block, perf_func
 from .layers.moe import MoEMLP, MoEParams
 from .layers.norm import rms_norm
@@ -61,6 +70,8 @@ from .ops.rope import apply_rope, apply_rope_at, rope_freqs
 from .tune import LibraryBackend, fresh_tune_matmul, tuned_matmul
 
 __all__ = [
+    "DP_AXIS", "EP_AXIS", "PP_AXIS", "SP_AXIS", "SymmetricBuffer", "TP_AXIS",
+    "comm", "make_mesh", "shard", "symm_buffer", "symm_signal", "unshard",
     "Engine", "GroupGemmConfig", "KVCache", "LibraryBackend", "MoEMLP",
     "MoEParams", "ModelConfig", "PagePoolExhausted", "PagedKVCache",
     "QWEN3_30B_A3B", "QWEN3_8B", "Qwen3", "QwenParams", "apply_rope",

@@ -1,0 +1,170 @@
+"""The ring phases of the collectives, as schedules, and the walk that runs
+a schedule on tensors.
+
+Counterpart of ``triton_distributed_tpu/comm/ring.py``.  Each phase appends
+one rank's steps to its program (``lang/primitives.py``'s ops): which chunk
+goes to which rank's which offset or slot at which step, and which flag
+gates it.  The device counterparts are in ``csrc/ring.cuh``, where the
+overlapped GEMMs will reuse them; :func:`walk` runs the programs of a
+team's ranks on tensors, step by step, as the plain versions of the
+collectives.  A chunk is a dim-0 block of ``m`` rows (:func:`chunk`).
+"""
+
+from __future__ import annotations
+
+import collections
+
+import torch
+
+from ..lang.primitives import (Notify, Put, Reduce, Team, Wait, collective_prologue, notify,
+                               put, wait)
+
+
+def chunk(idx: int, m: int) -> tuple[int, int]:
+    """Rows ``[idx * m, (idx + 1) * m)``: dim-0 chunk ``idx``."""
+    return idx * m, (idx + 1) * m
+
+
+def push_phase(prog: list, team: Team, me: int, dst: str) -> None:
+    """Full-mesh push (JAX ``_ag_push_kernel`` and ``_ar_one_shot_kernel``):
+    this rank's ``x`` into entry ``me`` of ``dst`` on itself, the team
+    barrier, then into entry ``me`` of ``dst`` on every peer, each credited
+    on the peer's ``recv[me]``; then the n - 1 arrivals, nearest left first."""
+    n = team.size
+    put(prog, dst, me, me, [("x", 0)])
+    collective_prologue(prog, team, me)
+    for off in range(1, n):
+        put(prog, dst, me, (me + off) % n, [("x", 0)], ("recv", me))
+    for off in range(1, n):
+        wait(prog, ("recv", (me + n - off) % n))
+
+
+def ag_ring_phase(prog: list, team: Team, me: int) -> None:
+    """Unidirectional AllGather ring over out-chunks already at their final
+    offsets (out-chunk ``me`` holds this rank's part): each of the n - 1
+    steps forwards the chunk received last step (step 0: one's own) to the
+    right neighbour and waits for the incoming one (JAX ``ag_ring_phase``;
+    its send drain ``ag_ring_drain`` has no counterpart here)."""
+    n = team.size
+    _, right = team.neighbor_ranks(me)
+    for step in range(n - 1):
+        c_send = (me + n - step) % n
+        put(prog, "out", c_send, right, [("out", c_send)], ("recv", c_send))
+        wait(prog, ("recv", (me + n - step - 1) % n))
+
+
+def bidir_ring_phase(prog: list, team: Team, me: int) -> None:
+    """Bidirectional AllGather ring over out-chunks at their final offsets:
+    ceil((n-1)/2) chunks travel clockwise, floor((n-1)/2) counter-clockwise;
+    each is forwarded right after its arrival (JAX ``bidir_ring_phase``
+    with ``consume=None``)."""
+    n = team.size
+    left, right = team.neighbor_ranks(me)
+    n_cw, n_ccw = n // 2, (n - 1) // 2
+    if n_cw >= 1:
+        put(prog, "out", me, right, [("out", me)], ("recv", me))
+    if n_ccw >= 1:
+        put(prog, "out", me, left, [("out", me)], ("recv", me))
+    for step in range(max(n_cw, n_ccw)):
+        if step < n_cw:
+            r = (me + n - step - 1) % n
+            wait(prog, ("recv", r))
+            if step + 1 < n_cw:
+                put(prog, "out", r, right, [("out", r)], ("recv", r))
+        if step < n_ccw:
+            r = (me + step + 1) % n
+            wait(prog, ("recv", r))
+            if step + 1 < n_ccw:
+                put(prog, "out", r, left, [("out", r)], ("recv", r))
+
+
+def rs_ring_phase(prog: list, team: Team, me: int, last_dst: tuple[str, int],
+                  last_f32: bool) -> None:
+    """The ReduceScatter ring (JAX ``reduce_scatter.py:75-110``): chunk j's
+    partial sum starts at rank j + 1 and travels right through the two
+    receive slots of each rank, every hop adding the local chunk; the last
+    hop (at rank j itself) lands in ``last_dst``, in the input dtype or, with
+    ``last_f32``, as an f32 sum rounded to the output dtype (two-shot
+    AllReduce).  Each hop's add is fused into its put, in JAX's order and
+    rounding (received partial + local chunk).  A slot is reused only after
+    the right neighbour's ACK credit for it; pair with :func:`rs_ack_drain`."""
+    n = team.size
+    left, right = team.neighbor_ranks(me)
+    put(prog, "recv", 0, right, [("x", (me + n - 1) % n)], ("rs_recv", 0))
+    for s in range(1, n):
+        j = (me + n - s - 1) % n
+        slot_in = (s - 1) % 2
+        wait(prog, ("rs_recv", slot_in))
+        if s == n - 1:
+            prog.append(Reduce(last_dst, (("recv", slot_in), ("x", j)), last_f32))
+        else:
+            slot_out = s % 2
+            if s >= 2:
+                wait(prog, ("ack", slot_out))
+            put(prog, "recv", slot_out, right, [("recv", slot_in), ("x", j)],
+                ("rs_recv", slot_out))
+        notify(prog, ("ack", slot_in), left)
+
+
+def rs_ack_drain(prog: list, n: int) -> None:
+    """Take the ACK credits still outstanding at the end of the ring: the
+    in-loop waits covered sends 0..n-4; the last two sends' credits (one
+    when n == 2) arrive after the loop.  Every flag is then back at zero."""
+    if n == 2:
+        wait(prog, ("ack", 0))
+    else:
+        wait(prog, ("ack", (n - 3) % 2))
+        wait(prog, ("ack", (n - 2) % 2))
+
+
+# ---------------------------------------------------------------------------
+# the plain versions' executor
+
+
+def _apply(op, r: int, bufs: list[dict]) -> None:
+    src = [bufs[r][b][i] for b, i in op.srcs]
+    if isinstance(op, Put):
+        bufs[op.dst_rank][op.dst][op.index].copy_(
+            src[0] if len(src) == 1 else src[0] + src[1])
+    elif op.f32:
+        acc = src[0].float()
+        for t in src[1:]:
+            acc = acc + t.float()
+        bufs[r][op.dst[0]][op.dst[1]].copy_(acc)
+    else:
+        bufs[r][op.dst[0]][op.dst[1]].copy_(src[0] + src[1])
+
+
+def walk(programs: list[list], bufs: list[dict[str, list[torch.Tensor]]]) -> None:
+    """Run the programs of one team's ranks on tensors: ``bufs[r][name][i]``
+    is entry ``i`` (a chunk or a slot) of rank ``r``'s buffer ``name``.
+
+    Each rank runs until a :class:`Wait` finds its flag short, then the next
+    rank runs; a round in which no rank moves is a deadlock and raises, as
+    does a flag left non-zero at the end (every credit must be taken)."""
+    n = len(programs)
+    pcs = [0] * n
+    flags: collections.Counter = collections.Counter()
+    while any(pc < len(p) for pc, p in zip(pcs, programs)):
+        moved = False
+        for r, prog in enumerate(programs):
+            while pcs[r] < len(prog):
+                op = prog[pcs[r]]
+                if isinstance(op, Wait):
+                    if flags[r, op.flag] < op.count:
+                        break
+                    flags[r, op.flag] -= op.count
+                elif isinstance(op, Notify):
+                    flags[op.target, op.flag] += 1
+                else:
+                    _apply(op, r, bufs)
+                    if isinstance(op, Put) and op.flag is not None:
+                        flags[op.dst_rank, op.flag] += 1
+                pcs[r] += 1
+                moved = True
+        if not moved:
+            stuck = {r: programs[r][pc] for r, pc in enumerate(pcs) if pc < len(programs[r])}
+            raise RuntimeError(f"schedule deadlock: {stuck}")
+    left = {k: v for k, v in flags.items() if v}
+    if left:
+        raise RuntimeError(f"schedule leaves flags non-zero: {left}")

@@ -48,6 +48,12 @@ SIGNATURES = {
     "tdt_matmul": [_P, _P, _P, *[_I] * 8, _P],
     "tdt_decode_attention_state": [*[_P] * 10, *[_I] * 9, _F, _F, _I, _P],
     "tdt_flash_attention_chunk": [*[_P] * 11, *[_I] * 9, _F, _F, _I, _P],
+    # the collectives take a pointer to their CollArgs (core/symm.py), which
+    # the C side copies into the launch by value
+    "tdt_all_gather": [_P, _P],
+    "tdt_reduce_scatter": [_P, _P],
+    "tdt_all_reduce": [_P, _P],
+    "tdt_coll_wait_record": [_P],
 }
 
 

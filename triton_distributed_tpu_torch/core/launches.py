@@ -23,6 +23,9 @@ KERNELS = (
     "paged_decode_attention_state",  # K7, full-precision pages
     "paged_decode_attention_state_int8",  # K7, int8 pages
     "flash_attention_chunk",         # K8
+    "all_gather",                    # K9, form (method, n, shard shape)
+    "reduce_scatter",                # K10, form ("ring", n, shard shape)
+    "all_reduce",                    # K11, form (method, n, shard shape)
 )
 
 _counts = dict.fromkeys(KERNELS, 0)

@@ -1,0 +1,228 @@
+// The device vocabulary of the collectives: signal, wait, put, barriers.
+//
+// Counterpart of triton_distributed_tpu/lang/primitives.py, whose host-side
+// mirror is triton_distributed_tpu_torch/lang/primitives.py.  A mesh's ranks
+// are co-located on one card: every rank owns its buffers in device memory,
+// and a peer's buffer is addressed through a table of base addresses, one
+// per mesh slot (Peers), passed by value in the launch.  The code below knows
+// only that table and a rank, so a host that runs one process per card and
+// fills the table with peer addresses over NVLink changes no device code.
+// Co-located ranks exchange through device memory: NVLink is not exercised.
+//
+// One launch carries every rank of every team of the mesh: blockIdx.y is
+// group * n + rank, and blockIdx.x is the lane.  Each chunk is cut into
+// gridDim.x slices; block b of every rank (lane b) moves slice b of every
+// chunk, so a lane runs the whole protocol on its slices, with its own row
+// of flags.  The launch is cooperative (grid sized to what is co-resident):
+// a block that spins on a flag can then never keep the block it waits for
+// from running.
+//
+// Flags are int32 counts (the TPU's counting semaphores):
+//   notify(f)       a release atomic add of one at system scope (.sys, so
+//                   that it also holds for NVLink peers; no schedule here
+//                   credits more than one at a time);
+//   wait(f, v)      an acquire spin until f >= v, then f -= v, so every count
+//                   is back at zero when the protocol's drains are done.
+// A wait is bounded: after kWaitNs of %globaltimer it records (rank, flag,
+// value seen, value wanted) in mapped host memory and traps, which fails the
+// launch; a protocol bug fails the run by name instead of hanging it.
+//
+// put: a block-cooperative 16-byte vectorized copy (or fused add) into a
+// peer's buffer, then a fence.  The block's own stores make the put, and they
+// are done when it returns, so the JAX package's send semaphores (wait_send)
+// have no counterpart here; every receive count and ACK credit stays.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace tdt {
+namespace dl {
+
+constexpr int kMaxRanks = 8;
+constexpr int kFlagsPerLane = 32;           // lang/primitives.py FLAGS_PER_LANE
+constexpr int kMaxLanes = 2048;             // core/symm.py MAX_LANES
+constexpr int kThreads = 256;
+constexpr unsigned long long kWaitNs = 2000000000ull;  // ~2 s
+
+// A lane's row of flags (lang/primitives.py FLAG_IDS)
+constexpr int kBarrier = 0;
+constexpr int kRsRecv = 1;   // + slot (0, 1): the ReduceScatter ring's arrivals
+constexpr int kAck = 3;      // + slot: consumption credits of those slots
+constexpr int kRecv = 8;     // + chunk or one-shot slot: arrivals
+
+struct Peers {
+  char* p[kMaxRanks];  // base address, per mesh slot
+};
+
+// core/symm.py CollArgs, field for field
+struct CollArgs {
+  Peers x, out, land, flags;
+  int* record;            // mapped host words of a wait that ran out
+  long long chunk_elems;  // elements of one chunk (every put moves one)
+  int n, groups;
+  int slot[kMaxRanks];    // slot[g * n + r]: mesh slot of rank r of team g
+  int method, dtype, out_dtype, elsize;
+  int stall_rank;         // tests only: this rank credits no arrival
+};
+
+// one claim per module: the first wait that runs out writes the record
+static __device__ int g_timeout_claimed;
+
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.sys.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void red_release_add(int* p, int v) {
+  asm volatile("red.release.sys.global.add.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// One rank's view of the launch: who it is, and its lane's slice of a chunk.
+struct Rank {
+  const CollArgs& a;
+  int me, group, lane;
+
+  __device__ Rank(const CollArgs& args)
+      : a(args), me(blockIdx.y % args.n), group(blockIdx.y / args.n),
+        lane(blockIdx.x) {}
+
+  __device__ int n() const { return a.n; }
+  __device__ int slot(int r) const { return a.slot[group * a.n + r]; }
+  __device__ int left() const { return (me + a.n - 1) % a.n; }
+  __device__ int right() const { return (me + 1) % a.n; }
+  __device__ int* flag(int r, int id) const {
+    return reinterpret_cast<int*>(a.flags.p[slot(r)]) + lane * kFlagsPerLane + id;
+  }
+  // entry `index` (a chunk or a slot) of rank r's buffer, as T
+  template <typename T>
+  __device__ T* at(const Peers& buf, int r, int index) const {
+    return reinterpret_cast<T*>(buf.p[slot(r)]) + index * a.chunk_elems;
+  }
+  // [lo, hi) of this lane's slice of a chunk, in units of `per` elements.
+  // Lanes cut the chunk at multiples of `quantum` elements (a multiple of
+  // every unit in use), so phases that move different units (the two-shot's
+  // T-typed ring and OT-typed gather) give a lane the same elements.
+  __device__ void slice(int per, int quantum, long long& lo, long long& hi) const {
+    const long long groups = (a.chunk_elems + quantum - 1) / quantum;
+    const long long per_lane = (groups + gridDim.x - 1) / gridDim.x * quantum;
+    lo = min(a.chunk_elems, per_lane * lane) / per;
+    hi = min(a.chunk_elems, per_lane * (lane + 1)) / per;
+  }
+};
+
+__device__ __noinline__ void timed_out(const Rank& c, int id, int seen, int want) {
+  if (atomicCAS(&g_timeout_claimed, 0, 1) == 0) {
+    volatile int* rec = c.a.record;
+    rec[1] = c.me;
+    rec[2] = c.group;
+    rec[3] = c.slot(c.me);
+    rec[4] = c.lane;
+    rec[5] = id;
+    rec[6] = seen;
+    rec[7] = want;
+    __threadfence_system();
+    rec[0] = 1;
+    __threadfence_system();
+  }
+  __trap();
+}
+
+// Credit rank r's flag `id` (this lane's row) by one, once every thread of
+// the block is done with what the credit announces.
+__device__ __forceinline__ void notify(const Rank& c, int r, int id) {
+  __syncthreads();
+  if (threadIdx.x == 0) red_release_add(c.flag(r, id), 1);
+}
+
+// Wait until one's own flag `id` reaches v, then take v off it.
+__device__ __forceinline__ void wait(const Rank& c, int id, int v = 1) {
+  if (threadIdx.x == 0) {
+    int* f = c.flag(c.me, id);
+    int seen = ld_acquire(f);
+    if (seen < v) {
+      const unsigned long long t0 = globaltimer();
+      while ((seen = ld_acquire(f)) < v) {
+        if (globaltimer() - t0 > kWaitNs) timed_out(c, id, seen, v);
+        __nanosleep(32);
+      }
+    }
+    atomicSub_system(f, v);
+  }
+  __syncthreads();
+}
+
+// The arrival credit of a put (skipped by stall_rank, in the tests of the
+// bounded waits).
+__device__ __forceinline__ void credit(const Rank& c, int r, int id) {
+  if (c.me != c.a.stall_rank) notify(c, r, id);
+}
+
+// After a put's stores: every thread's done, then a system-scope fence.
+__device__ __forceinline__ void put_fence() {
+  __syncthreads();
+  if (threadIdx.x == 0) __threadfence_system();
+}
+
+// Hub barrier over the team (lane by lane): arrivals only at rank 0,
+// releases only at the others, so rounds cannot mix.
+__device__ __forceinline__ void barrier_all(const Rank& c) {
+  if (c.n() == 1) return;
+  if (c.me != 0) {
+    notify(c, 0, kBarrier);
+    wait(c, kBarrier, 1);
+  } else {
+    wait(c, kBarrier, c.n() - 1);
+    for (int i = 1; i < c.n(); ++i) notify(c, i, kBarrier);
+  }
+}
+
+__device__ __forceinline__ void barrier_neighbors(const Rank& c) {
+  if (c.n() == 1) return;
+  notify(c, c.left(), kBarrier);
+  notify(c, c.right(), kBarrier);
+  wait(c, kBarrier, 2);
+}
+
+__device__ __forceinline__ void collective_prologue(const Rank& c, bool neighbors_only) {
+  if (neighbors_only) barrier_neighbors(c);
+  else barrier_all(c);
+}
+
+// ---------------------------------------------------------------------------
+// data movement over a lane's slice, in units of U; loads through L2 only
+// (ld.global.cg): the data was written by another block of the launch.
+
+template <typename U>
+__device__ __forceinline__ U ldcg(const U* p) { return __ldcg(p); }
+
+// dst[k][i] = src[i] for k < ndst, i in [lo, hi): one read, ndst writes
+template <typename U>
+__device__ __forceinline__ void copy_units(U* const* dst, int ndst, const U* src,
+                                           long long lo, long long hi) {
+  constexpr int kUnroll = 4;
+  long long i = lo + threadIdx.x;
+  for (; i + (kUnroll - 1) * kThreads < hi; i += kUnroll * kThreads) {
+    U v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) v[u] = ldcg(src + i + u * kThreads);
+    for (int k = 0; k < ndst; ++k)
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) dst[k][i + u * kThreads] = v[u];
+  }
+  for (; i < hi; i += kThreads) {
+    const U v = ldcg(src + i);
+    for (int k = 0; k < ndst; ++k) dst[k][i] = v;
+  }
+}
+
+}  // namespace dl
+}  // namespace tdt
