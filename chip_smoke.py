@@ -60,6 +60,24 @@ Phases, each printing JSON lines; any failure exits non-zero:
                4096 x 4096), counted, timed beside the HBM bound of all the
                ranks' bytes, the NVLink time four cards would take (not
                measured), the plain version and one PyTorch call.
+   overlap  -- K12-K14 (AllGather-GEMM both rings, GEMM-ReduceScatter,
+               GEMM-AllReduce) on co-located ranks: n 2, 3, 4; f32, bf16 and
+               bf16 -> f32; a rank's product of 1, 37 and 130 rows by K 136-1032
+               by N 136-264, off the tile on every edge; each call bitwise
+               equal to its chain (K9 then K6, K6 then K10, K6 then K11's
+               two-shot), within a stated limit of its plain version (the
+               schedule walked with PyTorch ops; overlap_limit charges each
+               rounding at the size of the value rounded), shown to reject a
+               result with one rank's partial left out or one chunk taken from
+               another rank by FAULT_MARGIN limits; the gathered A bitwise,
+               every pad at rest; interleaved repeats.  A child
+               process runs a K12 in which one rank never credits its puts: it
+               must fail by name, as the gather's does.  Then the main rows at
+               Qwen3-8B tp = 4 (prefill qkv, gate_up, o, down at 4 x 1024 rows;
+               decode o and down at 4 rows), timed beside the bound
+               (obs/costs.py's operations over all ranks, the function's
+               bytes), the plain version, the chain and one torch.matmul of
+               the whole unsharded product.
 4. serve    -- Qwen3-8B at full width and depth with seeded random weights,
                batch 4, max_length 2048: requests of 1024 prompt tokens and 64
                new tokens in five modes (contiguous, paged, paged + fused,
@@ -75,7 +93,15 @@ Phases, each printing JSON lines; any failure exits non-zero:
                ``torch.cuda.set_sync_debug_mode("error")``.  Then a
                torch.profiler trace of one prefill and eight decode steps
                per mode: wall vs kernel time, idle share, kernel time by
-               class (attention, grouped GEMM, GEMM, other).
+               class (attention, grouped GEMM, overlapped GEMM, collective,
+               GEMM, other).
+   serve_tp -- Qwen3-8B at tp = 4 on four ranks co-located on the card, full
+               width and depth (the tp = 1 engines freed first), batch 4,
+               prompts of 1024, 64 new tokens, in contiguous psum and paged
+               psum, ar and gemm_ar: per prefill K1 +36, K12 +72, K13 +72; per
+               step K2 or K3 +36, K11 +72 (ar), K14 +72 (gemm_ar), nothing
+               else; two requests a mode, a profile, peak memory; the tp = 4
+               decode step of each mode under the sync check.
 5. parity   -- full width at 2 layers in f32, batch 2, prompt 128, 8 new
                tokens: the port on the card (kernels) and on the CPU (plain
                versions) from the same weights give the same logits within
@@ -85,6 +111,11 @@ Phases, each printing JSON lines; any failure exits non-zero:
                greedy tokens; Qwen3-30B-A3B likewise in the paged and paged +
                fused modes, with the same top-8 experts for every token,
                layer and step.
+   parity_tp -- full width at 2 layers in f32, batch 4, prompt 128, 8 new
+               tokens: the port at tp = 4 on the card and on the CPU and at
+               tp = 1 on the card, from one seed, give prefill logits and every
+               decode step's logits within PARITY_TOL and the same greedy
+               tokens, in every served tp = 4 mode on both caches.
 6. the kernels line, the card line, and the result line.
 
 The script imports nothing of JAX.
@@ -174,6 +205,7 @@ def phase_build(tt) -> None:
     emit({"phase": "build_new_kernels", "instantiations": [
         f"{names[e]}: {per_entry[e]}" for e in per_entry
         if "fused_attn_decode_kernel" in e or "grouped_gemm" in e
+        or "ag_gemm_kernel" in e or "gemm_rs_kernel" in e
         or re.search(r"decode_splitI(f|13__nv_bfloat16)a", e)]})
     build.library()
 
@@ -1448,21 +1480,26 @@ def phase_collective_cases(tt, torch) -> None:
           "bitwise": True, "pads_at_rest": True, "groups_own_data": True})
 
 
-def stalled_rank_child() -> int:
-    """Run in a child process by phase_wait_bound: a gather in which rank 1
-    never credits its puts, so rank 0's wait runs out and the launch fails.
-    Exits non-zero through the uncaught error, which names the rank and the
-    flag."""
+def stalled_rank_child(kernel: str) -> int:
+    """Run in a child process by phase_wait_bound: a two-rank gather (K9's
+    one-way ring) or AG-GEMM (K12's) in which rank 1 never credits its
+    puts, so rank 0's wait runs out and the launch fails.  Exits non-zero
+    through the uncaught error, which names the rank and the flag."""
     import torch
 
     from triton_distributed_tpu_torch.comm import AllGatherMethod
     from triton_distributed_tpu_torch.comm.allgather import _all_gather
     from triton_distributed_tpu_torch.core import symm
     from triton_distributed_tpu_torch.core.mesh import make_mesh
+    from triton_distributed_tpu_torch.ops.ag_gemm import _ag_gemm
 
     mesh = make_mesh({"tp": 2})
     x = torch.ones(2, 4, 64, device="cuda")
-    _all_gather(x, mesh, "tp", AllGatherMethod.RING_1D, stall_rank=1)
+    if kernel == "ag_gemm":
+        w = torch.ones(2, 64, 64, device="cuda")
+        _ag_gemm(x, w, mesh, "tp", torch.float32, bidir=False, stall_rank=1)
+    else:
+        _all_gather(x, mesh, "tp", AllGatherMethod.RING_1D, stall_rank=1)
     try:
         torch.cuda.synchronize()
     except RuntimeError as e:
@@ -1473,22 +1510,27 @@ def stalled_rank_child() -> int:
     return 0
 
 
-def phase_wait_bound(torch) -> None:
-    """A wait cannot hang the run: the child's stalled gather must fail by
-    name (rank 0, flag recv[1]) within the bounded wait, and this process's
-    context carries on."""
+STALL_KERNELS = ("all_gather", "ag_gemm")
+
+
+def phase_wait_bound(torch, kernels=STALL_KERNELS) -> None:
+    """A wait cannot hang the run: each child's stalled launch (K9's gather,
+    K12's AG-GEMM) must fail by name (rank 0, flag recv[1]) within the
+    bounded wait, and this process's context carries on."""
     import subprocess
 
-    t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--stalled-rank-child"],
-                         capture_output=True, text=True, timeout=300)
-    text = res.stdout + res.stderr
-    named = [ln for ln in text.splitlines() if "CollectiveTimeout" in ln]
-    emit({"phase": "wait_bound", "child_rc": res.returncode,
-          "child_s": time.perf_counter() - t0, "named": named[-1:]})
-    check(res.returncode != 0, "the stalled gather finished: a wait did not run out")
-    check(bool(named) and "rank 0 " in named[-1] and "recv[1]" in named[-1],
-          f"the child did not name the stuck rank and flag:\n{text[-3000:]}")
+    for kernel in kernels:
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                              "--stalled-rank-child", kernel],
+                             capture_output=True, text=True, timeout=300)
+        text = res.stdout + res.stderr
+        named = [ln for ln in text.splitlines() if "CollectiveTimeout" in ln]
+        emit({"phase": "wait_bound", "kernel": kernel, "child_rc": res.returncode,
+              "child_s": time.perf_counter() - t0, "named": named[-1:]})
+        check(res.returncode != 0, f"the stalled {kernel} finished: a wait did not run out")
+        check(bool(named) and "rank 0 " in named[-1] and "recv[1]" in named[-1],
+              f"the {kernel} child did not name the stuck rank and flag:\n{text[-3000:]}")
     torch.cuda.synchronize()   # this process's context is unharmed
 
 
@@ -1620,6 +1662,343 @@ def phase_collectives(tt, torch) -> tuple[dict, dict, dict]:
     torch.cuda.empty_cache()
     emit({"phase": "collectives", "seconds": time.perf_counter() - t0})
     return rows, launches, forms
+
+
+# ---------------------------------------------------------------------------
+# the overlapped GEMMs (K12-K14) on ranks co-located on the card
+
+OVERLAP_SOURCE = "triton_distributed_tpu_torch/csrc/overlap_gemm.cu"
+OVERLAP_RANKS = (2, 3, 4)
+# (m_loc, K, N of one rank's product): rows off the tile (1, 37, 130), K and N
+# multiples of 8 off the tile (136, 200, 264, 1032)
+OVERLAP_SHAPES = ((1, 136, 136), (37, 264, 200), (130, 1032, 264))
+# (operand, output) dtypes the kernels are built for
+OVERLAP_DTYPES = (("f32", "f32"), ("bf16", "bf16"), ("bf16", "f32"))
+F32_UNIT = 2.0 ** -24
+# each planted fault must land at least this many limits from the plain
+# version at its worst element
+FAULT_MARGIN = 10.0
+
+
+def overlap_limit(torch, abs_sum, k: int, values, out_dtype):
+    """The per-element limit of |kernel - plain| for an overlapped GEMM.
+    ``abs_sum``: the sum of |A_r| @ |B_r| over the partial products that
+    reach the element; ``values``: the sum of |x| over every value the plain
+    version rounds to the output dtype on the way to it (each partial
+    product, and the partial sum after each ring hop), in f32.  Both sides
+    accumulate each length-k dot in f32 in their own order, each within
+    k 2**-24 abs_sum of the exact value; the ring then adds the same values
+    in the same order, and each rounding (unit u: 2**-8 for bf16, 2**-24 for
+    f32) moves the two sides at most u (|x| + |x'|) further apart: 2 u |x|
+    to first order, and the factor 1 + 2**-5 holds the second."""
+    u = 2.0 ** -8 if out_dtype == torch.bfloat16 else F32_UNIT
+    return 2 * k * F32_UNIT * abs_sum + 2 * u * (1 + 2.0 ** -5) * values
+
+
+def ring_hop_sums(torch, parts):
+    """For every output chunk c of the ReduceScatter ring, the sum over its
+    hops of |the partial sum after the hop|, in f32 (``comm/ring.py::
+    rs_ring_phase``: chunk c's sum starts at rank c + 1 and travels right,
+    its last add at rank c).  ``parts`` (n, M, N): each rank's partial
+    product.  Returns (n, M / n, N), chunk c at index c."""
+    n = parts.shape[0]
+    chunks = parts.reshape(n, n, -1, parts.shape[-1])    # [rank, chunk, rows, N]
+    sums = []
+    for c in range(n):
+        acc, tot = chunks[(c + 1) % n, c], 0
+        for i in range(2, n + 1):
+            acc = acc + chunks[(c + i) % n, c]
+            tot = tot + acc.abs()
+        sums.append(tot)
+    return torch.stack(sums)
+
+
+def ag_check(torch, gathered, b, out_dtype):
+    """(limit, faults) of K12 on the gathered A: one product per element, no
+    hop.  The fault: each rank's C with chunk 0's rows taken from chunk 1
+    (a chunk of another rank)."""
+    g, w = gathered.float(), b.float()
+    limit = overlap_limit(torch, torch.matmul(g.abs(), w.abs()), g.shape[-1],
+                          torch.matmul(g, w).abs(), out_dtype)
+    m_loc = g.shape[-2] // g.shape[0]
+
+    def faults(got):
+        other = got.clone()
+        other[:, :m_loc] = got[:, m_loc:2 * m_loc]
+        return {"chunk_of_another_rank": other}
+
+    return limit, faults
+
+
+def rs_check(torch, a, b, out_dtype, replicated: bool):
+    """(limit, faults) of K13 (``replicated`` False: rank c holds chunk c)
+    or K14 (every rank holds every chunk) on rank-stacked a (n, M, k_loc),
+    b (n, k_loc, N).  The faults: rank 0's partial product left out, and
+    chunk 0 taken from chunk 1 (a chunk of another rank)."""
+    n, m, k = a.shape
+    parts = torch.matmul(a.float(), b.float())                    # (n, M, N)
+    abs_sum = torch.matmul(a.float().abs(), b.float().abs()).sum(0)
+    values = parts.abs().sum(0).reshape(n, m // n, -1) + ring_hop_sums(torch, parts)
+    abs_sum = abs_sum.reshape(n, m // n, -1)
+    left_out = parts[0].reshape(n, m // n, -1)
+    if replicated:
+        abs_sum, values, left_out = (t.reshape(1, m, -1).expand(n, -1, -1)
+                                     for t in (abs_sum, values, left_out))
+    limit = overlap_limit(torch, abs_sum, k, values, out_dtype)
+
+    def faults(got):
+        other = got.clone()
+        if replicated:
+            other[:, :m // n] = got[:, m // n:2 * m // n]
+        else:
+            other[0] = got[1]
+        return {"partial_left_out": got.float() - left_out, "chunk_of_another_rank": other}
+
+    return limit, faults
+
+
+def overlap_share(torch, got, want, limit) -> float:
+    """The largest |got - want| as a share of its element's limit (0 where
+    both are exact zeros)."""
+    err = (got.float() - want.float()).abs()
+    return float((err / limit.clamp_min(1e-30)).max()) if err.numel() else 0.0
+
+
+def overlap_calls(torch, mesh, a, b, a_rs, b_rs, out_dtype) -> list:
+    """(label, kernel thunk, plain thunk, chain thunk, limit, faults) of
+    every overlapped GEMM on these operands: K12 both rings (C and the
+    gathered A), K13 and K14.  The chains: K9 then K6 per rank; K6 per rank
+    then K10; K6 per rank then K11's two-shot."""
+    from triton_distributed_tpu_torch import comm
+    from triton_distributed_tpu_torch.ops import ag_gemm as AG
+    from triton_distributed_tpu_torch.ops import gemm_ar as AR
+    from triton_distributed_tpu_torch.ops import gemm_rs as RS
+    from triton_distributed_tpu_torch.ops.matmul import DEFAULT_TILES, matmul
+
+    n = mesh.shape["tp"]
+    tile = dict(zip(("bm", "bn", "bk"), DEFAULT_TILES[a.dtype]))
+
+    def k6(x, w):   # K6 per rank, at the tile the overlapped GEMMs run
+        return torch.stack([matmul(x[r], w[r], out_dtype=out_dtype, **tile) for r in range(n)])
+
+    def ag_chain(m):
+        g = comm.all_gather(a, mesh, method=m)
+        return k6(g, b), g
+
+    calls = []
+    ag = ag_check(torch, comm.all_gather_ref(a, mesh), b, out_dtype)
+    for bidir, m in ((False, comm.AllGatherMethod.RING_1D), (True, comm.AllGatherMethod.RING_BIDIR)):
+        calls.append((f"ag_gemm/{'bidir' if bidir else 'unidir'}",
+                      lambda bidir=bidir: AG.ag_gemm(a, b, mesh, out_dtype=out_dtype,
+                                                     return_gathered=True, bidir=bidir),
+                      lambda bidir=bidir: AG.ag_gemm_ref(a, b, mesh, out_dtype=out_dtype,
+                                                         bidir=bidir),
+                      lambda m=m: ag_chain(m), *ag))
+    calls.append(("gemm_rs/ring", lambda: RS.gemm_rs(a_rs, b_rs, mesh, out_dtype=out_dtype),
+                  lambda: RS.gemm_rs_ref(a_rs, b_rs, mesh, out_dtype=out_dtype),
+                  lambda: comm.reduce_scatter(k6(a_rs, b_rs), mesh),
+                  *rs_check(torch, a_rs, b_rs, out_dtype, replicated=False)))
+    calls.append(("gemm_ar/ring", lambda: AR.gemm_ar(a_rs, b_rs, mesh, out_dtype=out_dtype),
+                  lambda: AR.gemm_ar_ref(a_rs, b_rs, mesh, out_dtype=out_dtype),
+                  lambda: comm.all_reduce(k6(a_rs, b_rs), mesh,
+                                          method=comm.AllReduceMethod.TWO_SHOT),
+                  *rs_check(torch, a_rs, b_rs, out_dtype, replicated=True)))
+    return calls
+
+
+def check_overlap_calls(torch, calls, what: str) -> tuple[dict, dict]:
+    """Each call: equal bitwise to its chain, within its limit of its plain
+    version (the gathered A bitwise), every pad at rest after it; each
+    planted fault at least FAULT_MARGIN limits from the plain version.
+    Returns the worst share of the limit per call, and the least share of
+    the limit per planted fault."""
+    shares, faulty = {}, {}
+    for label, kern, plain, chain, limit, faults in calls:
+        got, want, link = kern(), plain(), chain()
+        if isinstance(got, tuple):   # K12: (C, gathered)
+            check(torch.equal(got[1], want[1]) and torch.equal(got[1], link[1]),
+                  f"{what} {label}: the gathered A differs")
+            got, want, link = got[0], want[0], link[0]
+        torch.cuda.synchronize()
+        check(pads_at_rest(), f"{what} {label}: a signal pad is not at rest after the call")
+        if got.dtype != link.dtype or not torch.equal(got, link):
+            raise PhaseError(f"{what} {label}: the kernel differs from its chain (max |diff| "
+                             f"{(got.float() - link.float()).abs().max().item()})")
+        shares[label] = overlap_share(torch, got, want, limit)
+        check(shares[label] <= 1.0, f"{what} {label}: the kernel is {shares[label]:.3g} of its "
+                                    f"limit from its plain version")
+        for fault, bad in faults(got).items():
+            faulty[f"{label}/{fault}"] = share = overlap_share(torch, bad, want, limit)
+            check(share >= FAULT_MARGIN, f"{what} {label}: the planted fault {fault} is only "
+                                         f"{share:.3g} of the limit from the plain version")
+    return shares, faulty
+
+
+def phase_overlap_cases(tt, torch) -> None:
+    """Edge cases of K12-K14: n 2, 3, 4; f32, bf16 and bf16 -> f32; a rank's
+    product of 1, 37 and 130 rows by K 136-1032 by N 136-264 (off the tile
+    on every edge); both rings of K12 with the gathered A; each call bitwise
+    equal to its chain, within the stated limit of its plain version, every
+    pad at rest; then three interleaved repeats with no sync between."""
+    from triton_distributed_tpu_torch.core.mesh import make_mesh
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 51)
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+    def operands(n, m_loc, k, cols, dt):
+        # unit-variance activations and weights of variance 1 / K, so the
+        # products are O(1) at any K
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dt)
+
+        a, b = rnd(n, m_loc, k), rnd(n, k, cols, scale=k ** -0.5)
+        a_rs, b_rs = rnd(n, n * m_loc, k), rnd(n, k, cols, scale=(n * k) ** -0.5)
+        return a, b, a_rs, b_rs
+
+    for n in OVERLAP_RANKS:
+        mesh = make_mesh({"tp": n})
+        for dt, odt in OVERLAP_DTYPES:
+            for m_loc, k, cols in OVERLAP_SHAPES:
+                calls = overlap_calls(torch, mesh, *operands(n, m_loc, k, cols, dts[dt]), dts[odt])
+                shares, faulty = check_overlap_calls(torch, calls, f"n={n} {dt}->{odt} "
+                                                     f"{m_loc}x{k}x{cols}")
+                emit({"phase": "overlap_case", "n": n, "dtype": f"{dt}->{odt}",
+                      "m_loc_k_n": [m_loc, k, cols], "chain_bitwise": True,
+                      "gathered_bitwise": True, "pads_at_rest": True,
+                      "worst_share_of_limit": shares, "faulty_share_of_limit": faulty})
+    mesh = make_mesh({"tp": 4})
+    calls = overlap_calls(torch, mesh, *operands(4, 37, 264, 200, torch.bfloat16), torch.bfloat16)
+    outs = [[kern() for _, kern, *_ in calls] for _ in range(3)]
+    torch.cuda.synchronize()
+    for rep in outs:
+        for (label, _, _, chain, *_), got in zip(calls, rep):
+            got, link = (got[0], chain()[0]) if isinstance(got, tuple) else (got, chain())
+            check(torch.equal(got, link), f"repeat {label}: differs from its chain")
+    check(pads_at_rest(), "a signal pad is not at rest after the interleaved repeats")
+    emit({"phase": "overlap_case", "repeats": 3, "interleaved": [c[0] for c in calls],
+          "chain_bitwise": True, "pads_at_rest": True})
+
+
+# Qwen3-8B at tp = 4, B = 4 x 1024 (prefill) and B = 4 (decode): (name, K#,
+# kind, rows M, K, N of the whole product, replaces)
+OVERLAP_MAIN = (
+    ("ag_gemm[qkv]", "ag_gemm", BATCH * PROMPT, 4096, 6144,
+     "triton_distributed_tpu/ops/ag_gemm.py:123"),
+    ("ag_gemm[gate_up]", "ag_gemm", BATCH * PROMPT, 4096, 24576,
+     "triton_distributed_tpu/ops/ag_gemm.py:123"),
+    ("gemm_rs[o]", "gemm_rs", BATCH * PROMPT, 4096, 4096,
+     "triton_distributed_tpu/ops/gemm_rs.py:57"),
+    ("gemm_rs[down]", "gemm_rs", BATCH * PROMPT, 12288, 4096,
+     "triton_distributed_tpu/ops/gemm_rs.py:57"),
+    ("gemm_ar[o decode]", "gemm_ar", BATCH, 4096, 4096,
+     "triton_distributed_tpu/ops/gemm_ar.py:59"),
+    ("gemm_ar[down decode]", "gemm_ar", BATCH, 12288, 4096,
+     "triton_distributed_tpu/ops/gemm_ar.py:59"),
+)
+
+
+def overlap_form(kind: str, n: int, m: int, k: int, cols: int) -> tuple:
+    """The launch counter's form of a main row (ops/*.py count())."""
+    if kind == "ag_gemm":
+        return ("bidir", n, (m // n, k), (k, cols // n))
+    return ("ring", n, (m, k // n), (k // n, cols))
+
+
+def overlap_main_rows(tt, torch) -> dict:
+    """K12-K14 at the Qwen3-8B tp = 4 shapes, bf16: each against its chain
+    (bitwise) and its plain version (within the limit), timed beside its
+    bound (obs/costs.py's operations over all ranks, the function's bytes),
+    its plain version, its chain and one torch.matmul of the whole unsharded
+    product (the work the ranks do together)."""
+    from triton_distributed_tpu_torch import comm
+    from triton_distributed_tpu_torch.core.mesh import make_mesh
+    from triton_distributed_tpu_torch.core.utils import perf_func
+    from triton_distributed_tpu_torch.obs import costs
+    from triton_distributed_tpu_torch.ops import ag_gemm as AG
+    from triton_distributed_tpu_torch.ops import gemm_ar as AR
+    from triton_distributed_tpu_torch.ops import gemm_rs as RS
+    from triton_distributed_tpu_torch.ops.matmul import matmul
+
+    n, bf = COLL_TP, torch.bfloat16
+    mesh = make_mesh({"tp": n})
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
+    rows = {}
+    for name, kind, m, k, cols, replaces in OVERLAP_MAIN:
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(shape, generator=gen, device="cuda") * scale).to(bf)
+
+        def k6(x, w):
+            return torch.stack([matmul(x[r], w[r], bm=128, bn=128, bk=32) for r in range(n)])
+
+        if kind == "ag_gemm":
+            a, b = rnd(n, m // n, k), rnd(n, k, cols // n, scale=k ** -0.5)
+            kern = lambda a=a, b=b: AG.ag_gemm(a, b, mesh)
+            plain = lambda a=a, b=b: AG.ag_gemm_ref(a, b, mesh, bidir=True)[0]
+            chain = lambda a=a, b=b: k6(comm.all_gather(
+                a, mesh, method=comm.AllGatherMethod.RING_BIDIR), b)
+            whole = (a.reshape(m, k), b.permute(1, 0, 2).reshape(k, cols))
+            limit, _ = ag_check(torch, comm.all_gather_ref(a, mesh), b, bf)
+            cost = costs.ag_gemm(m // n, k, cols // n, n, bf)
+            # every rank's shard and weight read once; C and the gathered A
+            # (each rank's copy) written once
+            fn_bytes = nbytes(a, b) + m * cols * 2 + n * m * k * 2
+        else:
+            a, b = rnd(n, m, k // n), rnd(n, k // n, cols, scale=k ** -0.5)
+            op, ref = ((RS.gemm_rs, RS.gemm_rs_ref) if kind == "gemm_rs"
+                       else (AR.gemm_ar, AR.gemm_ar_ref))
+            kern = lambda a=a, b=b, op=op: op(a, b, mesh)
+            plain = lambda a=a, b=b, ref=ref: ref(a, b, mesh)
+            if kind == "gemm_rs":
+                chain = lambda a=a, b=b: comm.reduce_scatter(k6(a, b), mesh)
+            else:
+                chain = lambda a=a, b=b: comm.all_reduce(
+                    k6(a, b), mesh, method=comm.AllReduceMethod.TWO_SHOT)
+            whole = (a.permute(1, 0, 2).reshape(m, k), b.reshape(k, cols))
+            limit, _ = rs_check(torch, a, b, bf, replicated=kind == "gemm_ar")
+            cost = getattr(costs, kind)(m // n, k // n, cols, n, bf)
+            out_rows = m // n if kind == "gemm_rs" else m
+            fn_bytes = nbytes(a, b) + n * out_rows * cols * 2
+        got, want, link = kern(), plain(), chain()
+        torch.cuda.synchronize()
+        check(torch.equal(got, link), f"{name}: the kernel differs from its chain")
+        share = overlap_share(torch, got, want, limit)
+        check(share <= 1.0, f"{name}: {share:.3g} of its limit from its plain version")
+        err = (got.float() - want.float()).abs().max().item()
+        del got, want, link, limit
+        _, ms = perf_func(kern, iters=20)
+        _, plain_ms = perf_func(plain, iters=3)
+        _, chain_ms = perf_func(chain, iters=20)
+        _, lib_ms = perf_func(lambda w=whole: torch.matmul(*w), iters=20)
+        flops = n * cost.flops
+        bound_ms, bound_by = bound(flops, fn_bytes, H100_BF16_FLOPS)
+        rows[name] = dict(
+            name=name, route="cuda", source=OVERLAP_SOURCE, replaces=replaces,
+            max_abs_err=err, worst_share_of_limit=share, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+            library="torch.matmul of the whole unsharded product", chain_ms=chain_ms,
+            chain={"ag_gemm": "K9 two-way ring then K6 per rank",
+                   "gemm_rs": "K6 per rank then K10",
+                   "gemm_ar": "K6 per rank then K11 two-shot"}[kind],
+            flops=flops, function_bytes=fn_bytes, shape=f"n={n} M={m} K={k} N={cols} bf16",
+            counter=kind, form=overlap_form(kind, n, m, k, cols))
+        del a, b, whole
+        gc.collect()
+    check(pads_at_rest(), "a signal pad is not at rest after the overlapped GEMMs' rows")
+    return rows
+
+
+def phase_overlap(tt, torch) -> dict:
+    """K12-K14: edge cases, then the main rows (their launches are read from
+    the serve_tp path)."""
+    t0 = time.perf_counter()
+    phase_overlap_cases(tt, torch)
+    rows = overlap_main_rows(tt, torch)
+    for row in rows.values():
+        emit({"phase": "kernel_main", **{k: v for k, v in row.items() if k != "form"}})
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "overlap", "seconds": time.perf_counter() - t0})
+    return rows
 
 
 def phase_sync_check(tt, torch, params) -> None:
@@ -1827,13 +2206,17 @@ def phase_parity_moe(tt, torch) -> None:
 KERNEL_CLASSES = (("attention", ("flash_fwd", "decode_split", "decode_combine",
                                  "fused_attn_decode")),
                   ("grouped_gemm", ("grouped_gemm",)),   # K5, before "gemm"
+                  ("overlap_gemm", ("ag_gemm_kernel", "gemm_rs_kernel")),   # K12-K14
+                  ("collective", ("all_gather_kernel", "reduce_scatter_kernel",
+                                  "all_reduce_kernel")),                    # K9-K11
                   ("gemm", ("nvjet", "gemm", "cutlass", "sm90_xmma")))
 
 
-def phase_profile(eng, ids, torch, layout: str) -> None:
-    """Where a prefill and a decode step spend their time: host wall time
-    (no profiler), device kernel time by class from a torch.profiler trace,
-    and the device's idle share (1 - kernel time / wall time)."""
+def phase_profile(eng, ids, torch, layout: str, prefill: bool = True) -> None:
+    """Where a prefill (unless ``prefill`` is False) and a decode step spend
+    their time: host wall time (no profiler), device kernel time by class
+    from a torch.profiler trace, and the device's idle share (1 - kernel
+    time / wall time)."""
     from torch.profiler import ProfilerActivity, profile
 
     def kernels(prof):
@@ -1844,8 +2227,9 @@ def phase_profile(eng, ids, torch, layout: str) -> None:
     tok = eng.prefill(ids).argmax(-1).to(torch.int32)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng.prefill(ids)
-    torch.cuda.synchronize()
+    if prefill:
+        eng.prefill(ids)
+        torch.cuda.synchronize()
     t1 = time.perf_counter()
     for _ in range(steps):
         tok = eng.decode_step(tok).argmax(-1).to(torch.int32)
@@ -1857,7 +2241,7 @@ def phase_profile(eng, ids, torch, layout: str) -> None:
     for what, n, thunk in (
             ("prefill", 1, lambda: eng.prefill(ids)),
             ("decode_step", steps,
-             lambda: [eng.decode_step(tok) for _ in range(steps)])):
+             lambda: [eng.decode_step(tok) for _ in range(steps)]))[0 if prefill else 1:]:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             thunk()
             torch.cuda.synchronize()
@@ -1865,7 +2249,7 @@ def phase_profile(eng, ids, torch, layout: str) -> None:
         by_name: dict[str, float] = {}
         for e in ks:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / n
-        classes = {"attention": 0.0, "grouped_gemm": 0.0, "gemm": 0.0, "other": 0.0}
+        classes = dict.fromkeys([c for c, _ in KERNEL_CLASSES] + ["other"], 0.0)
         for name, ms in by_name.items():
             cls = next((c for c, keys in KERNEL_CLASSES
                         if any(k in name for k in keys)), "other")
@@ -1939,6 +2323,129 @@ def phase_serve(tt, torch) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return totals
+
+
+# Qwen3-8B at tp = 4 on co-located ranks: (label, cache layout, decode mode)
+TP_SERVE_MODES = (
+    ("tp4 contiguous psum", "contiguous", "psum"),
+    ("tp4 paged psum", "paged", "psum"),
+    ("tp4 paged ar", "paged", "ar"),
+    ("tp4 paged gemm_ar", "paged", "gemm_ar"),
+)
+TP_REQUESTS = 2
+
+
+def tp_step_launches(c, layout: str, mode: str) -> tuple[dict, dict]:
+    """The kernel launches of one prefill and of one decode step at tp = 4:
+    per layer one flash attention, two AG-GEMMs (qkv, gate_up) and two
+    GEMM-RSs (o, down) a prefill; one decode attention a step, and two
+    reductions on K11 ("ar") or K14 ("gemm_ar"; B = 4 divides by 4)."""
+    layers = c.num_layers
+    prefill = {"flash_attention": layers, "ag_gemm": 2 * layers, "gemm_rs": 2 * layers}
+    step = {("paged_decode_attention" if layout == "paged" else "decode_attention"): layers}
+    if mode == "ar":
+        step["all_reduce"] = 2 * layers
+    elif mode == "gemm_ar":
+        step["gemm_ar"] = 2 * layers
+    return prefill, step
+
+
+def phase_sync_check_tp(tt, torch, models, params, mesh) -> None:
+    """The tp = 4 decode step under ``torch.cuda.set_sync_debug_mode("error")``
+    in each mode: nothing in it may read back to the host."""
+    ids = torch.randint(0, params.embed.shape[0], (BATCH, 64), device=mesh.device,
+                        generator=torch.Generator(device=mesh.device).manual_seed(SEED + 7))
+    tok = torch.zeros((BATCH,), dtype=torch.int32, device=mesh.device)
+    for mode, model in models.items():
+        eng = tt.Engine(model, params, batch=BATCH, cache_layout="paged", page_size=PAGE)
+        eng.prefill(ids)
+        eng.decode_step(tok)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            logits = eng.decode_step(tok)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check(tuple(logits.shape) == (BATCH, params.embed.shape[0])
+              and bool(torch.isfinite(logits).all()), f"tp = 4 {mode} step: bad logits")
+        del eng
+    emit({"phase": "sync_check", "tp": 4, "decode_modes": list(models), "ok": True})
+
+
+def phase_serve_tp(tt, torch) -> tuple[dict, dict]:
+    """Qwen3-8B at tp = 4 on four ranks co-located on the card, full width and
+    depth, random weights from seed 0 (the tp = 1 draw, sharded): per mode
+    the launches of one prefill and one decode step, then TP_REQUESTS
+    requests with the launch counters set to 0 just before and read just
+    after (K12 +72 and K13 +72 a prefill, K14 +72 a gemm_ar step); the tp = 4
+    sync check; a decode step's profile per mode and one prefill's; peak
+    device memory.  Returns the launches and the launches by form."""
+    c = dataclasses.replace(tt.QWEN3_8B, max_length=MAX_LEN)
+    t0 = time.perf_counter()
+    mesh = tt.make_mesh({"tp": COLL_TP})
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = tt.Qwen3(c, mesh=mesh).init(torch.Generator(device=mesh.device).manual_seed(SEED))
+    models = {mode: tt.Qwen3(c, mesh=mesh, decode_mode=mode) for mode in ("psum", "ar", "gemm_ar")}
+    torch.cuda.synchronize()
+    emit({"phase": "serve_tp_setup", "tp": COLL_TP, "init_s": time.perf_counter() - t0,
+          "param_bytes": torch.cuda.memory_allocated()})
+    phase_sync_check_tp(tt, torch, models, params, mesh)
+    totals = dict.fromkeys(tt.launch_counts(), 0)
+    forms: dict = {}
+    engines = {}
+    for label, layout, mode in TP_SERVE_MODES:
+        eng = tt.Engine(models[mode], params, batch=BATCH, cache_layout=layout, page_size=PAGE)
+        want_prefill, want_step = tp_step_launches(c, layout, mode)
+        ids = torch.randint(0, c.vocab, (BATCH, PROMPT), device=mesh.device,
+                            generator=torch.Generator(device=mesh.device).manual_seed(200))
+        tt.reset_launch_counts()
+        tok = eng.prefill(ids).argmax(-1).to(torch.int32)
+        one_prefill = {k: v for k, v in tt.launch_counts().items() if v}
+        tt.reset_launch_counts()
+        eng.decode_step(tok)
+        one_step = {k: v for k, v in tt.launch_counts().items() if v}
+        emit({"phase": "serve_tp_launches", "layout": label, "per_prefill": one_prefill,
+              "per_decode_step": one_step})
+        check(one_prefill == want_prefill and one_step == want_step,
+              f"{label}: launches a prefill {one_prefill} (want {want_prefill}), a step "
+              f"{one_step} (want {want_step})")
+        tt.reset_launch_counts()
+        for req in range(TP_REQUESTS):
+            ids = torch.randint(0, c.vocab, (BATCH, PROMPT), device=mesh.device,
+                                generator=torch.Generator(device=mesh.device).manual_seed(100 + req))
+            before = tt.launch_counts()
+            tokens, stats = eng.serve(ids, GEN)
+            torch.cuda.synchronize()
+            after = tt.launch_counts()
+            delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+            # serve = a warm-up prefill and decode step, then the timed prefill
+            # and GEN - 1 decode steps
+            want = {k: 2 * v for k, v in want_prefill.items()}
+            for k, v in want_step.items():
+                want[k] = want.get(k, 0) + GEN * v
+            emit({"phase": "serve_tp", "layout": label, "request": req, **stats,
+                  "launches": delta})
+            check(delta == want, f"{label} request {req}: launches {delta}, want {want}")
+            check(tuple(tokens.shape) == (BATCH, GEN) and int(tokens.min()) >= 0
+                  and int(tokens.max()) < c.vocab, f"{label}: bad tokens")
+        for k, n in tt.launch_counts().items():
+            totals[k] += n
+        for key, n in tt.launch_forms().items():
+            forms[key] = forms.get(key, 0) + n
+        engines[label] = (eng, ids)
+    for i, (label, (eng, ids)) in enumerate(engines.items()):
+        # the prefill is the same in every decode mode: profiled once
+        phase_profile(eng, ids, torch, label, prefill=i == 0)
+    emit({"phase": "serve_memory", "model": "Qwen3-8B tp = 4",
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "device_total": torch.cuda.get_device_properties(0).total_memory})
+    del engines, models, params, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_tp_done", "seconds": time.perf_counter() - t0})
+    return totals, forms
 
 
 def to_cpu(torch, obj):
@@ -2052,9 +2559,91 @@ def phase_parity(tt, torch) -> None:
         check(code_gap <= 1, f"{label}: int8 codes differ card vs CPU by {code_gap}")
 
 
+def clone_cache(torch, cache):
+    """A copy of a cache's tensors, where they are."""
+    return dataclasses.replace(cache, **{
+        f.name: getattr(cache, f.name).clone() for f in dataclasses.fields(cache)
+        if isinstance(getattr(cache, f.name), torch.Tensor)})
+
+
+def phase_parity_tp(tt, torch) -> None:
+    """Full width at 2 layers in f32, batch 4, prompt 128, 8 new tokens: the
+    port at tp = 4 on the card (K12-K14 and the other kernels) against the
+    port at tp = 4 on the CPU (plain versions) and the port at tp = 1 on the
+    card, from the same weights (one seed; tp = 4 shards the tp = 1 draw).
+    Prefill logits, then every decode step's logits in every served mode,
+    each mode from the prefill's cache state on every side, the CPU's greedy
+    token fed to all three: logits within PARITY_TOL (absolute plus
+    relative), greedy tokens equal."""
+    t0 = time.perf_counter()
+    c = dataclasses.replace(tt.QWEN3_8B, num_layers=2, dtype=torch.float32, max_length=256)
+    dev = torch.device("cuda")
+    b, s, gen = BATCH, 128, 8
+    mesh, cmesh = tt.make_mesh({"tp": COLL_TP}), tt.make_mesh({"tp": COLL_TP}, device="cpu")
+    card4 = tt.Qwen3(c, mesh=mesh)
+    params4 = card4.init(torch.Generator(device=dev).manual_seed(SEED + 3))
+    card1 = tt.Qwen3(c, device=dev)
+    params1 = card1.init(torch.Generator(device=dev).manual_seed(SEED + 3))
+    cpu4 = tt.Qwen3(c, mesh=cmesh)
+    cparams4 = to_cpu(torch, params4)
+    ids = torch.randint(0, c.vocab, (b, s), generator=torch.Generator().manual_seed(SEED + 4))
+    sides = {"card tp=4": (card4, params4, 4, dev), "cpu tp=4": (cpu4, cparams4, 4, "cpu"),
+             "card tp=1": (card1, params1, 1, dev)}
+
+    def compare(logs: dict, what: str) -> dict:
+        """Each card side's largest |logit error| against the CPU's; fails
+        past PARITY_TOL or on another greedy token."""
+        ref = logs["cpu tp=4"]
+        limit = PARITY_TOL + PARITY_TOL * ref.abs()
+        errs = {}
+        for name in ("card tp=4", "card tp=1"):
+            err = (logs[name] - ref).abs()
+            errs[name] = err.max().item()
+            check(bool((err <= limit).all()), f"{what}: {name} differs from cpu tp=4 by "
+                                              f"{errs[name]}")
+            check(torch.equal(logs[name].argmax(-1), ref.argmax(-1)),
+                  f"{what}: {name}'s greedy tokens differ from cpu tp=4's")
+        return errs
+
+    for layout, modes in (("contiguous", ("psum",)), ("paged", ("psum", "ar", "gemm_ar"))):
+        start, logs = {}, {}
+        for name, (model, params, tp, where) in sides.items():
+            cache = (tt.init_paged_cache(c.num_layers, b, c.num_kv_heads, c.max_length,
+                                         c.head_dim, c.dtype, page_size=PAGE, device=where, tp=tp)
+                     if layout == "paged" else
+                     tt.init_cache(c.num_layers, b, c.num_kv_heads, c.max_length, c.head_dim,
+                                   c.dtype, device=where, tp=tp))
+            lg, cache = model.prefill(params, cache, ids.to(where))
+            logs[name], start[name] = lg[:, -1].cpu(), cache
+        emit({"phase": "parity_tp", "layout": layout, "what": "prefill",
+              "max_abs_err_vs_cpu_tp4": compare(logs, f"{layout} prefill"), "tol": PARITY_TOL})
+        for mode in modes:
+            models = {name: tt.Qwen3(c, decode_mode=mode, **(
+                {"mesh": m.mesh} if m.tp > 1 else {"device": m.device}))
+                for name, (m, *_) in sides.items()}
+            caches = {name: clone_cache(torch, start[name]) for name in sides}
+            tok = logs["cpu tp=4"].argmax(-1).to(torch.int32)
+            worst = dict.fromkeys(("card tp=4", "card tp=1"), 0.0)
+            for step in range(gen):
+                step_logs = {}
+                for name, (_, params, _, where) in sides.items():
+                    lg, caches[name] = models[name].decode(params, caches[name], tok.to(where))
+                    step_logs[name] = lg.cpu()
+                for name, e in compare(step_logs, f"{layout} {mode} step {step}").items():
+                    worst[name] = max(worst[name], e)
+                tok = step_logs["cpu tp=4"].argmax(-1).to(torch.int32)
+            emit({"phase": "parity_tp", "layout": layout, "mode": mode, "decode_steps": gen,
+                  "max_abs_err_vs_cpu_tp4": worst, "tol": PARITY_TOL, "tokens_equal": True})
+    emit({"phase": "parity_tp_done", "config": "Qwen3-8B width, 2 layers, f32, tp = 4",
+          "batch": b, "prompt": s, "seconds": time.perf_counter() - t0})
+    del sides, params4, params1, cparams4, card4, card1, cpu4
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
-    if sys.argv[1:] == ["--stalled-rank-child"]:
-        return stalled_rank_child()
+    if sys.argv[1:2] == ["--stalled-rank-child"]:
+        return stalled_rank_child(sys.argv[2])
     here = Path(__file__).resolve().parent
     if not (here / "triton_distributed_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: triton_distributed_tpu_torch/ not found beside the "
@@ -2100,20 +2689,33 @@ def main() -> int:
         phase = "collectives"
         coll_rows, coll_launches, coll_forms = phase_collectives(tt, torch)
         rows.update(coll_rows)
+        phase = "overlap_cases"
+        rows.update(phase_overlap(tt, torch))
         phase = "serve"
+        t0 = time.perf_counter()
         launches = phase_serve(tt, torch)
+        emit({"phase": "serve_done", "seconds": time.perf_counter() - t0})
+        phase = "serve_tp"
+        tp_launches, tp_forms = phase_serve_tp(tt, torch)
         phase = "serve_moe"
+        t0 = time.perf_counter()
         moe_launches, forms = phase_serve_moe(tt, torch)
+        emit({"phase": "serve_moe_done", "seconds": time.perf_counter() - t0})
         for name, n in [*moe_launches.items(), *local_launches.items(),
-                        *coll_launches.items()]:
+                        *coll_launches.items(), *tp_launches.items()]:
             launches[name] += n
         forms.update(local_forms)
-        forms.update(coll_forms)
+        for key, n in [*coll_forms.items(), *tp_forms.items()]:
+            forms[key] = forms.get(key, 0) + n
         for name, n in launches.items():
             check(n > 0, f"{name} was not launched on the main path")
         phase = "parity"
+        t0 = time.perf_counter()
         phase_parity(tt, torch)
         phase_parity_moe(tt, torch)
+        emit({"phase": "parity_done", "seconds": time.perf_counter() - t0})
+        phase = "parity_tp"
+        phase_parity_tp(tt, torch)
         phase = "report"
         kernels = []
         for name, row in rows.items():

@@ -193,6 +193,12 @@ def test_port_import_leaves_jax_out():
         "import triton_distributed_tpu_torch.core.symm\n"
         "import triton_distributed_tpu_torch.lang.primitives\n"
         "import triton_distributed_tpu_torch.tools.calibrate\n"
+        "import triton_distributed_tpu_torch.ops.ag_gemm\n"
+        "import triton_distributed_tpu_torch.ops.gemm_rs\n"
+        "import triton_distributed_tpu_torch.ops.gemm_ar\n"
+        "import triton_distributed_tpu_torch.layers.tp_mlp\n"
+        "import triton_distributed_tpu_torch.layers.tp_attn\n"
+        "import triton_distributed_tpu_torch.models.convert\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'triton_distributed_tpu'"
         " or m.startswith('triton_distributed_tpu.')]\n"

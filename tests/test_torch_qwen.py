@@ -108,9 +108,12 @@ def test_engine_greedy_tokens_match_jax(models, layout):
 
 
 def test_engine_refuses_unserved_modes():
-    for mode in ("persistent", "ar", "gemm_ar"):
-        with pytest.raises(NotImplementedError, match="decode_mode"):
-            tt.Engine.build(TCFG, device="cpu", decode_mode=mode)
+    with pytest.raises(NotImplementedError, match="decode_mode"):
+        tt.Engine.build(TCFG, device="cpu", decode_mode="persistent")
+    # at tp = 1 the AllReduce modes reduce nothing and serve as "psum" (JAX
+    # qwen.py:182-190); tests/test_torch_tp.py serves them at tp = 4
+    for mode in ("ar", "gemm_ar"):
+        assert tt.Engine.build(TCFG, device="cpu", decode_mode=mode).model.decode_mode == mode
     with pytest.raises(ValueError, match="decode_mode"):
         tt.Qwen3(TCFG, device="cpu", decode_mode="nonesuch")
     with pytest.raises(ValueError, match="kv_dtype"):

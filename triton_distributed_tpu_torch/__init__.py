@@ -3,7 +3,8 @@
 
 The JAX package beside it stays the reference; this package imports neither
 JAX nor any module of it.  It serves Qwen3 decoders, dense (Qwen3-8B) and
-MoE (Qwen3-30B-A3B, TP strategy), on one NVIDIA Hopper GPU at tp = 1:
+MoE (Qwen3-30B-A3B, TP strategy), on one NVIDIA Hopper GPU at tp = 1 (and
+dense at tp = n on co-located ranks, below):
 prefill, then decode on a contiguous or a paged KV cache, with
 full-precision or int8 pages, in ``decode_mode`` "psum" (the per-kernel
 chain) or "fused" (one attention megakernel per layer on a paged cache).
@@ -22,9 +23,14 @@ sequence parallelism folds: :func:`decode_attention_state` and
 
 Collectives (``comm``) on a mesh of ranks co-located on one card
 (:func:`make_mesh`, the rank-stacked layout of :func:`shard` and
-:func:`unshard`): ``comm.all_gather`` (K9), ``comm.reduce_scatter`` (K10)
-and ``comm.all_reduce`` (K11), each one cooperative launch over every rank,
-on the signal pads and symmetric buffers of ``core/symm.py``.
+:func:`unshard`; what every rank holds whole is held once, unstacked):
+``comm.all_gather`` (K9), ``comm.reduce_scatter`` (K10) and
+``comm.all_reduce`` (K11), and the overlapped GEMMs :func:`ag_gemm` (K12),
+:func:`gemm_rs` (K13) and :func:`gemm_ar` (K14), each one cooperative
+launch over every rank, on the signal pads and symmetric buffers of
+``core/symm.py``.  Dense Qwen3 runs on such a mesh at tp = n
+(``Engine.build(config, mesh=make_mesh({"tp": 4}))``): prefill on K12 and
+K13, decode in "psum", "ar" (K11) or "gemm_ar" (K14).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``, where
 the kernels' plain PyTorch versions run instead.  Without CUDA and without
@@ -33,14 +39,15 @@ that request they raise.
 
 from . import comm
 from .core.launches import launch_counts, launch_forms, reset_launch_counts
-from .core.mesh import DP_AXIS, EP_AXIS, PP_AXIS, SP_AXIS, TP_AXIS, make_mesh, shard, unshard
+from .core.mesh import (DP_AXIS, EP_AXIS, PP_AXIS, SP_AXIS, TP_AXIS, make_mesh,
+                        shard, unshard)
 from .core.platform import card_identity, device_kind, init_seed, resolve_device
 from .core.symm import SymmetricBuffer, symm_buffer, symm_signal
 from .core.utils import assert_allclose, cdiv, clip_block, perf_func
 from .layers.moe import MoEMLP, MoEParams
 from .layers.norm import rms_norm
 from .models.config import QWEN3_8B, QWEN3_30B_A3B, ModelConfig
-from .models.convert import from_jax_cache, from_jax_params
+from .models.convert import from_jax_cache, from_jax_params, reblock
 from .models.engine import Engine, sample_token
 from .models.kv_cache import (
     KVCache,
@@ -49,6 +56,7 @@ from .models.kv_cache import (
     init_cache,
     init_paged_cache,
     kv_page_bytes,
+    unshard_cache,
 )
 from .models.qwen import Qwen3, QwenParams
 from .ops.attention import (
@@ -63,7 +71,10 @@ from .ops.attention import (
     paged_decode_attention,
     paged_decode_attention_state,
 )
+from .ops.ag_gemm import ag_gemm
 from .ops.fused_decode import fused_attn_decode, fused_linear_ar, fused_mlp_ar
+from .ops.gemm_ar import gemm_ar
+from .ops.gemm_rs import gemm_rs
 from .ops.group_gemm import GroupGemmConfig, grouped_matmul
 from .ops.matmul import matmul, matmul_callable
 from .ops.rope import apply_rope, apply_rope_at, rope_freqs
@@ -72,6 +83,8 @@ from .tune import LibraryBackend, fresh_tune_matmul, tuned_matmul
 __all__ = [
     "DP_AXIS", "EP_AXIS", "PP_AXIS", "SP_AXIS", "SymmetricBuffer", "TP_AXIS",
     "comm", "make_mesh", "shard", "symm_buffer", "symm_signal", "unshard",
+    "ag_gemm", "gemm_ar", "gemm_rs",
+    "reblock", "unshard_cache",
     "Engine", "GroupGemmConfig", "KVCache", "LibraryBackend", "MoEMLP",
     "MoEParams", "ModelConfig", "PagePoolExhausted", "PagedKVCache",
     "QWEN3_30B_A3B", "QWEN3_8B", "Qwen3", "QwenParams", "apply_rope",

@@ -42,6 +42,48 @@ def stacked_shard(x, mesh: Mesh, axis, wire_dtype: str = "bf16") -> tuple[int, .
     return tuple(x.shape[k:])
 
 
+# (operand dtype, output dtype) pairs the overlapped GEMMs are built for
+GEMM_DTYPES = ((torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+               (torch.float32, torch.float32))
+
+
+def gemm_operands(a, b, mesh: Mesh, axis, out_dtype, wire_dtype: str = "bf16"):
+    """(a's shard shape, b's shard shape, the output dtype) of an
+    overlapped GEMM's rank-stacked operands; raises on what
+    :func:`stacked_shard` refuses, operands that are not 2-D shards of one
+    dtype, inner dims that differ, and a dtype pair the kernels are not
+    built for."""
+    a_sh = stacked_shard(a, mesh, axis, wire_dtype)
+    b_sh = stacked_shard(b, mesh, axis)
+    if len(a_sh) != 2 or len(b_sh) != 2:
+        raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} must be rank-stacked "
+                         f"2-D shards on the mesh {mesh.shape}")
+    if a_sh[1] != b_sh[0]:
+        raise ValueError(f"inner dims mismatch: shards {a_sh} @ {b_sh}")
+    out_dtype = out_dtype or a.dtype
+    if a.dtype != b.dtype or (a.dtype, out_dtype) not in GEMM_DTYPES:
+        raise TypeError(f"operands {a.dtype}, {b.dtype} -> {out_dtype}: the overlapped GEMMs "
+                        f"take {[(str(x)[6:], str(y)[6:]) for x, y in GEMM_DTYPES]}")
+    return a_sh, b_sh, out_dtype
+
+
+def check_config(config) -> None:
+    """An overlapped GEMM's ``config``: None only.  Each dtype's kernel is
+    built for one tile (``csrc/gemm_tile.cuh``); the tuner's tiles are not
+    wired to these kernels yet."""
+    if config is not None:
+        raise NotImplementedError(
+            f"config={config!r}: the overlapped GEMMs run the one tile each dtype's "
+            f"kernel is built for; pass config=None")
+
+
+def check_tile_dims(k: int, n_cols: int) -> None:
+    """The overlapped GEMMs' tiles read 16-byte row pieces: K and the
+    product's columns must be multiples of 8 (``csrc/gemm_tile.cuh``)."""
+    if k % 8 or n_cols % 8:
+        raise ValueError(f"K = {k} and N = {n_cols} must be multiples of 8")
+
+
 def check_reduce_dtype(x: torch.Tensor, out_dtype) -> None:
     for what, dt in (("x", x.dtype), ("out_dtype", out_dtype)):
         if dt not in symm.DTYPE_CODES:
@@ -53,21 +95,28 @@ def _programs(program, team: Team) -> tuple[list, ...]:
     return tuple(program(team, r) for r in range(team.size))
 
 
-def walk_mesh(program, team: Team, mesh: Mesh, x: torch.Tensor, out: torch.Tensor,
-              chunk_elems: int, landing: dict[str, int]) -> None:
-    """The plain version: every team's programs walked on chunk views of
-    ``x`` and ``out`` (and fresh landing slots, ``landing[name]`` entries
-    of ``chunk_elems`` each)."""
-    xs, outs = x.reshape(mesh.size, -1), out.reshape(mesh.size, -1)
+def walk_teams(program, team: Team, bufs_of) -> None:
+    """The plain version: every team's programs walked on the buffers
+    ``bufs_of(slot)`` gives each mesh slot (``comm/ring.py::walk``)."""
     programs = _programs(program, team)
     for group in team.groups():
-        bufs = []
-        for s in group:
-            b = {"x": list(xs[s].split(chunk_elems)), "out": list(outs[s].split(chunk_elems))}
-            for name, entries in landing.items():
-                b[name] = list(torch.empty(entries, chunk_elems, dtype=x.dtype, device=x.device))
-            bufs.append(b)
-        walk(list(programs), bufs)
+        walk(list(programs), [bufs_of(s) for s in group])
+
+
+def walk_mesh(program, team: Team, mesh: Mesh, x: torch.Tensor, out: torch.Tensor,
+              chunk_elems: int, landing: dict[str, int]) -> None:
+    """The plain version of a collective: every team's programs walked on
+    chunk views of ``x`` and ``out`` (and fresh landing slots,
+    ``landing[name]`` entries of ``chunk_elems`` each)."""
+    xs, outs = x.reshape(mesh.size, -1), out.reshape(mesh.size, -1)
+
+    def bufs_of(s):
+        b = {"x": list(xs[s].split(chunk_elems)), "out": list(outs[s].split(chunk_elems))}
+        for name, entries in landing.items():
+            b[name] = list(torch.empty(entries, chunk_elems, dtype=x.dtype, device=x.device))
+        return b
+
+    walk_teams(program, team, bufs_of)
 
 
 def launch(entry: str, family: str, team: Team, mesh: Mesh, x: torch.Tensor,
@@ -81,3 +130,23 @@ def launch(entry: str, family: str, team: Team, mesh: Mesh, x: torch.Tensor,
                           chunk_elems=chunk_elems, method=method, stall_rank=stall_rank)
     fn = getattr(build.library(), entry)
     build.check(fn(ctypes.byref(args), torch.cuda.current_stream(x.device).cuda_stream), entry)
+
+
+def launch_gemm(entry: str, family: str, team: Team, mesh: Mesh, *, x: torch.Tensor,
+                out: torch.Tensor, land: symm.SymmetricBuffer | None, a: torch.Tensor | None,
+                b: torch.Tensor, y: torch.Tensor, chunk_elems: int, m_loc: int, k: int,
+                n_cols: int, out_dtype, extra: tuple = (), stall_rank: int = -1) -> None:
+    """Launch an overlapped GEMM's C entry point (csrc/overlap_gemm.cu) on
+    the current stream over every team of the mesh: ``x``/``out``/``land``
+    are the ring's buffers, ``a``/``b`` the operands and ``y`` the GEMM's
+    output, all rank-stacked; ``extra`` are the entry's arguments before the
+    stream.  Raises on a refused launch."""
+    coll = symm.coll_args(team, mesh, x=x, out=out, land=land,
+                          pad=symm.signal_pad(mesh, team.axis, family),
+                          chunk_elems=chunk_elems, method=0, stall_rank=stall_rank)
+    coll.dtype = symm.DTYPE_CODES[b.dtype]
+    coll.out_dtype = symm.DTYPE_CODES[out_dtype]
+    args = symm.gemm_args(coll, mesh, a=a, b=b, y=y, m_loc=m_loc, k=k, n_cols=n_cols)
+    fn = getattr(build.library(), entry)
+    build.check(fn(ctypes.byref(args), *extra, torch.cuda.current_stream(b.device).cuda_stream),
+                entry)

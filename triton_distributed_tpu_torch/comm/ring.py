@@ -4,10 +4,12 @@ a schedule on tensors.
 Counterpart of ``triton_distributed_tpu/comm/ring.py``.  Each phase appends
 one rank's steps to its program (``lang/primitives.py``'s ops): which chunk
 goes to which rank's which offset or slot at which step, and which flag
-gates it.  The device counterparts are in ``csrc/ring.cuh``, where the
-overlapped GEMMs will reuse them; :func:`walk` runs the programs of a
-team's ranks on tensors, step by step, as the plain versions of the
-collectives.  A chunk is a dim-0 block of ``m`` rows (:func:`chunk`).
+gates it.  The device counterparts are in ``csrc/ring.cuh``, which the
+collectives (K9-K11) and the overlapped GEMMs (K12-K14) run; the GEMMs' own
+step is a hook of the phase (``consume`` after an AllGather chunk is
+forwarded, ``produce`` before a ReduceScatter chunk is read).  :func:`walk`
+runs the programs of a team's ranks on tensors, step by step, as the plain
+versions.  A chunk is a dim-0 block of ``m`` rows (:func:`chunk`).
 """
 
 from __future__ import annotations
@@ -16,8 +18,8 @@ import collections
 
 import torch
 
-from ..lang.primitives import (Notify, Put, Reduce, Team, Wait, collective_prologue, notify,
-                               put, wait)
+from ..lang.primitives import (Matmul, Notify, Put, Reduce, Team, Wait, collective_prologue,
+                               notify, put, wait)
 
 
 def chunk(idx: int, m: int) -> tuple[int, int]:
@@ -39,69 +41,95 @@ def push_phase(prog: list, team: Team, me: int, dst: str) -> None:
         wait(prog, ("recv", (me + n - off) % n))
 
 
-def ag_ring_phase(prog: list, team: Team, me: int) -> None:
-    """Unidirectional AllGather ring over out-chunks already at their final
-    offsets (out-chunk ``me`` holds this rank's part): each of the n - 1
+def ag_ring_phase(prog: list, team: Team, me: int, buf: str = "out",
+                  consume=None) -> None:
+    """Unidirectional AllGather ring over chunks of ``buf`` already at their
+    final offsets (chunk ``me`` holds this rank's part): each of the n - 1
     steps forwards the chunk received last step (step 0: one's own) to the
     right neighbour and waits for the incoming one (JAX ``ag_ring_phase``;
-    its send drain ``ag_ring_drain`` has no counterpart here)."""
+    its send drain ``ag_ring_drain`` has no counterpart here).  With
+    ``consume`` (AG-GEMM, ``ag_gemm.py:97-117``), ``consume(r)`` appends the
+    use of chunk r right after it is forwarded: one's own first, then each
+    arrival in turn."""
     n = team.size
     _, right = team.neighbor_ranks(me)
     for step in range(n - 1):
         c_send = (me + n - step) % n
-        put(prog, "out", c_send, right, [("out", c_send)], ("recv", c_send))
+        put(prog, buf, c_send, right, [(buf, c_send)], ("recv", c_send))
+        if consume is not None:
+            consume(c_send)
         wait(prog, ("recv", (me + n - step - 1) % n))
+    if consume is not None:
+        consume((me + 1) % n)
 
 
-def bidir_ring_phase(prog: list, team: Team, me: int) -> None:
-    """Bidirectional AllGather ring over out-chunks at their final offsets:
-    ceil((n-1)/2) chunks travel clockwise, floor((n-1)/2) counter-clockwise;
-    each is forwarded right after its arrival (JAX ``bidir_ring_phase``
-    with ``consume=None``)."""
+def bidir_ring_phase(prog: list, team: Team, me: int, buf: str = "out",
+                     consume=None) -> None:
+    """Bidirectional AllGather ring over chunks of ``buf`` at their final
+    offsets: ceil((n-1)/2) chunks travel clockwise, floor((n-1)/2)
+    counter-clockwise; each is forwarded right after its arrival (JAX
+    ``bidir_ring_phase``), then consumed when ``consume`` is given (one's
+    own chunk after its two sends: the arrival order me, me - 1, me + 1,
+    me - 2, ...)."""
     n = team.size
     left, right = team.neighbor_ranks(me)
     n_cw, n_ccw = n // 2, (n - 1) // 2
     if n_cw >= 1:
-        put(prog, "out", me, right, [("out", me)], ("recv", me))
+        put(prog, buf, me, right, [(buf, me)], ("recv", me))
     if n_ccw >= 1:
-        put(prog, "out", me, left, [("out", me)], ("recv", me))
+        put(prog, buf, me, left, [(buf, me)], ("recv", me))
+    if consume is not None:
+        consume(me)
     for step in range(max(n_cw, n_ccw)):
         if step < n_cw:
             r = (me + n - step - 1) % n
             wait(prog, ("recv", r))
             if step + 1 < n_cw:
-                put(prog, "out", r, right, [("out", r)], ("recv", r))
+                put(prog, buf, r, right, [(buf, r)], ("recv", r))
+            if consume is not None:
+                consume(r)
         if step < n_ccw:
             r = (me + step + 1) % n
             wait(prog, ("recv", r))
             if step + 1 < n_ccw:
-                put(prog, "out", r, left, [("out", r)], ("recv", r))
+                put(prog, buf, r, left, [(buf, r)], ("recv", r))
+            if consume is not None:
+                consume(r)
 
 
 def rs_ring_phase(prog: list, team: Team, me: int, last_dst: tuple[str, int],
-                  last_f32: bool) -> None:
+                  last_f32: bool, local: str = "x", produce=None) -> None:
     """The ReduceScatter ring (JAX ``reduce_scatter.py:75-110``): chunk j's
     partial sum starts at rank j + 1 and travels right through the two
-    receive slots of each rank, every hop adding the local chunk; the last
-    hop (at rank j itself) lands in ``last_dst``, in the input dtype or, with
-    ``last_f32``, as an f32 sum rounded to the output dtype (two-shot
-    AllReduce).  Each hop's add is fused into its put, in JAX's order and
-    rounding (received partial + local chunk).  A slot is reused only after
-    the right neighbour's ACK credit for it; pair with :func:`rs_ack_drain`."""
+    receive slots of each rank, every hop adding the local chunk (entry j of
+    ``local``); the last hop (at rank j itself) lands in ``last_dst``, in
+    the input dtype or, with ``last_f32``, as an f32 sum rounded to the
+    output dtype (two-shot AllReduce).  Each hop's add is fused into its put,
+    in JAX's order and rounding (received partial + local chunk).  A slot is
+    reused only after the right neighbour's ACK credit for it; pair with
+    :func:`rs_ack_drain`.  With ``produce`` (GEMM-RS, ``gemm_rs.py:89-123``),
+    ``produce(j)`` appends the making of local chunk j before the step that
+    reads it: the chunk that travels farthest first, and each later one
+    before its arrival wait, so the product hides the hop in flight."""
     n = team.size
     left, right = team.neighbor_ranks(me)
-    put(prog, "recv", 0, right, [("x", (me + n - 1) % n)], ("rs_recv", 0))
+    j0 = (me + n - 1) % n
+    if produce is not None:
+        produce(j0)
+    put(prog, "recv", 0, right, [(local, j0)], ("rs_recv", 0))
     for s in range(1, n):
         j = (me + n - s - 1) % n
         slot_in = (s - 1) % 2
+        if produce is not None:
+            produce(j)
         wait(prog, ("rs_recv", slot_in))
         if s == n - 1:
-            prog.append(Reduce(last_dst, (("recv", slot_in), ("x", j)), last_f32))
+            prog.append(Reduce(last_dst, (("recv", slot_in), (local, j)), last_f32))
         else:
             slot_out = s % 2
             if s >= 2:
                 wait(prog, ("ack", slot_out))
-            put(prog, "recv", slot_out, right, [("recv", slot_in), ("x", j)],
+            put(prog, "recv", slot_out, right, [("recv", slot_in), (local, j)],
                 ("rs_recv", slot_out))
         notify(prog, ("ack", slot_in), left)
 
@@ -122,6 +150,11 @@ def rs_ack_drain(prog: list, n: int) -> None:
 
 
 def _apply(op, r: int, bufs: list[dict]) -> None:
+    if isinstance(op, Matmul):
+        # the f32 product of the operands, rounded once by the copy
+        a, b = bufs[r][op.src[0]][op.src[1]], bufs[r]["b"][0]
+        bufs[r][op.dst[0]][op.dst[1]].copy_(torch.matmul(a.float(), b.float()))
+        return
     src = [bufs[r][b][i] for b, i in op.srcs]
     if isinstance(op, Put):
         bufs[op.dst_rank][op.dst][op.index].copy_(
@@ -137,7 +170,8 @@ def _apply(op, r: int, bufs: list[dict]) -> None:
 
 def walk(programs: list[list], bufs: list[dict[str, list[torch.Tensor]]]) -> None:
     """Run the programs of one team's ranks on tensors: ``bufs[r][name][i]``
-    is entry ``i`` (a chunk or a slot) of rank ``r``'s buffer ``name``.
+    is entry ``i`` (a chunk or a slot) of rank ``r``'s buffer ``name``
+    (``bufs[r]["b"][0]``: the rank's B operand of a :class:`Matmul`).
 
     Each rank runs until a :class:`Wait` finds its flag short, then the next
     rank runs; a round in which no rank moves is a deadlock and raises, as

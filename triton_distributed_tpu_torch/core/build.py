@@ -54,6 +54,10 @@ SIGNATURES = {
     "tdt_reduce_scatter": [_P, _P],
     "tdt_all_reduce": [_P, _P],
     "tdt_coll_wait_record": [_P],
+    # the overlapped GEMMs take a pointer to their GemmArgs (core/symm.py)
+    "tdt_ag_gemm": [_P, _I, _P],
+    "tdt_gemm_rs": [_P, _P],
+    "tdt_gemm_ar": [_P, _P],
 }
 
 

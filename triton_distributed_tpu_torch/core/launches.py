@@ -26,6 +26,9 @@ KERNELS = (
     "all_gather",                    # K9, form (method, n, shard shape)
     "reduce_scatter",                # K10, form ("ring", n, shard shape)
     "all_reduce",                    # K11, form (method, n, shard shape)
+    "ag_gemm",                       # K12, form (ring, n, A shard, B shard)
+    "gemm_rs",                       # K13, form ("ring", n, A shard, B shard)
+    "gemm_ar",                       # K14, form ("ring", n, A shard, B shard)
 )
 
 _counts = dict.fromkeys(KERNELS, 0)

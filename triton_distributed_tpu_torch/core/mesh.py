@@ -15,6 +15,13 @@ mesh order, then the rank's shard (the rank-stacked layout).  A
 and the JAX package's global layout, where dim 0 is cut into rank-major
 shards.
 
+A replicated tensor (JAX ``P()``: a model's embedding, lm_head and norms,
+the decode step's activations) keeps **one** copy on a mesh of co-located
+ranks, which every rank reads: it is held unstacked, and PyTorch's
+broadcasting reads it against rank-stacked operands (an (M, K) activation
+times (n, K, C) rank-stacked weights is every rank's (M, C) product).  Four
+copies of Qwen3-8B's embedding and lm_head would cost 7.5 GB more at tp = 4.
+
 A mesh holds at most :data:`MAX_RANKS` ranks: the kernels take the peer
 table by value, one pointer per rank.
 """
@@ -116,3 +123,4 @@ def unshard(mesh: Mesh, y: torch.Tensor, axis: str = TP_AXIS) -> torch.Tensor:
     d = _axis_dim(mesh, axis)
     y = y.movedim(d, k - 1)
     return y.reshape(*y.shape[:k - 1], y.shape[k - 1] * y.shape[k], *y.shape[k + 1:])
+

@@ -14,10 +14,10 @@ Signal pads hold the flags of ``csrc/dl.cuh``: one row of
 persists per (team, family) and is zero at rest: every collective takes
 every credit it is given before it ends, so the host never clears a pad
 between calls.  Landing slots (the ReduceScatter ring's receive slots, the
-one-shot AllReduce's per-source slots) are views of one grow-only buffer per
-(team, family, dtype), as large as the largest call so far, so a server's
-varying row counts hold no more than that; outputs are fresh tensors per
-call.  Pads and slots are kept per CUDA stream as well, so collectives on
+one-shot AllReduce's per-source slots, the GEMM-RS and GEMM-AR chunk
+products) are views of one grow-only buffer per (team, family, dtype), as
+large as the largest call so far, so a server's varying row counts hold no
+more than that; outputs are fresh tensors per call.  Pads and slots are kept per CUDA stream as well, so collectives on
 two streams never share them.
 """
 
@@ -142,11 +142,29 @@ class CollArgs(ctypes.Structure):
     ]
 
 
+class GemmArgs(ctypes.Structure):
+    """The overlapped GEMMs' launch arguments (csrc/overlap_gemm.cu
+    GemmArgs): the ring's :class:`CollArgs`, the peer tables of the A and B
+    operands and of the GEMM's output ``y``, and one chunk's product shape
+    (m_loc, k) @ (k, n_cols)."""
+
+    _fields_ = [("c", CollArgs), ("a", _Peers), ("b", _Peers), ("y", _Peers),
+                ("m_loc", ctypes.c_int), ("k", ctypes.c_int), ("n_cols", ctypes.c_int)]
+
+
 def _peers(ptrs) -> _Peers:
     p = _Peers()
     for i, v in enumerate(ptrs or ()):
         p.p[i] = v
     return p
+
+
+def gemm_args(coll: CollArgs, mesh: Mesh, *, a: torch.Tensor | None, b: torch.Tensor,
+              y: torch.Tensor, m_loc: int, k: int, n_cols: int) -> GemmArgs:
+    """:class:`GemmArgs` around ``coll`` with the peer tables of the
+    rank-stacked ``a`` (None: unused), ``b`` and ``y``."""
+    return GemmArgs(coll, _peers(slot_ptrs(a, mesh) if a is not None else None),
+                    _peers(slot_ptrs(b, mesh)), _peers(slot_ptrs(y, mesh)), m_loc, k, n_cols)
 
 
 def coll_args(team: Team, mesh: Mesh, *, x: torch.Tensor, out: torch.Tensor,

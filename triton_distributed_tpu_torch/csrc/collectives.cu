@@ -96,53 +96,18 @@ __global__ void __launch_bounds__(kThreads)
 // ---------------------------------------------------------------------------
 // host side
 
-volatile int* g_record = nullptr;  // mapped host memory, device-visible
-int* g_record_dev = nullptr;
-
-cudaError_t ensure_record() {
-  if (g_record) return cudaSuccess;
-  void* h = nullptr;
-  cudaError_t e = cudaHostAlloc(&h, 8 * sizeof(int), cudaHostAllocMapped);
-  if (e != cudaSuccess) return e;
-  for (int i = 0; i < 8; ++i) static_cast<int*>(h)[i] = 0;
-  e = cudaHostGetDevicePointer(reinterpret_cast<void**>(&g_record_dev), h, 0);
-  if (e != cudaSuccess) return e;
-  g_record = static_cast<volatile int*>(h);
-  return cudaSuccess;
-}
-
 bool aligned16(const Peers& p, int ranks) {
   for (int s = 0; s < ranks; ++s)
     if (reinterpret_cast<uintptr_t>(p.p[s]) % 16) return false;
   return true;
 }
 
-// One cooperative launch of `kernel` over (lanes, n * groups): lanes as many
-// as the chunk's units ask for, at most what is co-resident.
+// One cooperative launch of `kernel`: lanes as many as the chunk's units ask
+// for, at most what is co-resident.
 template <typename K>
 cudaError_t launch(K kernel, CollArgs* args, long long units, cudaStream_t st) {
-  cudaError_t e = ensure_record();
-  if (e != cudaSuccess) return e;
-  const int ranks = args->n * args->groups;
-  if (args->n < 1 || ranks > kMaxRanks) return cudaErrorInvalidValue;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0)) !=
-      cudaSuccess)
-    return e;
-  long long lanes = (units + kMinUnitsPerLane - 1) / kMinUnitsPerLane;
-  lanes = min(lanes, static_cast<long long>(per_sm) * sms / ranks);
-  lanes = max(1LL, min(lanes, static_cast<long long>(kMaxLanes)));
-  if (lanes * ranks > static_cast<long long>(per_sm) * sms)
-    return cudaErrorCooperativeLaunchTooLarge;
-  args->record = g_record_dev;
-  CollArgs copy = *args;
-  void* params[] = {&copy};
-  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
-                                     dim3(static_cast<unsigned>(lanes), ranks), dim3(kThreads),
-                                     params, 0, st);
+  return cooperative_launch(kernel, args, args, (units + kMinUnitsPerLane - 1) / kMinUnitsPerLane,
+                            0, st);
 }
 
 template <typename U>
@@ -178,6 +143,24 @@ bool vec_ok(const CollArgs* a, int in_size, int out_size, bool land) {
 int elem_size(int dtype) { return dtype == 0 ? 4 : 2; }
 
 }  // namespace
+
+volatile int* g_record = nullptr;  // mapped host memory, device-visible
+int* g_record_dev = nullptr;
+
+cudaError_t record_words(int** dev) {
+  if (!g_record) {
+    void* h = nullptr;
+    cudaError_t e = cudaHostAlloc(&h, 8 * sizeof(int), cudaHostAllocMapped);
+    if (e != cudaSuccess) return e;
+    for (int i = 0; i < 8; ++i) static_cast<int*>(h)[i] = 0;
+    e = cudaHostGetDevicePointer(reinterpret_cast<void**>(&g_record_dev), h, 0);
+    if (e != cudaSuccess) return e;
+    g_record = static_cast<volatile int*>(h);
+  }
+  *dev = g_record_dev;
+  return cudaSuccess;
+}
+
 }  // namespace dl
 }  // namespace tdt
 

@@ -51,6 +51,10 @@ constexpr int kBarrier = 0;
 constexpr int kRsRecv = 1;   // + slot (0, 1): the ReduceScatter ring's arrivals
 constexpr int kAck = 3;      // + slot: consumption credits of those slots
 constexpr int kRecv = 8;     // + chunk or one-shot slot: arrivals
+// Rank-wide counters, in lane 0's row only (lanes_join): the lanes that hold
+// their part of a chunk, and the lanes that are past waiting for all of them
+constexpr int kReady = 16;   // + chunk
+constexpr int kDone = 24;    // + chunk
 
 struct Peers {
   char* p[kMaxRanks];  // base address, per mesh slot
@@ -119,7 +123,7 @@ struct Rank {
   }
 };
 
-__device__ __noinline__ void timed_out(const Rank& c, int id, int seen, int want) {
+static __device__ __noinline__ void timed_out(const Rank& c, int id, int seen, int want) {
   if (atomicCAS(&g_timeout_claimed, 0, 1) == 0) {
     volatile int* rec = c.a.record;
     rec[1] = c.me;
@@ -197,6 +201,38 @@ __device__ __forceinline__ void collective_prologue(const Rank& c, bool neighbor
   else barrier_all(c);
 }
 
+// Join of every lane of this rank on `chunk` (the overlapped GEMMs): a chunk
+// moves in lane slices but a GEMM tile reads whole rows of it, and a tile's
+// output feeds every lane's slice, so a counting wait (one consumer) cannot
+// say "all of the chunk is here".  Each lane, once its part is written (its
+// stores fenced as a put's), adds one to the rank's ready[chunk] and waits
+// until all gridDim.x lanes have; the last lane past the wait (done[chunk]
+// reaches gridDim.x) clears both, so the pad is at rest after the launch.
+// Each chunk is joined once a launch, so no lane can add to a counter after
+// it is cleared.  Bounded like wait().
+__device__ __forceinline__ void lanes_join(const Rank& c, int chunk) {
+  put_fence();
+  if (threadIdx.x == 0) {
+    int* row = reinterpret_cast<int*>(c.a.flags.p[c.slot(c.me)]);
+    int* ready = row + kReady + chunk;
+    const int want = static_cast<int>(gridDim.x);
+    red_release_add(ready, 1);
+    int seen = ld_acquire(ready);
+    if (seen < want) {
+      const unsigned long long t0 = globaltimer();
+      while ((seen = ld_acquire(ready)) < want) {
+        if (globaltimer() - t0 > kWaitNs) timed_out(c, kReady + chunk, seen, want);
+        __nanosleep(32);
+      }
+    }
+    if (atomicAdd_system(row + kDone + chunk, 1) == want - 1) {
+      atomicExch_system(ready, 0);
+      atomicExch_system(row + kDone + chunk, 0);
+    }
+  }
+  __syncthreads();
+}
+
 // ---------------------------------------------------------------------------
 // data movement over a lane's slice, in units of U; loads through L2 only
 // (ld.global.cg): the data was written by another block of the launch.
@@ -222,6 +258,46 @@ __device__ __forceinline__ void copy_units(U* const* dst, int ndst, const U* src
     const U v = ldcg(src + i);
     for (int k = 0; k < ndst; ++k) dst[k][i] = v;
   }
+}
+
+// ---------------------------------------------------------------------------
+// host side: the cooperative launch every collective kernel makes
+
+// The device address of the mapped host words a wait that ran out writes
+// (allocated at the first call; collectives.cu).
+cudaError_t record_words(int** dev);
+
+// One cooperative launch of `kernel(*args)` over (lanes, n * groups) blocks
+// of kThreads with `smem` bytes of dynamic shared memory: `want` lanes, at
+// most what the card holds at once (every block must be resident: blocks
+// spin on each other's flags).  `coll` is the CollArgs inside `args`.
+template <typename K, typename Args>
+cudaError_t cooperative_launch(K kernel, Args* args, CollArgs* coll, long long want,
+                               int smem, cudaStream_t st) {
+  cudaError_t e = record_words(&coll->record);
+  if (e != cudaSuccess) return e;
+  const int ranks = coll->n * coll->groups;
+  if (coll->n < 1 || ranks > kMaxRanks) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024 &&
+      (e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
+          cudaSuccess)
+    return e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) !=
+      cudaSuccess)
+    return e;
+  long long lanes = min(want, static_cast<long long>(per_sm) * sms / ranks);
+  lanes = max(1LL, min(lanes, static_cast<long long>(kMaxLanes)));
+  if (lanes * ranks > static_cast<long long>(per_sm) * sms)
+    return cudaErrorCooperativeLaunchTooLarge;
+  Args copy = *args;
+  void* params[] = {&copy};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                     dim3(static_cast<unsigned>(lanes), ranks), dim3(kThreads),
+                                     params, smem, st);
 }
 
 }  // namespace dl

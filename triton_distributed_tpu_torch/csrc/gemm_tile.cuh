@@ -9,7 +9,14 @@
 // so that every 16-byte chunk of a row lies wholly inside or outside the
 // matrix.  Rows of A past M, columns of B past N and k past K are zero-filled
 // in shared memory without a read, so partial tiles on every edge are
-// allowed; the caller stores only the rows and columns inside the matrix.
+// allowed; store_acc writes only the rows and columns inside the matrix.
+// A block that runs several tiles in turn (the overlapped GEMMs' lanes)
+// syncs its threads between them: the next tile's first loads reuse the
+// buffers the last one read.
+//
+// f32 operands take f32_tile instead: scalar FMA in full f32 (no TF32), a
+// 64 x 64 tile of 256 threads, as the JAX contract of true f32 accumulation
+// asks; it serves parity, not speed.
 //
 // Operand tiles stream through a ring of STAGES shared-memory buffers with
 // cp.async (tile kt + STAGES - 1 is in flight while tile kt is computed);
@@ -17,6 +24,8 @@
 // distinct banks.  A fragments come by ldmatrix, B fragments by
 // ldmatrix.trans from the (K, N) row-major tile.  Each warp owns a WM x WN
 // piece of the block tile: MT x NT m16n8k16 products per 16-deep k step.
+// An output element's sum runs over k in the same 16-deep steps whatever
+// the tile and warp grid, so every tile shape gives the same bits.
 #pragma once
 
 #include "ptx.cuh"
@@ -121,6 +130,123 @@ __device__ __forceinline__ void mainloop(const bf16* __restrict__ A,
     }
   }
   cp_async_wait<0>();
+}
+
+template <typename OutT> struct Pair;
+template <> struct Pair<float> {
+  __device__ static void store(float* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  }
+};
+template <> struct Pair<bf16> {
+  __device__ static void store(bf16* p, float a, float b) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  }
+};
+
+// The tile's epilogue: the fragments of mainloop rounded once to OutT into
+// C (row-major, M x N), rows and columns past the matrix left out.  N is a
+// multiple of 8: a column pair lies wholly inside the matrix or past it.
+template <class L, typename OutT>
+__device__ __forceinline__ void store_acc(const float (&acc)[L::MT][L::NT][4],
+                                          OutT* __restrict__ C, int M, int N,
+                                          int m0, int n0) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp / L::WARPS_N, wn = warp % L::WARPS_N;
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int i = 0; i < L::MT; ++i) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = m0 + wm * L::WM + i * 16 + g + half * 8;
+      if (row >= M) continue;
+#pragma unroll
+      for (int j = 0; j < L::NT; ++j) {
+        const int col = n0 + wn * L::WN + j * 8 + 2 * t4;
+        if (col < N)
+          Pair<OutT>::store(C + static_cast<size_t>(row) * N + col,
+                            acc[i][j][2 * half], acc[i][j][2 * half + 1]);
+      }
+    }
+  }
+}
+
+// One bf16 tile of C = A @ B at (m0, n0): zeroed fragments, the main loop,
+// the epilogue.  Syncs first, so a block may run tiles back to back.
+template <class L, typename OutT>
+__device__ __forceinline__ void bf16_tile(const bf16* __restrict__ A,
+                                          const bf16* __restrict__ B,
+                                          OutT* __restrict__ C, int M, int N,
+                                          int K, int m0, int n0, bf16* smem) {
+  float acc[L::MT][L::NT][4];
+#pragma unroll
+  for (int i = 0; i < L::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < L::NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  __syncthreads();
+  mainloop<L>(A, B, M, N, K, m0, n0, smem, acc);
+  store_acc<L, OutT>(acc, C, M, N, m0, n0);
+}
+
+// f32: 4 x 4 outputs a thread, A staged transposed so a thread's four rows
+// are one broadcast read; every k step ends in a sync, so tiles may run
+// back to back.
+constexpr int kF32BM = 64, kF32BN = 64, kF32BK = 16, kF32Threads = 256;
+
+template <typename OutT>
+__device__ __forceinline__ void f32_tile(const float* __restrict__ A,
+                                         const float* __restrict__ B,
+                                         OutT* __restrict__ C, int M, int N,
+                                         int K, int m0, int n0) {
+  __shared__ __align__(16) float as[kF32BK][kF32BM + 4];
+  __shared__ __align__(16) float bs[kF32BK][kF32BN];
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < K; k0 += kF32BK) {
+#pragma unroll
+    for (int it = 0; it < kF32BM * kF32BK / kF32Threads; ++it) {
+      const int i = tid + it * kF32Threads;
+      const int m = i / kF32BK, k = i % kF32BK;
+      const bool in = m0 + m < M && k0 + k < K;
+      // through L2 only: A may have been written by another block of the
+      // launch (K12's gathered chunks)
+      as[k][m] = in ? __ldcg(A + static_cast<size_t>(m0 + m) * K + k0 + k) : 0.f;
+    }
+    {
+      const int r = tid / 16, c = (tid % 16) * 4;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (k0 + r < K && n0 + c < N)
+        v = *reinterpret_cast<const float4*>(B + static_cast<size_t>(k0 + r) * N + n0 + c);
+      *reinterpret_cast<float4*>(&bs[r][c]) = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kF32BK; ++k) {
+      const float4 b = *reinterpret_cast<const float4*>(&bs[k][tx * 4]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float a = as[k][ty + 16 * i];
+        acc[i][0] = fmaf(a, b.x, acc[i][0]);
+        acc[i][1] = fmaf(a, b.y, acc[i][1]);
+        acc[i][2] = fmaf(a, b.z, acc[i][2]);
+        acc[i][3] = fmaf(a, b.w, acc[i][3]);
+      }
+    }
+    __syncthreads();
+  }
+  const int col = n0 + tx * 4;
+  if (col < N) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = m0 + ty + 16 * i;
+      if (row >= M) continue;
+      OutT* p = C + static_cast<size_t>(row) * N + col;
+      Pair<OutT>::store(p, acc[i][0], acc[i][1]);
+      Pair<OutT>::store(p + 2, acc[i][2], acc[i][3]);
+    }
+  }
 }
 
 }  // namespace gemm

@@ -49,115 +49,32 @@ __device__ __forceinline__ void tile_of(int b, int tiles_m, int tiles_n,
   tn = in_group / rows;
 }
 
-template <typename OutT> struct Pair;
-template <> struct Pair<float> {
-  __device__ static void store(float* p, float a, float b) {
-    *reinterpret_cast<float2*>(p) = make_float2(a, b);
-  }
-};
-template <> struct Pair<bf16> {
-  __device__ static void store(bf16* p, float a, float b) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-  }
-};
-
 template <class L, typename OutT>
 __global__ void __launch_bounds__(L::THREADS)
 matmul_bf16(const bf16* __restrict__ A, const bf16* __restrict__ B,
             OutT* __restrict__ C, int M, int N, int K) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
   const int tiles_m = (M + L::BM - 1) / L::BM, tiles_n = (N + L::BN - 1) / L::BN;
   int tm, tn;
   tile_of(blockIdx.x, tiles_m, tiles_n, tm, tn);
-  const int m0 = tm * L::BM, n0 = tn * L::BN;
-
-  float acc[L::MT][L::NT][4];
-#pragma unroll
-  for (int i = 0; i < L::MT; ++i)
-#pragma unroll
-    for (int j = 0; j < L::NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-  gemm::mainloop<L>(A, B, M, N, K, m0, n0, smem, acc);
-
-  // N is a multiple of 8: a column pair is wholly inside the matrix or past it
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp / L::WARPS_N, wn = warp % L::WARPS_N;
-  const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int i = 0; i < L::MT; ++i) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = m0 + wm * L::WM + i * 16 + g + half * 8;
-      if (row >= M) continue;
-#pragma unroll
-      for (int j = 0; j < L::NT; ++j) {
-        const int col = n0 + wn * L::WN + j * 8 + 2 * t4;
-        if (col < N)
-          Pair<OutT>::store(C + static_cast<size_t>(row) * N + col,
-                            acc[i][j][2 * half], acc[i][j][2 * half + 1]);
-      }
-    }
-  }
+  gemm::bf16_tile<L, OutT>(A, B, C, M, N, K, tm * L::BM, tn * L::BN,
+                           reinterpret_cast<bf16*>(smem_raw));
 }
 
-// f32: scalar FMA in full f32 (no TF32), a 64 x 64 tile, 4 x 4 outputs a
-// thread, A staged transposed so a thread's four rows are one broadcast read.
-constexpr int kF32BM = 64, kF32BN = 64, kF32BK = 16, kF32Threads = 256;
+// f32: scalar FMA in full f32 (no TF32), gemm_tile.cuh::f32_tile.
+using gemm::kF32BK;
+using gemm::kF32BM;
+using gemm::kF32BN;
+using gemm::kF32Threads;
 
 template <typename OutT>
 __global__ void __launch_bounds__(kF32Threads)
 matmul_f32(const float* __restrict__ A, const float* __restrict__ B,
            OutT* __restrict__ C, int M, int N, int K) {
-  __shared__ __align__(16) float as[kF32BK][kF32BM + 4];
-  __shared__ __align__(16) float bs[kF32BK][kF32BN];
   const int tiles_m = (M + kF32BM - 1) / kF32BM, tiles_n = (N + kF32BN - 1) / kF32BN;
   int tm, tn;
   tile_of(blockIdx.x, tiles_m, tiles_n, tm, tn);
-  const int m0 = tm * kF32BM, n0 = tn * kF32BN;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += kF32BK) {
-#pragma unroll
-    for (int it = 0; it < kF32BM * kF32BK / kF32Threads; ++it) {
-      const int i = tid + it * kF32Threads;
-      const int m = i / kF32BK, k = i % kF32BK;
-      const bool in = m0 + m < M && k0 + k < K;
-      as[k][m] = in ? A[static_cast<size_t>(m0 + m) * K + k0 + k] : 0.f;
-    }
-    {
-      const int r = tid / 16, c = (tid % 16) * 4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + r < K && n0 + c < N)
-        v = *reinterpret_cast<const float4*>(B + static_cast<size_t>(k0 + r) * N + n0 + c);
-      *reinterpret_cast<float4*>(&bs[r][c]) = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kF32BK; ++k) {
-      const float4 b = *reinterpret_cast<const float4*>(&bs[k][tx * 4]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float a = as[k][ty + 16 * i];
-        acc[i][0] = fmaf(a, b.x, acc[i][0]);
-        acc[i][1] = fmaf(a, b.y, acc[i][1]);
-        acc[i][2] = fmaf(a, b.z, acc[i][2]);
-        acc[i][3] = fmaf(a, b.w, acc[i][3]);
-      }
-    }
-    __syncthreads();
-  }
-  const int col = n0 + tx * 4;
-  if (col >= N) return;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty + 16 * i;
-    if (row >= M) continue;
-    OutT* p = C + static_cast<size_t>(row) * N + col;
-    Pair<OutT>::store(p, acc[i][0], acc[i][1]);
-    Pair<OutT>::store(p + 2, acc[i][2], acc[i][3]);
-  }
+  gemm::f32_tile<OutT>(A, B, C, M, N, K, tm * kF32BM, tn * kF32BN);
 }
 
 template <class L, typename OutT>

@@ -1,8 +1,12 @@
 // The ring phases of the collectives, on the card: the device counterparts
 // of triton_distributed_tpu_torch/comm/ring.py (push_phase, ag_ring_phase,
 // bidir_ring_phase, rs_ring_phase, rs_ack_drain), step for step, on the
-// vocabulary of dl.cuh.  The overlapped GEMMs (AG-GEMM, GEMM-RS) are to
-// reuse them with a consume step between arrival and forwarding.
+// vocabulary of dl.cuh.  The overlapped GEMMs (overlap_gemm.cu) run the
+// same phases with a step of their own: the AllGather rings call
+// `consume(chunk)` once a chunk is here and forwarded, the ReduceScatter ring
+// calls `produce(chunk)` before each local chunk is read (the JAX
+// ``consume=`` of bidir_ring_phase and the matmul before each hop of
+// gemm_rs.py); the collectives pass NoStep.
 //
 // Element types: T is the input's (float or bf16), OT the output's.  With
 // VEC every chunk is a whole number of 16-byte vectors and each thread moves
@@ -21,6 +25,11 @@
 
 namespace tdt {
 namespace dl {
+
+// The step a phase runs per chunk when the caller has none.
+struct NoStep {
+  __device__ void operator()(int) const {}
+};
 
 // The scalar storage a load of one T moves (bf16 as its 16 bits).
 template <typename T> struct RawOf { typedef T type; };
@@ -123,9 +132,10 @@ __device__ void push_phase(const Rank& c, const Peers& dst, long long lo, long l
 
 // One-way AllGather ring over out-chunks of OT already at their final
 // offsets; out-chunk `me` holds this rank's part.  Moved in units U, the
-// lanes cut at QUANTUM elements.
-template <typename OT, typename U, int QUANTUM>
-__device__ void ag_ring_phase(const Rank& c) {
+// lanes cut at QUANTUM elements.  Each chunk is forwarded before it is
+// consumed, and consumed before the next arrival is waited for.
+template <typename OT, typename U, int QUANTUM, typename Consume = NoStep>
+__device__ void ag_ring_phase(const Rank& c, Consume consume = Consume()) {
   const int n = c.n();
   long long lo, hi;
   c.slice(sizeof(U) / sizeof(OT), QUANTUM, lo, hi);
@@ -135,14 +145,17 @@ __device__ void ag_ring_phase(const Rank& c) {
     copy_units<U>(&d, 1, reinterpret_cast<const U*>(c.at<OT>(c.a.out, c.me, cs)), lo, hi);
     put_fence();
     credit(c, c.right(), kRecv + cs);
+    consume(cs);
     wait(c, kRecv + (c.me + n - step - 1) % n);
   }
+  consume((c.me + 1) % n);
 }
 
 // Two-way AllGather ring: ceil((n-1)/2) chunks travel right, floor((n-1)/2)
-// left, each forwarded right after its arrival.
-template <typename OT, typename U, int QUANTUM>
-__device__ void bidir_ring_phase(const Rank& c) {
+// left, each forwarded right after its arrival, then consumed (one's own
+// chunk after its two sends).
+template <typename OT, typename U, int QUANTUM, typename Consume = NoStep>
+__device__ void bidir_ring_phase(const Rank& c, Consume consume = Consume()) {
   const int n = c.n(), n_cw = n / 2, n_ccw = (n - 1) / 2;
   long long lo, hi;
   c.slice(sizeof(U) / sizeof(OT), QUANTUM, lo, hi);
@@ -154,16 +167,19 @@ __device__ void bidir_ring_phase(const Rank& c) {
   };
   if (n_cw >= 1) send(c.me, c.right());
   if (n_ccw >= 1) send(c.me, c.left());
+  consume(c.me);
   for (int step = 0; step < max(n_cw, n_ccw); ++step) {
     if (step < n_cw) {
       const int r = (c.me + n - step - 1) % n;
       wait(c, kRecv + r);
       if (step + 1 < n_cw) send(r, c.right());
+      consume(r);
     }
     if (step < n_ccw) {
       const int r = (c.me + step + 1) % n;
       wait(c, kRecv + r);
       if (step + 1 < n_ccw) send(r, c.left());
+      consume(r);
     }
   }
 }
@@ -173,11 +189,13 @@ __device__ void bidir_ring_phase(const Rank& c) {
 // into its put: received partial + local chunk, rounded to T, written into
 // the right neighbour's slot.  The last hop lands in entry `last_index` of
 // `out`: in T, or (LAST_F32, two-shot AllReduce) as the f32 sum rounded to OT.
-template <typename T, typename OT, bool VEC, bool LAST_F32>
-__device__ void rs_ring_phase(const Rank& c, int last_index) {
+// `produce(j)` runs before local chunk j is first read.
+template <typename T, typename OT, bool VEC, bool LAST_F32, typename Produce = NoStep>
+__device__ void rs_ring_phase(const Rank& c, int last_index, Produce produce = Produce()) {
   const int n = c.n();
   long long lo, hi;
   c.slice(Elems<T, VEC>::G, quantum<VEC>(), lo, hi);
+  produce((c.me + n - 1) % n);
   {
     typedef Unit<T, VEC> U;
     U* d = reinterpret_cast<U*>(c.at<T>(c.a.land, c.right(), 0));
@@ -188,6 +206,7 @@ __device__ void rs_ring_phase(const Rank& c, int last_index) {
   }
   for (int s = 1; s < n; ++s) {
     const int j = (c.me + n - s - 1) % n, slot_in = (s - 1) % 2;
+    produce(j);
     wait(c, kRsRecv + slot_in);
     const T* src[2] = {c.at<T>(c.a.land, c.me, slot_in), c.at<T>(c.a.x, c.me, j)};
     if (s == n - 1) {

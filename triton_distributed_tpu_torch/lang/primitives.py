@@ -11,7 +11,8 @@ barriers.  This module keeps:
 - :class:`Team`, the communicator over one mesh axis, with its ring
   arithmetic (``device_id`` maps a team rank to a mesh slot);
 - the ops a rank's program is made of (:class:`Put`, :class:`Notify`,
-  :class:`Wait`, :class:`Reduce`) and the barriers, as Python records.  A
+  :class:`Wait`, :class:`Reduce`, and the overlapped GEMMs' :class:`Matmul`)
+  and the barriers, as Python records.  A
   collective's schedule is a list of them per rank (``comm/ring.py`` and the
   bodies in ``comm/``); its plain version walks those lists
   (``comm/ring.py::walk``) and its kernel runs the same steps on the card.
@@ -108,7 +109,12 @@ def ring_src_rank(team: Team, me: int, step: int) -> int:
 FLAGS_PER_LANE = 32
 FLAG_IDS = {("barrier", 0): 0, ("rs_recv", 0): 1, ("rs_recv", 1): 2,
             ("ack", 0): 3, ("ack", 1): 4,
-            **{("recv", c): 8 + c for c in range(8)}}
+            **{("recv", c): 8 + c for c in range(8)},
+            # the overlapped GEMMs' rank-wide joins, in lane 0's row only
+            # (csrc/dl.cuh lanes_join): lanes that hold their part of chunk
+            # c, and lanes past waiting for all of them
+            **{("ready", c): 16 + c for c in range(8)},
+            **{("done", c): 24 + c for c in range(8)}}
 FLAG_NAMES = {v: f"{name}[{i}]" for (name, i), v in FLAG_IDS.items()}
 
 
@@ -154,6 +160,17 @@ class Reduce:
     dst: tuple[str, int]
     srcs: tuple[tuple[str, int], ...]
     f32: bool
+
+
+@dataclasses.dataclass(frozen=True)
+class Matmul:
+    """Local: entry ``src`` (rows of A) times this rank's B, accumulated in
+    f32 and rounded once to the dtype of entry ``dst`` (JAX
+    ``blocks.matmul_body``), into ``dst``.  The overlapped GEMMs' compute
+    step; on the card every lane of the rank takes its tiles of it."""
+
+    dst: tuple[str, int]
+    src: tuple[str, int]
 
 
 def put(prog: list, dst: str, index: int, dst_rank: int, srcs, flag=None) -> None:

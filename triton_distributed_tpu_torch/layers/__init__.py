@@ -1,1 +1,2 @@
-"""Layer building blocks at tp = 1: RMSNorm and the attention / MLP parameters."""
+"""Layer building blocks: RMSNorm, the attention / MLP parameters at tp = 1
+and sharded over a mesh of co-located ranks, and the MoE layer."""

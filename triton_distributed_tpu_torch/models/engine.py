@@ -15,6 +15,7 @@ import time
 
 import torch
 
+from ..core.mesh import Mesh
 from .config import ModelConfig
 from .kv_cache import init_cache, init_paged_cache, reset
 from .qwen import Qwen3, QwenParams
@@ -47,7 +48,9 @@ class Engine:
     ``cache_layout``: "contiguous" (one shared length) or "paged" (page pool
     + block table + ragged per-sequence lengths).  ``kv_dtype``: None keeps
     the model dtype; "int8" selects the quantized paged layout (one f32
-    scale per (layer, page, head)), paged only."""
+    scale per (layer, page, head)), paged only and at tp = 1.  A model on a
+    mesh gets the head-sharded cache of its ranks (``models/kv_cache.py``);
+    ``batch`` counts sequences, which every rank serves."""
 
     model: Qwen3
     params: QwenParams
@@ -60,12 +63,12 @@ class Engine:
 
     def __post_init__(self):
         c = self.model.config
-        dev = self.model.device
+        dev, tp = self.model.device, self.model.tp
         if self.cache_layout == "paged":
             self.cache = init_paged_cache(
                 c.num_layers, self.batch, c.num_kv_heads, c.max_length,
                 c.head_dim, c.dtype, page_size=self.page_size, device=dev,
-                kv_dtype=self.kv_dtype)
+                kv_dtype=self.kv_dtype, tp=tp)
         elif self.cache_layout == "contiguous":
             if self.kv_dtype is not None:
                 raise ValueError(
@@ -73,23 +76,24 @@ class Engine:
                     "per-(page, head) scale layout)")
             self.cache = init_cache(c.num_layers, self.batch, c.num_kv_heads,
                                     c.max_length, c.head_dim, c.dtype,
-                                    device=dev)
+                                    device=dev, tp=tp)
         else:
             raise ValueError(f"cache_layout {self.cache_layout!r} not in "
                              "('contiguous', 'paged')")
 
     @classmethod
-    def build(cls, config: ModelConfig, *, device=None,
+    def build(cls, config: ModelConfig, *, mesh: Mesh | None = None, device=None,
               generator: torch.Generator | None = None, batch: int = 1,
               max_length: int | None = None, decode_mode: str = "psum",
               **kw) -> "Engine":
         """A model with random weights from ``generator`` (seed 0 when None)
         on ``device`` (CUDA unless the caller passes "cpu"; raises without
-        CUDA).  ``max_length`` overrides the config's cache length;
-        ``decode_mode`` is the model's ("psum" or "fused")."""
+        CUDA), or on the co-located ranks of ``mesh`` (``make_mesh({"tp":
+        4})``: tensor parallel, its cache head-sharded).  ``max_length``
+        overrides the config's cache length; ``decode_mode`` is the model's."""
         if max_length is not None:
             config = dataclasses.replace(config, max_length=max_length)
-        model = Qwen3(config, device=device, decode_mode=decode_mode)
+        model = Qwen3(config, device=device, decode_mode=decode_mode, mesh=mesh)
         return cls(model, model.init(generator), batch=batch, **kw)
 
     @property
@@ -100,8 +104,9 @@ class Engine:
         """Swap the decode-step chain (reference ``set_fwd``); parameters and
         cache are kept.  The engine gets a model of its own, so an engine
         sharing the old model keeps its mode."""
-        self.model = Qwen3(self.model.config, device=self.model.device,
-                           decode_mode=mode)
+        m = self.model
+        self.model = Qwen3(m.config, device=m.device, decode_mode=mode,
+                           mesh=m.mesh, axis=m.axis)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

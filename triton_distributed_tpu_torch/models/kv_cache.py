@@ -14,6 +14,19 @@ the same two layouts:
   ``lang.quant`` recipe; writes requantize the pages they touch and the
   decode kernels dequantize as they stream.
 
+At tp = n (a mesh of co-located ranks, ``core/mesh.py``) the caches are
+head-sharded as JAX's (``P(None, None, axis, ...)``, ``kv_cache.py:75,
+227``): rank r holds kv heads ``[r Hkv / n, (r + 1) Hkv / n)``.  They are
+kept rank-stacked with the rank folded into the batch, so that each is a
+tp = 1 cache of n B sequences with Hkv / n heads, which the tp = 1 kernels
+and writes serve unchanged, one launch for all ranks: a contiguous cache's
+k/v are (L, n B, Hkv / n, max_len, D), rank r's sequences at rows
+``[r B, (r + 1) B)``; a paged cache's pools are (L, n P, Hkv / n, ps, D),
+rank r's pages at ``[r P, (r + 1) P)``, its block table (n B, max_pages)
+holds each rank's copy of the table offset into that rank's pages, and
+``seq_lens`` (n B,) each rank's copy of the lengths.  :func:`unshard_cache`
+gives the JAX layout back; int8 pages at tp > 1 are not served yet.
+
 The JAX package's arrays are immutable: its engine donates the cache buffers
 at the jit boundary and rebuilds the stacked pool once per step through
 ``replace_layer_slices`` (``models/qwen.py:775``).  Here the pools are written
@@ -86,10 +99,18 @@ class PagedKVCache:
         return self.k_scale is not None
 
 
+def _rank_heads(kv_heads: int, tp: int) -> int:
+    if kv_heads % tp:
+        raise ValueError(f"{kv_heads} kv heads do not divide among tp = {tp} ranks")
+    return kv_heads // tp
+
+
 def init_cache(num_layers: int, batch: int, kv_heads: int, max_length: int,
                head_dim: int, dtype=torch.bfloat16, *,
-               device=None) -> KVCache:
-    shape = (num_layers, batch, kv_heads, max_length, head_dim)
+               device=None, tp: int = 1) -> KVCache:
+    """A zeroed contiguous cache; at ``tp`` > 1 head-sharded and
+    rank-folded (module docstring)."""
+    shape = (num_layers, tp * batch, _rank_heads(kv_heads, tp), max_length, head_dim)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
@@ -127,29 +148,73 @@ def init_paged_cache(num_layers: int, batch: int, kv_heads: int,
                      max_length: int, head_dim: int, dtype=torch.bfloat16, *,
                      page_size: int = 64, device=None,
                      generator: torch.Generator | None = None,
-                     kv_dtype=None) -> PagedKVCache:
+                     kv_dtype=None, tp: int = 1) -> PagedKVCache:
     """Preallocate ``batch * (max_length // page_size)`` pages and a full
     block table.  With ``generator`` (a CPU generator) the (sequence,
     logical page) -> physical page map is a seeded random permutation, the
     fragmented layout a real page allocator produces; without it, the
-    identity.  ``kv_dtype="int8"`` selects the quantized layout."""
+    identity.  ``kv_dtype="int8"`` selects the quantized layout.  At ``tp``
+    > 1 every rank gets its own pages and its copy of the table,
+    head-sharded and rank-folded (module docstring)."""
     if max_length % page_size:
         raise ValueError(
             f"max_length {max_length} not divisible by page_size {page_size}")
     mp = max_length // page_size
     p = batch * mp
     pool_dtype, quantized = _resolve_kv_dtype(dtype, kv_dtype)
-    shape = (num_layers, p, kv_heads, page_size, head_dim)
+    if quantized and tp > 1:
+        raise NotImplementedError(
+            "int8 pages at tp > 1 (per-rank scales of the head-sharded pools) are not "
+            "ported yet; use full-precision pages")
+    hk = _rank_heads(kv_heads, tp)
+    shape = (num_layers, tp * p, hk, page_size, head_dim)
     ids = (torch.randperm(p, generator=generator) if generator is not None
            else torch.arange(p))
+    table = ids.to(torch.int32).reshape(batch, mp)
     return PagedKVCache(
         k=torch.zeros(shape, dtype=pool_dtype, device=device),
         v=torch.zeros(shape, dtype=pool_dtype, device=device),
-        block_table=ids.to(torch.int32).reshape(batch, mp).to(device),
-        seq_lens=torch.zeros((batch,), dtype=torch.int32, device=device),
-        k_scale=_init_scales(num_layers, p, kv_heads, device) if quantized else None,
-        v_scale=_init_scales(num_layers, p, kv_heads, device) if quantized else None,
+        block_table=fold_table(table, tp, p).to(device),
+        seq_lens=torch.zeros((tp * batch,), dtype=torch.int32, device=device),
+        k_scale=_init_scales(num_layers, p, hk, device) if quantized else None,
+        v_scale=_init_scales(num_layers, p, hk, device) if quantized else None,
     )
+
+
+def fold_table(table: torch.Tensor, tp: int, pages: int) -> torch.Tensor:
+    """Each rank's copy of a (B, max_pages) block table, into its own
+    ``pages`` of the rank-folded pool: (tp B, max_pages)."""
+    return torch.cat([table + r * pages for r in range(tp)])
+
+
+def fold_heads(t: torch.Tensor, tp: int) -> torch.Tensor:
+    """A JAX-layout (L, X, Hkv, ...) pool or cache cut into tp head shards,
+    rank-folded: (L, tp X, Hkv / tp, ...)."""
+    lead, x, hk = t.shape[0], t.shape[1], t.shape[2]
+    t = t.reshape(lead, x, tp, hk // tp, *t.shape[3:]).transpose(1, 2)
+    return t.reshape(lead, tp * x, hk // tp, *t.shape[4:]).contiguous()
+
+
+def unfold_heads(t: torch.Tensor, tp: int) -> torch.Tensor:
+    """The inverse of :func:`fold_heads`."""
+    lead, hk = t.shape[0], t.shape[2]
+    t = t.reshape(lead, tp, t.shape[1] // tp, hk, *t.shape[3:]).transpose(1, 2)
+    return t.reshape(lead, t.shape[1], tp * hk, *t.shape[4:]).contiguous()
+
+
+def unshard_cache(cache, tp: int):
+    """A tp-rank cache in the JAX package's (global) layout: (L, B, Hkv,
+    max_len, D) caches, or (L, P, Hkv, ps, D) pools with rank 0's table and
+    lengths."""
+    if tp == 1:
+        return cache
+    if isinstance(cache, PagedKVCache):
+        b = cache.seq_lens.shape[0] // tp
+        return PagedKVCache(k=unfold_heads(cache.k, tp), v=unfold_heads(cache.v, tp),
+                            block_table=cache.block_table[:b].clone(),
+                            seq_lens=cache.seq_lens[:b].clone())
+    return KVCache(k=unfold_heads(cache.k, tp), v=unfold_heads(cache.v, tp),
+                   kv_len=cache.kv_len)
 
 
 # ---------------------------------------------------------------------------

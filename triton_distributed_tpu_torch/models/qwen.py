@@ -1,5 +1,5 @@
-"""Qwen3 decoder at tp = 1, dense or MoE (counterpart of
-``triton_distributed_tpu/models/qwen.py::Qwen3``).
+"""Qwen3 decoder, dense or MoE at tp = 1, dense on a mesh of tp co-located
+ranks (counterpart of ``triton_distributed_tpu/models/qwen.py::Qwen3``).
 
 At tp = 1 every collective of the JAX model falls back to a plain matrix
 product (``ops/ag_gemm.py:316``, ``ops/gemm_rs.py:268``, the decode
@@ -15,6 +15,28 @@ A MoE config (Qwen3-MoE) swaps every layer's MLP for the routed experts of
 ``forward_replicated`` in each decode step of either mode, their expert
 products on the grouped-GEMM kernel.
 
+With ``mesh`` (``core/mesh.py``, tp = n > 1 co-located ranks) the dense
+model runs the JAX package's tensor-parallel path, its weights rank-stacked
+(``layers/tp_attn.py``, ``layers/tp_mlp.py``) and its replicated weights
+one copy:
+
+- prefill (``qwen.py:273-309``): the residual stream row-sharded, (n, B S /
+  n, K); each layer's qkv and gate_up through the AllGather-GEMM (K12), its
+  o-projection and down through the GEMM-ReduceScatter (K13); the ranks'
+  heads attend in one flash-attention launch, the rank folded into its
+  batch;
+- decode: the activations replicated (one (B, K) copy), each rank's column
+  products local, attention against the head-sharded cache on one decode
+  kernel launch for all ranks, and the row-parallel reductions by
+  ``decode_mode`` (``qwen.py:152-190, 695-734``): "psum" sums the ranks' f32
+  partials (JAX leaves it to ``lax.psum``), "ar" runs the AllReduce (K11)
+  on the partials, "gemm_ar" the GEMM-AllReduce (K14) when the batch divides
+  by n, else the "ar" path.
+
+"fused" at tp > 1 needs the decode megakernels B7/B8 and raises; MoE and
+int8 pages at tp > 1 raise too.  At tp = 1 "ar" and "gemm_ar" reduce
+nothing and run as "psum", as in JAX.
+
 The model is a static definition; parameters (:class:`QwenParams`) and the
 cache travel separately, as in the JAX package, so a test can hand both
 implementations the same weights.  The cache is updated in place.
@@ -27,17 +49,24 @@ import dataclasses
 import torch
 from torch import nn
 
+from ..comm.allreduce import all_reduce
+from ..core.mesh import TP_AXIS, Mesh, shard, unshard
 from ..core.platform import resolve_device
+from ..layers import tp_mlp
 from ..layers.moe import MoEMLP, MoEParams
 from ..layers.norm import rms_norm
-from ..layers.tp_attn import TPAttnParams, init_attn
-from ..layers.tp_mlp import TPMLPParams, init_mlp, mlp_forward
+from ..layers.tp_attn import TPAttnParams, init_attn, shard_attn, split_heads
+from ..layers.tp_mlp import TPMLPParams, init_mlp, mlp_forward, shard_mlp
 from ..ops.attention import (
     decode_attention,
     flash_attention,
     paged_decode_attention,
 )
+from ..ops.ag_gemm import ag_gemm
 from ..ops.fused_decode import fused_attn_decode, fused_linear_ar, fused_mlp_ar
+from ..ops.gemm_ar import gemm_ar
+from ..ops.gemm_rs import gemm_rs
+from ..ops.matmul import batched_product
 from ..ops.rope import apply_rope, rope_freqs
 from .config import ModelConfig
 from .kv_cache import (
@@ -83,24 +112,27 @@ def logits_f32(x: torch.Tensor, lm_head: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), lm_head.float())
 
 
-DECODE_MODES = ("psum", "fused")
-LATER_DECODE_MODES = ("ar", "gemm_ar", "persistent")
+DECODE_MODES = ("psum", "ar", "gemm_ar", "fused")
+LATER_DECODE_MODES = ("persistent",)
 
 
 class Qwen3(nn.Module):
-    """Qwen3 dense decoder; runs on ``device`` (CUDA unless the caller asks
-    for ``"cpu"``).  ``decode_mode``: "psum" (the per-kernel decode chain)
-    or "fused" (the attention megakernel on a paged cache; a contiguous
-    cache keeps the per-kernel attention, as in the JAX model)."""
+    """Qwen3 decoder; runs on ``device`` (CUDA unless the caller asks for
+    ``"cpu"``), or on ``mesh``'s device and ranks.  ``decode_mode``: "psum"
+    (the per-kernel decode chain), "ar" or "gemm_ar" (the AllReduce
+    kernels at tp > 1), or "fused" (the attention megakernel on a paged
+    cache at tp = 1; a contiguous cache keeps the per-kernel attention, as in
+    the JAX model)."""
 
     def __init__(self, config: ModelConfig, *, device=None,
-                 decode_mode: str = "psum"):
+                 decode_mode: str = "psum", mesh: Mesh | None = None,
+                 axis: str = TP_AXIS):
         super().__init__()
         if decode_mode in LATER_DECODE_MODES:
             raise NotImplementedError(
-                f"decode_mode {decode_mode!r} (the persistent decode kernel and "
-                "the AllReduce modes) belongs to a later slice of the port; "
-                f"{DECODE_MODES} at tp = 1 are served")
+                f"decode_mode {decode_mode!r} (the persistent decode kernel, B8) "
+                "belongs to a later slice of the port; "
+                f"{DECODE_MODES} are served")
         if decode_mode not in DECODE_MODES:
             raise ValueError(f"decode_mode {decode_mode!r} not in "
                              f"{DECODE_MODES + LATER_DECODE_MODES}")
@@ -109,6 +141,13 @@ class Qwen3(nn.Module):
                 f"moe_strategy {config.moe_strategy!r} (experts partitioned "
                 "across ranks, all-to-all dispatch) belongs to the EP slice of "
                 "the port; 'tp' at one rank is served")
+        self.tp = 1 if mesh is None else mesh.shape[axis]
+        if mesh is not None:
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+            device = mesh.device
+        if self.tp > 1:
+            self._check_tp(config, mesh, decode_mode)
         # every MoE layer's MLP (it refuses the fp8 wire itself)
         self.moe = (MoEMLP(num_experts=config.num_experts, top_k=config.top_k,
                            swiglu=True, renormalize=config.norm_topk,
@@ -117,6 +156,29 @@ class Qwen3(nn.Module):
         self.config = config
         self.device = resolve_device(device)
         self.decode_mode = decode_mode
+        self.mesh, self.axis = (mesh, axis) if self.tp > 1 else (None, axis)
+        # the heads of one rank
+        self.heads = config.num_heads // self.tp
+        self.kv_heads = config.num_kv_heads // self.tp
+
+    def _check_tp(self, c: ModelConfig, mesh: Mesh, decode_mode: str) -> None:
+        n = self.tp
+        if decode_mode == "fused":
+            raise NotImplementedError(
+                "decode_mode 'fused' at tp > 1 needs the fused MLP + AllReduce "
+                "megakernel (B7, ops/fused_decode.py:507) and the persistent decode "
+                "kernel (B8), not ported yet; 'psum', 'ar' and 'gemm_ar' are served")
+        if c.is_moe:
+            raise NotImplementedError(
+                "MoE at tp > 1 (the experts' AllGather and ReduceScatter around the "
+                "grouped GEMM) is not ported yet; MoE runs at tp = 1")
+        if len(mesh.axes) != 1:
+            raise NotImplementedError(
+                f"mesh {mesh.shape}: the model runs on a mesh of one axis, its tp axis")
+        for what, size in (("num_heads", c.num_heads), ("num_kv_heads", c.num_kv_heads),
+                           ("intermediate", c.intermediate)):
+            if size % n:
+                raise ValueError(f"{what} = {size} does not divide among tp = {n} ranks")
 
     # -- parameters -------------------------------------------------------
 
@@ -124,7 +186,7 @@ class Qwen3(nn.Module):
              scale: float = 0.02) -> QwenParams:
         """Random N(0, ``scale``) weights and unit norms, drawn from
         ``generator`` (a generator on this model's device; seed 0 when
-        None)."""
+        None).  At tp > 1 each layer is drawn as at tp = 1, then sharded."""
         c = self.config
         dev = self.device
         if generator is None:
@@ -140,6 +202,11 @@ class Qwen3(nn.Module):
             else:
                 mlp = init_mlp(generator, c.hidden, c.intermediate,
                                dtype=c.dtype, scale=scale, device=dev)
+            if self.tp > 1:
+                # the tp = 1 draw, then each rank's shard: the same weights at
+                # every tp from one seed
+                attn = shard_attn(attn, self.tp, c.num_heads, c.num_kv_heads, c.head_dim)
+                mlp = shard_mlp(mlp, self.tp)
             layers.append(QwenLayerParams(
                 ln1=torch.ones((c.hidden,), dtype=c.dtype, device=dev),
                 attn=attn,
@@ -157,20 +224,21 @@ class Qwen3(nn.Module):
 
     # -- shared pieces ----------------------------------------------------
 
-    def _project_qkv(self, p: TPAttnParams, x: torch.Tensor, b: int, s: int):
-        """(B*S, K) -> q (B, H, S, D), k/v (B, Hkv, S, D), QK-normed, from the
-        ``[q | k | v]`` columns of ``wqkv``."""
+    def _heads(self, p: TPAttnParams, qkv: torch.Tensor, s: int):
+        """A ``[q | k | v]`` projection of (B' * S) rows -> q (B', H, S, D),
+        k/v (B', Hkv, S, D), QK-normed; the heads are one rank's, B' folds
+        the ranks into the batch at tp > 1."""
         c = self.config
-        h, hk, d = c.num_heads, c.num_kv_heads, c.head_dim
-        qkv = torch.matmul(x, p.wqkv)
-        q, k, v = qkv.split([h * d, hk * d, hk * d], dim=-1)
-        q = q.reshape(b, s, h, d).transpose(1, 2)
-        k = k.reshape(b, s, hk, d).transpose(1, 2)
-        v = v.reshape(b, s, hk, d).transpose(1, 2)
+        q, k, v = split_heads(qkv, s, self.heads, self.kv_heads, c.head_dim)
         if c.qk_norm:
             q = rms_norm(q, p.q_norm, c.rms_eps)
             k = rms_norm(k, p.k_norm, c.rms_eps)
         return q, k, v
+
+    def _project_qkv(self, p: TPAttnParams, x: torch.Tensor, b: int, s: int):
+        """(B*S, K) -> q (B', H, S, D), k/v (B', Hkv, S, D), QK-normed, from
+        the ``[q | k | v]`` columns of ``wqkv``: each rank's, B' = tp B."""
+        return self._heads(p, tp_mlp.replicated_column_gemm(x, p.wqkv), s)
 
     def _finish(self, params: QwenParams, x: torch.Tensor) -> torch.Tensor:
         return logits_f32(rms_norm(x, params.final_norm, self.config.rms_eps),
@@ -183,6 +251,8 @@ class Qwen3(nn.Module):
         """Forward all prompt tokens and fill the cache.  ``input_ids``:
         (B, S).  Returns (f32 logits (B, S, V), cache) with the cache length
         set to S."""
+        if self.tp > 1:
+            return self._prefill_tp(params, cache, input_ids)
         c = self.config
         b, s = input_ids.shape
         x = params.embed[input_ids.reshape(-1).to(self.device)]
@@ -205,6 +275,36 @@ class Qwen3(nn.Module):
         logits = self._finish(params, x)
         return logits.reshape(b, s, c.vocab), with_length(cache, s)
 
+    def _prefill_tp(self, params: QwenParams, cache, input_ids: torch.Tensor):
+        """Prefill at tp = n (``qwen.py:273-309, 322-351``): the B S rows
+        row-sharded over the ranks; per layer AG-GEMM (qkv), the ranks'
+        qk-norm, RoPE and flash attention in one launch over the rank-folded
+        batch, the K/V into the head-sharded cache, GEMM-RS (o); then the
+        MLP's AG-GEMM, SwiGLU, GEMM-RS.  The logits from the gathered rows."""
+        c, n, mesh = self.config, self.tp, self.mesh
+        b, s = input_ids.shape
+        if (b * s) % n:
+            raise ValueError(f"B * S = {b * s} rows do not divide among tp = {n} ranks")
+        x = shard(mesh, params.embed[input_ids.reshape(-1).to(self.device)], self.axis)
+        cos, sin = rope_freqs(torch.arange(s, device=self.device), c.head_dim,
+                              theta=c.rope_theta)
+        for li, lp in enumerate(params.layers):
+            qkv = ag_gemm(rms_norm(x, lp.ln1, c.rms_eps), lp.attn.wqkv, mesh, self.axis)
+            q, k, v = self._heads(lp.attn, qkv, s)              # (n B, heads, S, D)
+            q = apply_rope(q, cos, sin).contiguous()
+            k = apply_rope(k, cos, sin).contiguous()
+            v = v.contiguous()
+            if isinstance(cache, PagedKVCache):
+                write_prefill_paged(cache, li, k, v)
+            else:
+                write_prefill(cache, li, k, v)
+            out = flash_attention(q, k, v, causal=True)
+            out = out.transpose(1, 2).reshape(n, b * s, self.heads * c.head_dim)
+            x = x + gemm_rs(out, lp.attn.wo, mesh, self.axis)
+            x = x + tp_mlp.forward(lp.mlp, rms_norm(x, lp.ln2, c.rms_eps), mesh, self.axis)
+        logits = self._finish(params, unshard(mesh, x, self.axis))
+        return logits.reshape(b, s, c.vocab), with_length(cache, s)
+
     # -- decode -----------------------------------------------------------
 
     def _attn_decode(self, p: TPAttnParams, x: torch.Tensor, cache,
@@ -212,7 +312,8 @@ class Qwen3(nn.Module):
         """The per-kernel attention step (``qwen.py:474-626``): qkv product,
         qk-norm, RoPE, the token's append (requantizing its page on an int8
         cache), then the decode kernel over the cache including the token.
-        Returns the o-proj output (B, K)."""
+        At tp > 1 the ranks' heads attend as one rank-folded batch against the
+        head-sharded cache.  Returns the o-proj output (B, K)."""
         b = x.shape[0]
         q, k, v = self._project_qkv(p, x, b, 1)
         q = apply_rope(q, cos, sin)[:, :, 0].contiguous()   # (B, H, D)
@@ -225,6 +326,8 @@ class Qwen3(nn.Module):
         else:
             out = decode_attention(q, cache.k[layer], cache.v[layer],
                                    cache.kv_len + 1)
+        if self.tp > 1:
+            return self._row_parallel_reduce(out.reshape(self.tp, b, -1), p.wo)
         return self._row_parallel_reduce(out.reshape(b, -1), p.wo)
 
     def _attn_decode_paged_fused(self, p: TPAttnParams, x: torch.Tensor,
@@ -247,12 +350,22 @@ class Qwen3(nn.Module):
         return self._row_parallel_reduce(res[0], p.wo)
 
     def _row_parallel_reduce(self, h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        """A decode step's ``AllReduce(h @ w)`` (``qwen.py:152-190``): the
-        fused mode's GEMM + AllReduce entry, else the product; one rank
-        reduces nothing."""
-        if self.decode_mode == "fused":
-            return fused_linear_ar(h, w)
-        return torch.matmul(h, w)
+        """A decode step's ``AllReduce(h @ w)`` (``qwen.py:152-190``).  At
+        tp = 1 the fused mode's GEMM + AllReduce entry, else the product.
+        At tp = n, ``h`` (n, B, F / n) and ``w`` (n, F / n, K) rank-stacked,
+        the result (B, K) replicated: "gemm_ar" on K14 when B divides by n,
+        "ar" (and "gemm_ar" otherwise) the ranks' partials in h's dtype on
+        K11, "psum" the sum of their f32 partials rounded once."""
+        n = self.tp
+        if n == 1:
+            if self.decode_mode == "fused":
+                return fused_linear_ar(h, w)
+            return torch.matmul(h, w)
+        if self.decode_mode == "gemm_ar" and h.shape[1] % n == 0:
+            return gemm_ar(h, w, self.mesh, self.axis)[0]
+        if self.decode_mode in ("ar", "gemm_ar"):
+            return all_reduce(torch.matmul(h, w), self.mesh, self.axis)[0]
+        return batched_product(h, w, torch.float32).sum(0).to(h.dtype)
 
     def _mlp_forward(self, p, x: torch.Tensor) -> torch.Tensor:
         """The prefill MLP (``qwen.py:211-221``): the dense SwiGLU, or the
@@ -267,6 +380,12 @@ class Qwen3(nn.Module):
         mode; else as :meth:`_row_parallel_reduce` dispatches."""
         if self.config.is_moe:
             return self.moe.forward_replicated(p, x)
+        if self.tp > 1:
+            if self.decode_mode == "gemm_ar" and x.shape[0] % self.tp == 0:
+                return tp_mlp.forward_ar(p, x, self.mesh, self.axis)[0]
+            # each rank's gate/up columns and SwiGLU, then the reduction
+            h = tp_mlp.act_combine(tp_mlp.replicated_column_gemm(x, p.gate_up))
+            return self._row_parallel_reduce(h, p.down)
         if self.decode_mode == "fused":
             return fused_mlp_ar(x, p.gate_up, p.down)
         return mlp_forward(p, x)

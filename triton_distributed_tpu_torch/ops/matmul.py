@@ -107,6 +107,22 @@ def library_matmul(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Te
     return torch.matmul(a.float(), b.float()).to(out_dtype)
 
 
+def batched_product(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """``a @ b`` over any leading (batch or mesh) dims with f32
+    accumulation, rounded once to ``out_dtype`` (a's by default): one
+    ``torch.matmul``, or on the card one ``torch.bmm`` with an f32 result for
+    bf16 operands.  The plain product the JAX package leaves to XLA
+    (``jnp.dot(..., preferred_element_type=...)``)."""
+    out_dtype = out_dtype or a.dtype
+    if out_dtype == a.dtype:
+        return torch.matmul(a, b)
+    if a.is_cuda and a.dtype == torch.bfloat16 and a.dim() == b.dim() >= 3:
+        lead = a.shape[:-2]
+        return torch.bmm(a.flatten(0, -3), b.flatten(0, -3),
+                         out_dtype=out_dtype).unflatten(0, lead)
+    return torch.matmul(a.float(), b.float()).to(out_dtype)
+
+
 def _tile(a: torch.Tensor, tile) -> tuple[int, int, int]:
     tile = tuple(int(x) for x in tile)
     if tile not in KERNEL_TILES[a.dtype]:

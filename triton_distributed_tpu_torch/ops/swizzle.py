@@ -15,8 +15,13 @@ mirror in PyTorch (on the input's device, no host read either), equal to
 the JAX schedule array for array where the rows divide into tiles; unlike
 the JAX version it also takes a row count that does not, the last tile then
 being partial.  :func:`derived_tile_schedule` runs K5's own derivation on
-the card and writes it out, so that the two can be held equal.  The ring
-orders of the collective kernels belong to the multi-GPU slice.
+the card and writes it out, so that the two can be held equal.
+
+The ring orders (:func:`ring_chunk_order`, :func:`bidir_chunk_order`) are
+the order in which the AllGather-GEMM (K12) multiplies the chunks of A: the
+local shard first, then each chunk as it arrives.  The ring phases of
+``comm/ring.py`` and ``csrc/ring.cuh`` produce them by construction; these
+state them, as the JAX module does.
 """
 
 from __future__ import annotations
@@ -27,6 +32,21 @@ import torch
 
 from ..core import build
 from ..core.utils import cdiv
+
+
+def ring_chunk_order(me: int, n: int, step: int) -> int:
+    """The chunk rank ``me`` of ``n`` consumes at step ``step`` of the
+    one-way ring (JAX ``ring_chunk_order``): its own, then me - 1, me - 2,
+    ... (counter-flow arrival order)."""
+    return me if step == 0 else (me + n - step) % n
+
+
+def bidir_chunk_order(me: int, n: int, step: int) -> int:
+    """The chunk consumed at step ``step`` of the two-way ring (JAX
+    ``ag_gemm.py:139-144``): me, me - 1, me + 1, me - 2, me + 2, ...; the
+    clockwise stream carries ceil((n - 1) / 2) chunks, the other the rest."""
+    dist = (step + 1) // 2
+    return me if step == 0 else (me - dist if step % 2 else me + dist) % n
 
 
 class GroupedSchedule(NamedTuple):
