@@ -206,6 +206,7 @@ def phase_build(tt) -> None:
         f"{names[e]}: {per_entry[e]}" for e in per_entry
         if "fused_attn_decode_kernel" in e or "grouped_gemm" in e
         or "ag_gemm_kernel" in e or "gemm_rs_kernel" in e
+        or "fused_ar_kernel" in e or "persistent_decode_kernel" in e
         or re.search(r"decode_splitI(f|13__nv_bfloat16)a", e)]})
     build.library()
 
@@ -1495,7 +1496,19 @@ def stalled_rank_child(kernel: str) -> int:
 
     mesh = make_mesh({"tp": 2})
     x = torch.ones(2, 4, 64, device="cuda")
-    if kernel == "ag_gemm":
+    if kernel == "persistent_decode":
+        import triton_distributed_tpu_torch as tt
+        from triton_distributed_tpu_torch.ops import persistent_decode as PD
+
+        c = tiny_dense(tt, torch, hidden=256, heads=8, kv_heads=4, head_dim=64, inter=512,
+                       layers=1, dtype=torch.float32)
+        params = tt.Qwen3(c, mesh=mesh).init(torch.Generator(device="cuda").manual_seed(1))
+        cache = tt.init_paged_cache(1, 2, 4, c.max_length, 64, c.dtype, page_size=16,
+                                    device="cuda", tp=2)
+        PD._launch(params.embed[:2], PD.stack_decode_params(params), cache.k, cache.v,
+                   cache.block_table, cache.seq_lens, mesh, "tp", rope_theta=c.rope_theta,
+                   rms_eps=c.rms_eps, qk_eps=None, sm_scale=0.125, soft_cap=0.0, stall_rank=1)
+    elif kernel == "ag_gemm":
         w = torch.ones(2, 64, 64, device="cuda")
         _ag_gemm(x, w, mesh, "tp", torch.float32, bidir=False, stall_rank=1)
     else:
@@ -1510,13 +1523,19 @@ def stalled_rank_child(kernel: str) -> int:
     return 0
 
 
-STALL_KERNELS = ("all_gather", "ag_gemm")
+STALL_KERNELS = ("all_gather", "ag_gemm", "persistent_decode")
+# the (rank, flag) a stalled child must name: K16's rank 1 credits none of
+# its ring puts, so rank 0 waits on its first ReduceScatter arrival, or rank
+# 1, past its own ReduceScatter, on its first AllGather arrival, whichever
+# wait runs out first
+STALL_NAMES = {"all_gather": (("rank 0 ", "recv[1]"),), "ag_gemm": (("rank 0 ", "recv[1]"),),
+               "persistent_decode": (("rank 0 ", "rs_recv[0]"), ("rank 1 ", "recv[0]"))}
 
 
 def phase_wait_bound(torch, kernels=STALL_KERNELS) -> None:
     """A wait cannot hang the run: each child's stalled launch (K9's gather,
-    K12's AG-GEMM) must fail by name (rank 0, flag recv[1]) within the
-    bounded wait, and this process's context carries on."""
+    K12's AG-GEMM, K16) must fail by name (STALL_NAMES) within the bounded
+    wait, and this process's context carries on."""
     import subprocess
 
     for kernel in kernels:
@@ -1529,7 +1548,8 @@ def phase_wait_bound(torch, kernels=STALL_KERNELS) -> None:
         emit({"phase": "wait_bound", "kernel": kernel, "child_rc": res.returncode,
               "child_s": time.perf_counter() - t0, "named": named[-1:]})
         check(res.returncode != 0, f"the stalled {kernel} finished: a wait did not run out")
-        check(bool(named) and "rank 0 " in named[-1] and "recv[1]" in named[-1],
+        check(bool(named) and any(rank in named[-1] and f"flag {flag}" in named[-1]
+                                  for rank, flag in STALL_NAMES[kernel]),
               f"the {kernel} child did not name the stuck rank and flag:\n{text[-3000:]}")
     torch.cuda.synchronize()   # this process's context is unharmed
 
@@ -2001,6 +2021,644 @@ def phase_overlap(tt, torch) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# K15 (the fused GEMM + AllReduce ring), K4 rank-folded, K16 (the
+# persistent decode kernel)
+
+FUSED_AR_SOURCE = "triton_distributed_tpu_torch/csrc/fused_ar.cu"
+PERSISTENT_SOURCE = "triton_distributed_tpu_torch/csrc/persistent_decode.cu"
+FUSED_SOURCE = "triton_distributed_tpu_torch/csrc/fused_decode.cu"
+FUSED_AR_ROWS = (1, 3, 4, 5)
+# (K, F / n, N / n): off the 64-column tile and the 64-row K granule
+FUSED_AR_SHAPES = ((200, 40, 24), (1032, 264, 136))
+# K16's stated limits of |kernel - plain| per element: tol_rms * rms(the
+# plain row) + tol_rel * |plain|.  f32: the two sum in other orders only.
+# bf16: a rounding that flips (an ulp, 2**-8 of the value rounded, each
+# side) in any of a layer's products, norms or adds moves the residual
+# stream by about one bf16 ulp of the row, and the layers add theirs up;
+# the appended K/V of layer l come from the residual stream after l - 1
+# layers, so they carry the same error as x.  (On an H100 a two-layer
+# step's pools reached 1.13 of (2**-6, 2**-7), and x 0.33 of (2**-5, 2**-6)
+# after one layer: hence (2**-4, 2**-5) for both.)
+PERSISTENT_TOL = {"float32": {"x": (1e-4, 1e-4), "pool": (1e-4, 1e-4)},
+                  "bfloat16": {"x": (2.0 ** -4, 2.0 ** -5), "pool": (2.0 ** -4, 2.0 ** -5)}}
+PERSISTENT_RANKS = (1, 2, 4)
+PERSISTENT_LAYERS = (1, 2, 3)
+
+
+def colchunk_hop_sums(torch, parts, n: int):
+    """For the column-chunked ring (``comm/ring.py::chunk_ar_phase``): the
+    sum over each output column chunk's hops of |the partial sum after the
+    hop|, in f32; chunk c's sum starts at rank c + 1 and travels right.
+    ``parts`` (n, B, N): each rank's partial product."""
+    chunks = parts.reshape(n, parts.shape[1], n, -1)       # [rank, B, chunk, cn]
+    out = []
+    for c in range(n):
+        acc, tot = chunks[(c + 1) % n, :, c], 0
+        for i in range(2, n + 1):
+            acc = acc + chunks[(c + i) % n, :, c]
+            tot = tot + acc.abs()
+        out.append(tot)
+    return torch.stack(out, dim=1).reshape(parts.shape[1], -1)
+
+
+def kernel_act(torch, mesh, b: int, f: int, out_dtype):
+    """The SwiGLU activations (n, B, F / n) the last K15 swiglu call on
+    ``mesh`` multiplied by down: its act landing buffer, which the call
+    leaves as it wrote it."""
+    from triton_distributed_tpu_torch.core import symm
+
+    n = mesh.shape["tp"]
+    return symm.landing(mesh, "tp", "fused_ar_act", (b * f,), out_dtype).data.reshape(
+        n, b, f).float()
+
+
+def rounding_unit(torch, dtype) -> float:
+    return 2.0 ** -8 if dtype == torch.bfloat16 else F32_UNIT
+
+
+def act_bound(torch, x, gate_up, f: int, out_dtype):
+    """The plain version's SwiGLU activations a (n, B, F), its rounded g and
+    u, and the stated per-element limit of |K15's act - a|.  Each of g and u
+    is a length-K f32 sum (each side within K 2**-24 sum|x w| of the exact
+    value, in its own order) rounded once to out_dtype: two values that far
+    apart round at most one ulp (2 u |v|, u the unit) further apart.  silu
+    is 1.1-Lipschitz, so t = silu(g) u moves at most 1.1 dg (|u| + du) +
+    |silu(g)| du, plus 2**-16 of itself for the two sides' f32 evaluations
+    of silu and the product; then one rounding of t to out_dtype, which
+    may flip."""
+    import torch.nn.functional as F
+
+    u = rounding_unit(torch, out_dtype)
+    k = x.shape[-1]
+    xf, gu = x.float(), gate_up.float()
+    sums, moves = [], []
+    for w in (gu[..., :f], gu[..., f:]):
+        v = torch.matmul(xf, w)
+        e = 2 * k * F32_UNIT * torch.matmul(xf.abs(), w.abs())
+        sums.append(v.to(out_dtype).float())
+        moves.append(e + 2 * u * (v.abs() + e))
+    (g, up), (dg, du) = sums, moves
+    t = F.silu(g) * up
+    dt = 1.1 * dg * (up.abs() + du) + F.silu(g).abs() * du
+    dt = dt + 2.0 ** -16 * (t.abs() + dt)
+    return t.to(out_dtype).float(), g, up, dt + 2 * u * (t.abs() + dt)
+
+
+def ring_check(torch, a, wf, out_dtype):
+    """(limit, faults) of the column-chunked ring on activations a (n, B, F)
+    and weights wf (n, F, N), f32: overlap_limit over the plain version's
+    chunk products (each rounded, each hop rounded).  The faults: rank 0's
+    partial left out, and chunk 0 taken from chunk 1 (another rank's)."""
+    n, f = wf.shape[0], wf.shape[1]
+    parts = torch.matmul(a, wf)                                    # (n, B, N)
+    values = parts.abs().sum(0) + colchunk_hop_sums(torch, parts, n)
+    limit = overlap_limit(torch, torch.matmul(a.abs(), wf.abs()).sum(0), f, values, out_dtype)
+    cn = wf.shape[-1] // n
+
+    def faults(got):
+        other = got.clone()
+        other[:, :cn] = got[:, cn:2 * cn]
+        return {"partial_left_out": got.float() - parts[0], "chunk_of_another_rank": other}
+
+    return limit, faults
+
+
+def k15_check(torch, form: str, act, w, out_dtype, gate_up=None, chain_act=None, mesh=None):
+    """(limit, chain_limit, judge) of K15 per element of the (B, N) result.
+    ``form`` "linear": act (n, B, F) h, w (n, F, N); "swiglu": act the (B,
+    K) x, gate_up (n, K, 2F), w the down (n, F, N), ``chain_act`` the
+    chain's own activations (the psum path rounds g, u, silu(g) and the
+    product in x's dtype).  The limit against the plain version is the
+    ring's (ring_check); the swiglu form adds the stated act limit
+    (act_bound) carried through |down| and the ring's roundings, and, against
+    the chain, |the plain act - the chain's| carried the same way: no term
+    reads the kernel.  ``judge(got, want)``, called right after a kernel
+    call, returns (shares, faults): shares of a limit that must stay within
+    1, and each planted fault's share, which must reach FAULT_MARGIN.
+    linear: the ring's faults against the plain version.  swiglu: the
+    kernel's activations (read back, ``kernel_act``) against the plain ones
+    within the stated act limit, with two planted prologue faults (silu
+    left out; gate and up swapped); and the kernel's result against the
+    plain ring walked on the kernel's own activations within the ring's
+    limit on them, with the ring's faults."""
+    from triton_distributed_tpu_torch.ops import fused_decode as FD
+
+    n, f = w.shape[0], w.shape[1]
+    wf = w.float()
+    if form != "swiglu":
+        limit, faults = ring_check(torch, act.float(), wf, out_dtype)
+
+        def judge_linear(got, want):
+            return {}, {k: overlap_share(torch, bad, want, limit) for k, bad in faults(got).items()}
+
+        return limit, limit, judge_linear
+    a, g, up, da = act_bound(torch, act, gate_up, f, out_dtype)
+    ring_limit, _ = ring_check(torch, a, wf, out_dtype)
+    carry = 1 + 2 * rounding_unit(torch, out_dtype) * (n + 1)   # the product and n hops
+    limit = ring_limit + carry * torch.matmul(da, wf.abs()).sum(0)
+    chain_limit = limit + carry * torch.matmul((a - chain_act.float()).abs(), wf.abs()).sum(0)
+
+    def judge_swiglu(got, want):
+        import torch.nn.functional as F
+
+        ak = kernel_act(torch, mesh, a.shape[1], f, out_dtype)
+        walked = FD.fused_linear_ar_ref(ak.to(out_dtype), w, mesh, out_dtype=out_dtype)
+        k_limit, k_faults = ring_check(torch, ak, wf, out_dtype)
+        shares = {"act": overlap_share(torch, ak, a, da),
+                  "ring_on_kernel_act": overlap_share(torch, got, walked, k_limit)}
+        faults = {"silu_left_out": overlap_share(torch, (g * up).to(out_dtype), a, da),
+                  "gate_up_swapped": overlap_share(torch, (F.silu(up) * g).to(out_dtype), a, da)}
+        faults.update({k: overlap_share(torch, bad, walked, k_limit)
+                       for k, bad in k_faults(got).items()})
+        return shares, faults
+
+    return limit, chain_limit, judge_swiglu
+
+
+def k15_calls(torch, mesh, x, gate_up, down, h, w, out_dtype) -> list:
+    """(label, kernel thunk, plain thunk, chain thunk, limit, chain limit,
+    judge) of K15's two forms.  Chains: swiglu, the psum path (each rank's
+    gate/up product and SwiGLU, the f32 partials of the down product
+    summed); linear, the ar path (each rank's product, then K11)."""
+    from triton_distributed_tpu_torch import comm
+    from triton_distributed_tpu_torch.layers import tp_mlp
+    from triton_distributed_tpu_torch.ops import fused_decode as FD
+    from triton_distributed_tpu_torch.ops.matmul import batched_product
+
+    def chain_act():
+        a = tp_mlp.act_combine(tp_mlp.replicated_column_gemm(x, gate_up))
+        return a if a.dtype == out_dtype else a.to(out_dtype)
+
+    def psum_chain():
+        a = chain_act()
+        return batched_product(a, down.to(a.dtype), torch.float32).sum(0).to(out_dtype)
+
+    def ar_chain():
+        return comm.all_reduce(batched_product(h, w, out_dtype), mesh)[0]
+
+    return [("fused_mlp_ar/swiglu", lambda: FD.fused_mlp_ar(x, gate_up, down, mesh,
+                                                            out_dtype=out_dtype),
+             lambda: FD.fused_mlp_ar_ref(x, gate_up, down, mesh, out_dtype=out_dtype),
+             psum_chain, *k15_check(torch, "swiglu", x, down, out_dtype, gate_up,
+                                    chain_act(), mesh)),
+            ("fused_linear_ar/linear", lambda: FD.fused_linear_ar(h, w, mesh, out_dtype=out_dtype),
+             lambda: FD.fused_linear_ar_ref(h, w, mesh, out_dtype=out_dtype), ar_chain,
+             *k15_check(torch, "linear", h, w, out_dtype))]
+
+
+def judge_k15(torch, label: str, got, want, limit, judge, what: str) -> tuple[dict, dict]:
+    """``got`` within ``limit`` of ``want`` and within what ``judge``
+    states, each planted fault FAULT_MARGIN limits away.  Returns (shares,
+    faults) keyed by label."""
+    extra, faults = judge(got, want)
+    shares = {label: overlap_share(torch, got, want, limit),
+              **{f"{label}/{k}": v for k, v in extra.items()}}
+    for key, share in shares.items():
+        check(share <= 1.0, f"{what} {key}: the kernel is {share:.3g} of its limit")
+    faults = {f"{label}/{k}": v for k, v in faults.items()}
+    for key, share in faults.items():
+        check(share >= FAULT_MARGIN, f"{what} {key}: the planted fault is only {share:.3g} "
+                                     "of its limit away")
+    return shares, faults
+
+
+def check_k15_calls(torch, calls, what: str) -> tuple[dict, dict, dict]:
+    """Each call within its limits (judge_k15) and within its limit of its
+    chain (whose rounding points are not the kernel's: cuBLAS products),
+    every pad at rest after it, each planted fault at least FAULT_MARGIN
+    limits away.  Returns the worst shares of the limits against plain and
+    chain, and the least share per planted fault."""
+    shares, chain_shares, faulty = {}, {}, {}
+    for label, kern, plain, chain, limit, chain_limit, judge in calls:
+        got = kern()
+        want, link = plain(), chain()
+        torch.cuda.synchronize()
+        check(pads_at_rest(), f"{what} {label}: a signal pad is not at rest after the call")
+        s, fl = judge_k15(torch, label, got, want, limit, judge, what)
+        shares.update(s)
+        faulty.update(fl)
+        chain_shares[label] = overlap_share(torch, got, link, chain_limit)
+        check(chain_shares[label] <= 1.0, f"{what} {label}: the kernel is "
+                                          f"{chain_shares[label]:.3g} of its limit from its chain")
+    return shares, chain_shares, faulty
+
+
+def k15_operands(torch, gen, n, b, k, f, cn, dt):
+    """Unit-variance x and h, weights of variance 1 / fan-in (rank-stacked)."""
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dt)
+
+    return (rnd(b, k), rnd(n, k, 2 * f, scale=k ** -0.5), rnd(n, f, n * cn, scale=(n * f) ** -0.5),
+            rnd(n, b, f), rnd(n, f, n * cn, scale=(n * f) ** -0.5))
+
+
+def folded_k4_case(torch, n: int, dtype) -> dict:
+    """K4 rank-folded over n ranks against n tp = 1 launches of K4, one per
+    rank, on copies of the same folded pools: outputs and pools bitwise."""
+    from triton_distributed_tpu_torch.ops import fused_decode as FD
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 71 + n)
+    b, k_dim, hk, g, d, ps, mp, pages = 3, 512, 2, 4, 128, 16, 4, 12
+    h = hk * g
+    x = (torch.randn(b, k_dim, generator=gen, device=dev)).to(dtype)
+    wqkv = (torch.randn(n, k_dim, (h + 2 * hk) * d, generator=gen, device=dev)
+            * k_dim ** -0.5).to(dtype)
+    qn = (torch.randn(d, generator=gen, device=dev) * 0.2 + 1).to(dtype)
+    kn = (torch.randn(d, generator=gen, device=dev) * 0.2 + 1).to(dtype)
+    pool_k = torch.randn(n * pages, hk, ps, d, generator=gen, device=dev).to(dtype)
+    pool_v = torch.randn(n * pages, hk, ps, d, generator=gen, device=dev).to(dtype)
+    table = torch.cat([torch.randperm(pages, generator=torch.Generator().manual_seed(SEED + r))
+                       [:b * mp].reshape(b, mp) + r * pages for r in range(n)]).to(torch.int32).to(dev)
+    lens = torch.tensor([[0, ps, mp * ps - 1][i % 3] + r for r in range(n) for i in range(b)],
+                        dtype=torch.int32, device=dev).clamp(max=mp * ps - 1)
+    kw = dict(rope_theta=1e6, qk_eps=1e-6)
+    fk, fv = pool_k.clone(), pool_v.clone()
+    out, _, _ = FD.fused_attn_decode(x, wqkv, qn, kn, fk, fv, table, lens, **kw)
+    sk, sv = pool_k.clone(), pool_v.clone()
+    singles = [FD.fused_attn_decode(x, wqkv[r], qn, kn, sk, sv, table[r * b:(r + 1) * b],
+                                    lens[r * b:(r + 1) * b], **kw)[0] for r in range(n)]
+    torch.cuda.synchronize()
+    same = (torch.equal(out, torch.stack(singles)) and torch.equal(fk, sk)
+            and torch.equal(fv, sv))
+    check(same, f"K4 folded n={n} {dtype}: differs from {n} tp = 1 launches")
+    plain, _, _ = FD.fused_attn_decode_ref(x, wqkv[n - 1], qn, kn, pool_k.clone(), pool_v.clone(),
+                                           table[(n - 1) * b:], lens[(n - 1) * b:], **kw)
+    err = (out[n - 1].float() - plain.float()).abs().max().item()
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    check(err <= tol, f"K4 folded n={n} {dtype}: {err} from its plain version")
+    return {"n": n, "dtype": str(dtype), "bitwise_vs_tp1_launches": True, "max_abs_err": err,
+            "tol": tol}
+
+
+def phase_fused_tp_cases(tt, torch) -> None:
+    """K15 at its edges and the rank-folded K4: both forms at n 2,
+    3, 4; f32, bf16 and bf16 -> f32; B 1, 3, 4, 5; K, F / n and N / n off the
+    64 tile; each call within its stated limit of its plain version (the
+    schedule walked with PyTorch ops) and of its chain, each planted fault
+    FAULT_MARGIN limits away, every pad at rest; three interleaved repeats
+    bitwise; widths off 16-byte rows refused; then K4 rank-folded at n 2 and
+    4 against n tp = 1 launches."""
+    from triton_distributed_tpu_torch.core.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 81)
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    for n in OVERLAP_RANKS:
+        mesh = make_mesh({"tp": n})
+        for dt, odt in OVERLAP_DTYPES:
+            for k, f, cn in FUSED_AR_SHAPES:
+                worst, worst_chain, least = {}, {}, {}
+                for b in FUSED_AR_ROWS:
+                    ops = k15_operands(torch, gen, n, b, k, f, cn, dts[dt])
+                    calls = k15_calls(torch, mesh, *ops, dts[odt])
+                    s, sc, fl = check_k15_calls(torch, calls, f"K15 n={n} {dt}->{odt} B={b} "
+                                                              f"K={k} F/n={f} N/n={cn}")
+                    for d_, src, op in ((worst, s, max), (worst_chain, sc, max), (least, fl, min)):
+                        for key, v in src.items():
+                            d_[key] = op(d_.get(key, v), v)
+                emit({"phase": "fused_tp_case", "kernel": "K15", "n": n, "dtype": f"{dt}->{odt}",
+                      "rows": list(FUSED_AR_ROWS), "k_f_cn": [k, f, cn],
+                      "worst_share_of_limit": worst, "worst_share_vs_chain": worst_chain,
+                      "faulty_share_of_limit": least, "pads_at_rest": True})
+    mesh = make_mesh({"tp": 4})
+    ops = k15_operands(torch, gen, 4, 5, 264, 40, 24, torch.bfloat16)
+    calls = k15_calls(torch, mesh, *ops, torch.bfloat16)
+    first = [kern() for _, kern, *_ in calls]
+    outs = [[kern() for _, kern, *_ in calls] for _ in range(3)]
+    torch.cuda.synchronize()
+    for rep in outs:
+        for (label, *_), got, ref in zip(calls, rep, first):
+            check(torch.equal(got, ref), f"repeat {label}: differs from its first call")
+    check(pads_at_rest(), "a signal pad is not at rest after the interleaved repeats")
+    emit({"phase": "fused_tp_case", "kernel": "K15", "repeats": 3,
+          "interleaved": [c[0] for c in calls], "bitwise": True, "pads_at_rest": True})
+    # widths whose rows are not 16-byte vectors are refused on the card
+    refused = False
+    try:
+        tt.fused_linear_ar(ops[3][..., :12], ops[4][:, :12, :4 * 6], mesh)
+    except ValueError as e:
+        refused = "multiples of 8" in str(e)
+    check(refused, "K15 took N / n = 6: rows that are not 16-byte vectors must raise")
+    for n in (2, 4):
+        for dtype in (torch.float32, torch.bfloat16):
+            emit({"phase": "fused_tp_case", "kernel": "K4 rank-folded",
+                  **folded_k4_case(torch, n, dtype)})
+    emit({"phase": "fused_tp_cases", "seconds": time.perf_counter() - t0})
+
+
+def fused_tp_main_rows(tt, torch) -> dict:
+    """K15's two forms and the rank-folded K4 at Qwen3-8B tp = 4, B = 4,
+    bf16 (the shapes of a "fused" step: x (4, 4096), gate_up_r (4096, 6144),
+    down_r (3072, 4096); the o-projection h_r (4, 1024), w_r (1024, 4096);
+    K4's wqkv_r (4096, 1536) over the folded pages at position 1056), each
+    within its limit of its plain version, timed beside its bound (the
+    function's bytes over all ranks: every weight and input read once, the
+    output written once), its plain version and its chains.  K15's chains:
+    the psum path (each rank's product, SwiGLU, the f32 partials summed) and
+    the ar path (each rank's product, then K11); K4's: the per-kernel
+    attention of the psum step (each rank's qkv product, qk-norm, RoPE, the
+    append, K3 over the folded batch)."""
+    from triton_distributed_tpu_torch import comm
+    from triton_distributed_tpu_torch.core.mesh import make_mesh
+    from triton_distributed_tpu_torch.core.utils import perf_func
+    from triton_distributed_tpu_torch.layers import tp_mlp
+    from triton_distributed_tpu_torch.models.kv_cache import append_token
+    from triton_distributed_tpu_torch.obs import costs
+    from triton_distributed_tpu_torch.ops import attention as A
+    from triton_distributed_tpu_torch.ops import fused_decode as FD
+    from triton_distributed_tpu_torch.ops.matmul import batched_product
+    from triton_distributed_tpu_torch.ops.rope import apply_rope, rope_freqs
+
+    n, bf, b = COLL_TP, torch.bfloat16, BATCH
+    c = dataclasses.replace(tt.QWEN3_8B, max_length=MAX_LEN)
+    k, f, hid = c.hidden, c.intermediate // n, c.hidden
+    mesh = make_mesh({"tp": n})
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 101)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(bf)
+
+    rows = {}
+    x, gu, dn = rnd(b, k), rnd(n, k, 2 * f, scale=k ** -0.5), rnd(n, f, hid, scale=(n * f) ** -0.5)
+    h, wo = rnd(n, b, c.num_heads * c.head_dim // n), rnd(n, c.num_heads * c.head_dim // n, hid,
+                                                           scale=(c.num_heads * c.head_dim) ** -0.5)
+    for name, form, kern, plain, chains, checks, cost, fn_bytes, lib in (
+            ("fused_mlp_ar[swiglu]", "swiglu", lambda: FD.fused_mlp_ar(x, gu, dn, mesh),
+             lambda: FD.fused_mlp_ar_ref(x, gu, dn, mesh),
+             {"psum": lambda: batched_product(tp_mlp.act_combine(torch.matmul(x, gu)), dn,
+                                              torch.float32).sum(0).to(bf),
+              "ar": lambda: comm.all_reduce(torch.matmul(tp_mlp.act_combine(torch.matmul(x, gu)),
+                                                         dn), mesh)[0]},
+             k15_check(torch, "swiglu", x, dn, bf, gu,
+                       tp_mlp.act_combine(torch.matmul(x, gu)), mesh),
+             costs.fused_mlp_ar(b, k, f, hid, n, bf), nbytes(x, gu, dn) + b * hid * 2, None),
+            ("fused_linear_ar[o]", "linear", lambda: FD.fused_linear_ar(h, wo, mesh),
+             lambda: FD.fused_linear_ar_ref(h, wo, mesh),
+             {"ar": lambda: comm.all_reduce(torch.matmul(h, wo), mesh)[0],
+              "psum": lambda: batched_product(h, wo, torch.float32).sum(0).to(bf)},
+             k15_check(torch, "linear", h, wo, bf),
+             costs.fused_mlp_ar(b, h.shape[-1], h.shape[-1], hid, n, bf, swiglu=False),
+             nbytes(h, wo) + b * hid * 2,
+             (h.permute(1, 0, 2).reshape(b, -1), wo.reshape(-1, hid)))):
+        limit, chain_limit, judge = checks
+        got = kern()
+        want = plain()
+        torch.cuda.synchronize()
+        shares, faults = judge_k15(torch, name, got, want, limit, judge, "main row")
+        share = shares[name]
+        chain_share = {key: overlap_share(torch, got, fn(), chain_limit)
+                       for key, fn in chains.items()}
+        err = (got.float() - want.float()).abs().max().item()
+        _, ms = perf_func(kern, iters=20)
+        _, plain_ms = perf_func(plain, iters=3)
+        chain_ms = {key: perf_func(fn, iters=20)[1] for key, fn in chains.items()}
+        lib_ms = perf_func(lambda w=lib: torch.matmul(*w), iters=20)[1] if lib else None
+        bound_ms, bound_by = bound(n * cost.flops, fn_bytes, H100_BF16_FLOPS)
+        first = "psum" if form == "swiglu" else "ar"
+        rows[name] = dict(
+            name=name, route="cuda", source=FUSED_AR_SOURCE,
+            replaces="triton_distributed_tpu/ops/fused_decode.py:507", max_abs_err=err,
+            worst_share_of_limit=share, worst_share_vs_chains=chain_share,
+            shares_of_limits=shares, faulty_share_of_limit=faults, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+            library="torch.matmul of the whole unsharded product" if lib else None,
+            chain_ms=chain_ms[first], chain=f"the {first} path",
+            chains_ms=chain_ms, flops=n * cost.flops, function_bytes=fn_bytes,
+            shape=f"n={n} B={b} " + (f"K={k} F/n={f} N={hid}" if form == "swiglu"
+                                     else f"F/n={h.shape[-1]} N={hid}") + " bf16",
+            counter="fused_mlp_ar" if form == "swiglu" else "fused_linear_ar")
+    del x, gu, dn, h, wo
+    # K4 rank-folded at the attention shapes of one layer
+    hq, hk, d = c.num_heads // n, c.num_kv_heads // n, c.head_dim
+    x = rnd(b, k)
+    wqkv = rnd(n, k, (hq + 2 * hk) * d, scale=k ** -0.5)
+    qn, kn = rnd(d, scale=0.1) + 1, rnd(d, scale=0.1) + 1
+    cache = tt.init_paged_cache(1, b, c.num_kv_heads, MAX_LEN, d, bf, page_size=PAGE,
+                                device="cuda", tp=n)
+    cache.k.normal_(generator=gen)
+    cache.v.normal_(generator=gen)
+    cache.seq_lens.fill_(DECODE_POS)
+    kw = dict(rope_theta=c.rope_theta, qk_eps=c.rms_eps)
+    kern = lambda: FD.fused_attn_decode(x, wqkv, qn, kn, cache.k[0], cache.v[0],  # noqa: E731
+                                        cache.block_table, cache.seq_lens, **kw)[0]
+    plain = lambda: FD._fused_attn_folded_ref(  # noqa: E731
+        x, wqkv, qn, kn, cache.k[0], cache.v[0], cache.block_table, cache.seq_lens,
+        sm_scale=d ** -0.5, **kw)[0]
+    pos = cache.seq_lens.to(torch.float32)[:, None, None]
+    cos, sin = rope_freqs(pos, d, theta=c.rope_theta)
+
+    def chain():
+        qkv = torch.matmul(x, wqkv)                                   # (n, B, cols)
+        q, kk, v = qkv.reshape(n * b, 1, -1).split([hq * d, hk * d, hk * d], dim=-1)
+        q = tt.rms_norm(q.reshape(n * b, 1, hq, d).transpose(1, 2), qn, c.rms_eps)
+        kk = tt.rms_norm(kk.reshape(n * b, 1, hk, d).transpose(1, 2), kn, c.rms_eps)
+        v = v.reshape(n * b, 1, hk, d).transpose(1, 2)
+        q = apply_rope(q, cos, sin)[:, :, 0].contiguous()
+        kk = apply_rope(kk, cos, sin)[:, :, 0]
+        append_token(cache, 0, kk, v[:, :, 0])
+        return A.paged_decode_attention(q, cache.k[0], cache.v[0], cache.block_table,
+                                        cache.seq_lens + 1)
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    check(err <= BF16_TOL, f"K4 rank-folded main row: {err} from its plain version")
+    _, ms = perf_func(kern, iters=20)
+    _, plain_ms = perf_func(plain, iters=3)
+    _, chain_ms = perf_func(chain, iters=20)
+    cost = costs.fused_attn_decode(b, k, hq, hk, DECODE_POS, d, bf)
+    bound_ms, bound_by = bound(n * cost.flops, n * cost.bytes_accessed, H100_BF16_FLOPS)
+    rows["fused_attn_decode[tp4]"] = dict(
+        name="fused_attn_decode[tp4]", route="cuda", source=FUSED_SOURCE,
+        replaces="triton_distributed_tpu/ops/fused_decode.py:112", max_abs_err=err, tol=BF16_TOL,
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        library=None, chain_ms=chain_ms,
+        chain="each rank's qkv product, qk-norm, RoPE, the append, K3 over the folded batch",
+        flops=n * cost.flops, function_bytes=n * cost.bytes_accessed,
+        shape=f"n={n} B={b} K={k} heads {hq}/{hk} a rank, D={d}, position {DECODE_POS} bf16",
+        counter="fused_attn_decode", form=(n, b, k, hq, hk, d))
+    del cache, x, wqkv
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(pads_at_rest(), "a signal pad is not at rest after K15's and K4's main rows")
+    return rows
+
+
+def phase_fused_tp(tt, torch) -> dict:
+    """K15 and the rank-folded K4: edge cases, then the main rows (their
+    launches are read from the serve_tp path)."""
+    t0 = time.perf_counter()
+    phase_fused_tp_cases(tt, torch)
+    rows = fused_tp_main_rows(tt, torch)
+    for row in rows.values():
+        emit({"phase": "kernel_main", **{k: v for k, v in row.items() if k != "form"}})
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "fused_tp", "seconds": time.perf_counter() - t0})
+    return rows
+
+
+def tiny_dense(tt, torch, *, hidden, heads, kv_heads, head_dim, inter, layers, dtype):
+    """Qwen3-8B's config at narrow widths and a few layers."""
+    return dataclasses.replace(tt.QWEN3_8B, num_layers=layers, hidden=hidden, num_heads=heads,
+                               num_kv_heads=kv_heads, head_dim=head_dim, intermediate=inter,
+                               vocab=512, max_length=128, dtype=dtype)
+
+
+def x_share(torch, got, want, tol) -> float:
+    """max |got - want| / (tol_rms rms(want row) + tol_rel |want|)."""
+    g, w = got.float(), want.float()
+    rms = w.pow(2).mean(-1, keepdim=True).sqrt()
+    limit = tol[0] * rms + tol[1] * w.abs()
+    return float(((g - w).abs() / limit.clamp_min(1e-30)).max())
+
+
+def moved_token(torch, after, before, table, lens, ps, n_layers):
+    """The pools with every layer's appended token moved one slot on (a
+    planted fault): the slot at pos back to its value before the step, the
+    token at pos + 1."""
+    bad = after.clone()
+    pages = table.long().gather(1, (lens.long() // ps)[:, None])[:, 0]
+    off = lens.long() % ps
+    nxt_pages = table.long().gather(1, ((lens.long() + 1) // ps).clamp(
+        max=table.shape[1] - 1)[:, None])[:, 0]
+    nxt_off = (lens.long() + 1) % ps
+    for l in range(n_layers):
+        bad[l, nxt_pages, :, nxt_off] = after[l, pages, :, off]
+        bad[l, pages, :, off] = before[l, pages, :, off]
+    return bad
+
+
+def phase_persistent_cases(tt, torch) -> None:
+    """K16 at its edges: n 1, 2, 4; 1, 2 and 3 layers; narrow
+    widths (hidden 256 with head_dim 64 and 2 query heads a kv head, hidden
+    512 with head_dim 128 and 4); f32 and bf16; qk-norm on and off; ragged
+    lengths with a position on a page boundary and one in the table's last
+    slot; three steps in a row on one cache.  Each step's x_out and pools
+    within PERSISTENT_TOL of the plain version (the ring's order) and of the
+    tp = n "fused" step (K4 rank-folded, K15, PyTorch norms and adds), every
+    pad at rest after it; the planted faults (one rank's o-projection partial
+    left out at one layer, every token appended one slot on) at least
+    FAULT_MARGIN limits away."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    shapes = ((256, 4, 2, 64, 512), (512, 4, 4, 128, 1024))
+    for n in PERSISTENT_RANKS:
+        for layers in PERSISTENT_LAYERS:
+            hidden, kvh, g, d, inter = shapes[layers % 2]
+            for dtype in (torch.float32, torch.bfloat16):
+                c = tiny_dense(tt, torch, hidden=hidden, heads=kvh * g, kv_heads=kvh,
+                               head_dim=d, inter=inter, layers=layers, dtype=dtype)
+                c = dataclasses.replace(c, qk_norm=(layers + n) % 2 == 0)
+                emit(persistent_case(tt, torch, c, n, dev))
+    emit({"phase": "persistent_cases", "seconds": time.perf_counter() - t0})
+
+
+def persistent_case(tt, torch, c, n: int, dev) -> dict:
+    """One K16 configuration: three steps from one prefilled cache."""
+    from triton_distributed_tpu_torch.ops import persistent_decode as PD
+
+    mesh = tt.make_mesh({"tp": n}) if n > 1 else None
+    gen = torch.Generator(device=dev).manual_seed(SEED + 91 + n + c.num_layers)
+    # weights of variance 1 / fan-in: each sublayer's output is O(1)
+    model = tt.Qwen3(c, mesh=mesh, device=None if mesh else dev)
+    params = model.init(gen, scale=c.hidden ** -0.5)
+    fused = tt.Qwen3(c, mesh=mesh, device=None if mesh else dev, decode_mode="fused")
+    b, ps = 3, 16
+    cache = tt.init_paged_cache(c.num_layers, b, c.num_kv_heads, c.max_length, c.head_dim,
+                                c.dtype, page_size=ps, device=dev, tp=n)
+    cache.k.normal_(generator=gen)
+    # V of mean one: the attention output, an average of V rows, stays O(1)
+    cache.v.normal_(generator=gen).add_(1.0)
+    mp = cache.block_table.shape[1]
+    base = torch.tensor([ps - 1, 2 * ps - 1, mp * ps - 4], dtype=torch.int32, device=dev)
+    cache.seq_lens.copy_(base.repeat(n))
+    sp = PD.stack_decode_params(params)
+    kw = dict(rope_theta=c.rope_theta, rms_eps=c.rms_eps,
+              qk_eps=c.rms_eps if c.qk_norm else None)
+    tol = PERSISTENT_TOL[str(c.dtype)[6:]]
+    worst = {"x_vs_plain": 0.0, "pool_vs_plain": 0.0, "x_vs_fused": 0.0, "pool_vs_fused": 0.0}
+    faults = {}
+    for step in range(3):
+        x = params.embed[torch.randint(0, c.vocab, (b,), generator=gen, device=dev)]
+        before = (cache.k.clone(), cache.v.clone())
+        pk, pv = cache.k, cache.v
+        got, _, _ = PD.persistent_decode_step(x, sp, pk, pv, cache.block_table, cache.seq_lens,
+                                              mesh, **kw)
+        torch.cuda.synchronize()
+        check(pads_at_rest(), f"K16 n={n} L={c.num_layers}: a signal pad is not at rest")
+        rk, rv = before[0].clone(), before[1].clone()
+        want, _, _ = PD.reference_decode_step(x, sp, rk, rv, cache.block_table, cache.seq_lens,
+                                              mesh, **kw)
+        fk, fv = before[0].clone(), before[1].clone()
+        fcache = dataclasses.replace(cache, k=fk, v=fv, seq_lens=cache.seq_lens.clone())
+        link = fused_hidden(fused, params, fcache, x)
+        shares = {"x_vs_plain": x_share(torch, got, want, tol["x"]),
+                  "pool_vs_plain": max(x_share(torch, pk, rk, tol["pool"]),
+                                       x_share(torch, pv, rv, tol["pool"])),
+                  "x_vs_fused": x_share(torch, got, link, tol["x"]),
+                  "pool_vs_fused": max(x_share(torch, pk, fk, tol["pool"]),
+                                       x_share(torch, pv, fv, tol["pool"]))}
+        for key, v in shares.items():
+            worst[key] = max(worst[key], v)
+            check(v <= 1.0, f"K16 n={n} L={c.num_layers} {c.dtype} step {step}: {key} at "
+                            f"{v:.3g} of its limit")
+        if step == 0:
+            moved = moved_token(torch, pk, before[0], cache.block_table, cache.seq_lens, ps,
+                                c.num_layers)
+            faults["token_one_slot_on"] = x_share(torch, moved, rk, tol["pool"])
+            if n > 1:
+                bad = dropped_partial_step(PD, x, sp, before, cache, mesh, c.num_layers - 1, kw)
+                faults["o_partial_left_out"] = x_share(torch, bad, want, tol["x"])
+            for key, v in faults.items():
+                check(v >= FAULT_MARGIN, f"K16 n={n} L={c.num_layers}: the planted fault {key} "
+                                         f"is only {v:.3g} of the limit away")
+        cache.seq_lens += 1
+    del model, params, sp
+    return {"phase": "persistent_case", "n": n, "layers": c.num_layers, "hidden": c.hidden,
+            "head_dim": c.head_dim, "group": c.num_heads // c.num_kv_heads,
+            "dtype": str(c.dtype), "qk_norm": c.qk_norm, "steps": 3,
+            "lens_first": cache.seq_lens[:3].tolist(), "worst_share_of_limit": worst,
+            "faulty_share_of_limit": faults, "tol": tol, "pads_at_rest": True}
+
+
+def dropped_partial_step(PD, x, sp, pools, cache, mesh, layer: int, kw):
+    """The plain step with rank 1's o-projection partial left out of layer
+    ``layer``'s sum (a planted fault): the plain version run with its K15
+    linear reference fed a zero for that rank at that layer."""
+    real, calls = PD.fused_linear_ar_ref, [0]
+
+    def faulty(h, w, mesh, axis="tp", **kws):
+        if calls[0] == layer:
+            h = h.clone()
+            h[1] = 0
+        calls[0] += 1
+        return real(h, w, mesh, axis, **kws)
+
+    PD.fused_linear_ar_ref = faulty
+    try:
+        return PD.reference_decode_step(x, sp, pools[0].clone(), pools[1].clone(),
+                                        cache.block_table, cache.seq_lens, mesh, **kw)[0]
+    finally:
+        PD.fused_linear_ar_ref = real
+
+
+def fused_hidden(model, params, cache, x):
+    """The hidden state after every layer of one "fused" step (the chain
+    K16 replaces: K4 for every rank, K15's two forms, PyTorch's norms and
+    adds), the cache appended in place."""
+    from triton_distributed_tpu_torch.layers.norm import rms_norm
+
+    c = model.config
+    for li, lp in enumerate(params.layers):
+        h = rms_norm(x, lp.ln1, c.rms_eps)
+        x = x + model._attn_decode_paged_fused(lp.attn, h, cache, li)
+        x = x + model._mlp_decode(lp.mlp, rms_norm(x, lp.ln2, c.rms_eps))
+    return x
+
+
 def phase_sync_check(tt, torch, params) -> None:
     """One MoE layer's decode and prefill forward at the main shapes under
     ``torch.cuda.set_sync_debug_mode("error")``: any read back to the host
@@ -2045,7 +2703,8 @@ def phase_serve_moe(tt, torch) -> tuple[dict, dict]:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = tt.Qwen3(c, device=dev).init(torch.Generator(device=dev).manual_seed(SEED))
-    models = {mode: tt.Qwen3(c, device=dev, decode_mode=mode) for mode in ("psum", "fused")}
+    models = {mode: tt.Qwen3(c, device=dev, decode_mode=mode)
+              for mode in ("psum", "fused", "persistent")}
     torch.cuda.synchronize()
     emit({"phase": "serve_setup", "model": "Qwen3-30B-A3B",
           "init_s": time.perf_counter() - t0,
@@ -2207,6 +2866,8 @@ KERNEL_CLASSES = (("attention", ("flash_fwd", "decode_split", "decode_combine",
                                  "fused_attn_decode")),
                   ("grouped_gemm", ("grouped_gemm",)),   # K5, before "gemm"
                   ("overlap_gemm", ("ag_gemm_kernel", "gemm_rs_kernel")),   # K12-K14
+                  ("fused_ar", ("fused_ar_kernel",)),                       # K15
+                  ("persistent", ("persistent_decode_kernel",)),            # K16
                   ("collective", ("all_gather_kernel", "reduce_scatter_kernel",
                                   "all_reduce_kernel")),                    # K9-K11
                   ("gemm", ("nvjet", "gemm", "cutlass", "sm90_xmma")))
@@ -2272,30 +2933,39 @@ SERVE_MODES = (
     ("paged+fused", "paged", "fused", None, "fused_attn_decode"),
     ("paged+int8", "paged", "psum", "int8", "paged_decode_attention_int8"),
     ("paged+int8+fused", "paged", "fused", "int8", "fused_attn_decode_int8"),
+    ("paged+persistent", "paged", "persistent", None, "persistent_decode"),
 )
 REQUESTS = 3
+# requests per mode where they differ from REQUESTS; a persistent step is one
+# K16 launch, not one a layer
+MODE_REQUESTS = {"paged+persistent": 2}
+LAUNCHES_PER_STEP = {"persistent_decode": 1}
 
 
-def phase_serve(tt, torch) -> dict:
+def phase_serve(tt, torch) -> tuple[dict, dict, dict]:
     """Qwen3-8B, full width and depth, in each serving mode: the main path,
     with the launch counters set to 0 just before each mode's requests and
     read just after; then a profile of one prefill and a few decode steps
-    in each mode.  Returns the launches summed over the modes."""
+    in each mode, and K16's main row at tp = 1.  Returns the launches summed
+    over the modes, the launches by form, and the row."""
     c = dataclasses.replace(tt.QWEN3_8B, max_length=MAX_LEN)
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     params = tt.Qwen3(c, device=dev).init(torch.Generator(device=dev).manual_seed(SEED))
-    models = {mode: tt.Qwen3(c, device=dev, decode_mode=mode) for mode in ("psum", "fused")}
+    models = {mode: tt.Qwen3(c, device=dev, decode_mode=mode)
+              for mode in ("psum", "fused", "persistent")}
     torch.cuda.synchronize()
     emit({"phase": "serve_setup", "init_s": time.perf_counter() - t0,
           "param_bytes": torch.cuda.memory_allocated()})
-    engines = {}
+    engines, forms = {}, {}
     totals = dict.fromkeys(tt.launch_counts(), 0)
     for label, layout, mode, kv_dtype, kernel in SERVE_MODES:
         eng = tt.Engine(models[mode], params, batch=BATCH, cache_layout=layout,
                         page_size=PAGE, kv_dtype=kv_dtype)
+        if mode == "persistent":
+            sync_check_step(torch, eng, f"tp = 1 {label}")
         tt.reset_launch_counts()
-        for req in range(REQUESTS):
+        for req in range(MODE_REQUESTS.get(label, REQUESTS)):
             ids = torch.randint(0, c.vocab, (BATCH, PROMPT), device=dev,
                                 generator=torch.Generator(device=dev).manual_seed(100 + req))
             before = tt.launch_counts()
@@ -2307,7 +2977,7 @@ def phase_serve(tt, torch) -> dict:
             # and GEN - 1 decode steps
             want = dict.fromkeys(delta, 0)
             want["flash_attention"] = 2 * c.num_layers
-            want[kernel] = GEN * c.num_layers
+            want[kernel] = GEN * LAUNCHES_PER_STEP.get(kernel, c.num_layers)
             emit({"phase": "serve", "layout": label, "request": req, **stats,
                   "launches": delta})
             check(delta == want, f"{label} request {req}: launches {delta}, want {want}")
@@ -2316,13 +2986,18 @@ def phase_serve(tt, torch) -> dict:
                   f"{label}: bad tokens {tokens.shape} {tokens.dtype}")
         for k, n in tt.launch_counts().items():
             totals[k] += n
+        for key, n in tt.launch_forms().items():
+            forms[key] = forms.get(key, 0) + n
         engines[label] = (eng, ids)
     for label, (eng, ids) in engines.items():
         phase_profile(eng, ids, torch, label)
+    row = persistent_main_row(tt, torch, engines["paged+persistent"][0],
+                              engines["paged+fused"][0], None)
+    emit({"phase": "kernel_main", **{k: v for k, v in row.items() if k != "form"}})
     del engines, models, params, eng
     gc.collect()
     torch.cuda.empty_cache()
-    return totals
+    return totals, forms, {row["name"]: row}
 
 
 # Qwen3-8B at tp = 4 on co-located ranks: (label, cache layout, decode mode)
@@ -2331,6 +3006,8 @@ TP_SERVE_MODES = (
     ("tp4 paged psum", "paged", "psum"),
     ("tp4 paged ar", "paged", "ar"),
     ("tp4 paged gemm_ar", "paged", "gemm_ar"),
+    ("tp4 paged fused", "paged", "fused"),
+    ("tp4 paged persistent", "paged", "persistent"),
 )
 TP_REQUESTS = 2
 
@@ -2339,15 +3016,43 @@ def tp_step_launches(c, layout: str, mode: str) -> tuple[dict, dict]:
     """The kernel launches of one prefill and of one decode step at tp = 4:
     per layer one flash attention, two AG-GEMMs (qkv, gate_up) and two
     GEMM-RSs (o, down) a prefill; one decode attention a step, and two
-    reductions on K11 ("ar") or K14 ("gemm_ar"; B = 4 divides by 4)."""
+    reductions on K11 ("ar") or K14 ("gemm_ar"; B = 4 divides by 4); "fused":
+    one K4 for every rank and one K15 of each form a layer; "persistent": one
+    K16 a step."""
     layers = c.num_layers
     prefill = {"flash_attention": layers, "ag_gemm": 2 * layers, "gemm_rs": 2 * layers}
+    if mode == "persistent":
+        return prefill, {"persistent_decode": 1}
+    if mode == "fused":
+        return prefill, {"fused_attn_decode": layers, "fused_mlp_ar": layers,
+                         "fused_linear_ar": layers}
     step = {("paged_decode_attention" if layout == "paged" else "decode_attention"): layers}
     if mode == "ar":
         step["all_reduce"] = 2 * layers
     elif mode == "gemm_ar":
         step["gemm_ar"] = 2 * layers
     return prefill, step
+
+
+def sync_check_step(torch, eng, what: str) -> None:
+    """One decode step of ``eng`` (prefilled, then one step to warm it)
+    under ``torch.cuda.set_sync_debug_mode("error")``: nothing in it may read
+    back to the host."""
+    dev = eng.device
+    ids = torch.randint(0, eng.params.embed.shape[0], (eng.batch, 64), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(SEED + 7))
+    tok = torch.zeros((eng.batch,), dtype=torch.int32, device=dev)
+    eng.prefill(ids)
+    eng.decode_step(tok)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits = eng.decode_step(tok)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(tuple(logits.shape) == (eng.batch, eng.params.embed.shape[0])
+          and bool(torch.isfinite(logits).all()), f"{what} step: bad logits")
+    emit({"phase": "sync_check", "what": what, "ok": True})
 
 
 def phase_sync_check_tp(tt, torch, models, params, mesh) -> None:
@@ -2387,7 +3092,8 @@ def phase_serve_tp(tt, torch) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     params = tt.Qwen3(c, mesh=mesh).init(torch.Generator(device=mesh.device).manual_seed(SEED))
-    models = {mode: tt.Qwen3(c, mesh=mesh, decode_mode=mode) for mode in ("psum", "ar", "gemm_ar")}
+    models = {mode: tt.Qwen3(c, mesh=mesh, decode_mode=mode)
+              for mode in ("psum", "ar", "gemm_ar", "fused", "persistent")}
     torch.cuda.synchronize()
     emit({"phase": "serve_tp_setup", "tp": COLL_TP, "init_s": time.perf_counter() - t0,
           "param_bytes": torch.cuda.memory_allocated()})
@@ -2441,11 +3147,145 @@ def phase_serve_tp(tt, torch) -> tuple[dict, dict]:
     emit({"phase": "serve_memory", "model": "Qwen3-8B tp = 4",
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "device_total": torch.cuda.get_device_properties(0).total_memory})
+    row = persistent_main_row(tt, torch, engines["tp4 paged persistent"][0],
+                              engines["tp4 paged fused"][0], mesh)
+    emit({"phase": "kernel_main", **{k: v for k, v in row.items() if k != "form"}})
     del engines, models, params, eng
     gc.collect()
     torch.cuda.empty_cache()
     emit({"phase": "serve_tp_done", "seconds": time.perf_counter() - t0})
-    return totals, forms
+    return totals, forms, {row["name"]: row}
+
+
+# K16's limits at the main row (36 layers, bf16): the bf16 roundings that
+# flip grow from layer to layer in this random-weight model, so
+# PERSISTENT_TOL is not a limit there.  On an H100, (2**-3, 2**-4) put K16's
+# x_out at 1.63 and its pools at 1.69 of it (while the two-layer f32 step
+# stayed within 2.1e-5 of the CPU): these are 2x that.  Each run prints two
+# sound yardsticks against the same plain version, the "fused" chain and
+# the plain version in JAX's order of adds, and the planted faults: every
+# token one slot on, and one rank's o-projection partial left out at layer
+# 0, 1, L / 2 and L - 1.  The first two must land FAULT_MARGIN limits away.
+# The later partials are readings, not checks: the sound versions' drift
+# from the plain x_out grows with depth, while one rank's partial at a late
+# layer moves x_out by about one bf16 ulp of x, so no limit on x_out tells
+# the two apart (PERF.md gives the readings).
+PERSISTENT_MAIN_TOL = {"x": (2.0 ** -2, 2.0 ** -3), "pool": (2.0 ** -2, 2.0 ** -3)}
+
+
+def device_kernel_ms(torch, thunk, steps: int) -> float:
+    """The device kernel time of one call of ``thunk``, in ms: the sum of
+    the kernels' times in a torch.profiler trace of ``steps`` calls (after
+    one untraced call), over ``steps``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    thunk()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            thunk()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / steps
+
+
+def persistent_main_row(tt, torch, eng, fused_eng, mesh) -> dict:
+    """One 36-layer K16 step of Qwen3-8B at tp = 4 (``mesh``) or 1 (None),
+    on the served engine's weights and cache (B = 4), within
+    PERSISTENT_MAIN_TOL of its plain
+    version (the ring's order, on the card), timed beside its bound (every
+    weight of the step, the K/V prefix of every rank and x read once, x and
+    the appended slots written), its plain version, and its chain: the
+    device kernel time of one "fused" step (K4, K15 and the norms and adds,
+    from a trace)."""
+    from triton_distributed_tpu_torch.core.utils import perf_func
+    from triton_distributed_tpu_torch.obs import costs
+    from triton_distributed_tpu_torch.ops import persistent_decode as PD
+
+    c, params, cache = eng.model.config, eng.params, eng.cache
+    n, b, L = 1 if mesh is None else mesh.shape["tp"], eng.batch, c.num_layers
+    sp = eng.stacked()
+    tok = torch.randint(0, c.vocab, (b,), device=eng.device,
+                        generator=torch.Generator(device=eng.device).manual_seed(SEED + 111))
+    x = params.embed[tok]
+    kw = dict(rope_theta=c.rope_theta, rms_eps=c.rms_eps, qk_eps=c.rms_eps if c.qk_norm else None)
+    before = (cache.k.clone(), cache.v.clone())
+    rk, rv = before[0].clone(), before[1].clone()
+    fcache = dataclasses.replace(cache, k=before[0].clone(), v=before[1].clone(),
+                                 seq_lens=cache.seq_lens.clone())
+    got, _, _ = PD.persistent_decode_step(x, sp, cache.k, cache.v, cache.block_table,
+                                          cache.seq_lens, mesh, **kw)
+    want, _, _ = PD.reference_decode_step(x, sp, rk, rv, cache.block_table, cache.seq_lens,
+                                          mesh, **kw)
+    link = fused_hidden(fused_eng.model, params, fcache, x)
+    torch.cuda.synchronize()
+    tol = PERSISTENT_MAIN_TOL
+    shares = {"x": x_share(torch, got, want, tol["x"]),
+              "pool": max(x_share(torch, cache.k, rk, tol["pool"]),
+                          x_share(torch, cache.v, rv, tol["pool"]))}
+    yardstick = {"x": x_share(torch, link, want, tol["x"]),
+                 "pool": max(x_share(torch, fcache.k, rk, tol["pool"]),
+                             x_share(torch, fcache.v, rv, tol["pool"]))}
+    del fcache
+    jk, jv = before[0].clone(), before[1].clone()
+    yardstick["x_plain_jax_order"] = x_share(torch, PD.reference_decode_step(
+        x, sp, jk, jv, cache.block_table, cache.seq_lens, mesh, order="jax", **kw)[0], want,
+        tol["x"])
+    del jk, jv
+    err = (got.float() - want.float()).abs().max().item()
+    check(max(shares.values()) <= 1.0, f"K16 main row: {shares} of its limit from plain")
+    # planted faults: every token one slot on; one rank's o-projection
+    # partial left out at one layer (required at layer 0; at later layers a
+    # reading: see PERSISTENT_MAIN_TOL)
+    faults = {"token_one_slot_on": x_share(torch, moved_token(
+        torch, cache.k, before[0], cache.block_table, cache.seq_lens,
+        cache.k.shape[-2], L), rk, tol["pool"])}
+    if n > 1:
+        for layer in (0, 1, L // 2, L - 1):
+            bad = dropped_partial_step(PD, x, sp, before, cache, mesh, layer, kw)
+            faults[f"o_partial_left_out@{layer}"] = x_share(torch, bad, want, tol["x"])
+    for key in ("token_one_slot_on", "o_partial_left_out@0"):
+        if key in faults:
+            check(faults[key] >= FAULT_MARGIN, f"K16 main row: the planted fault {key} is only "
+                                               f"{faults[key]:.3g} of the limit away")
+    del rk, rv, before
+    check(pads_at_rest(), "a signal pad is not at rest after K16's main row")
+    kern = lambda: PD.persistent_decode_step(x, sp, cache.k, cache.v, cache.block_table,  # noqa
+                                             cache.seq_lens, mesh, **kw)
+    _, ms = perf_func(kern, iters=10)
+
+    def plain():
+        pk, pv = cache.k.clone(), cache.v.clone()
+        return PD.reference_decode_step(x, sp, pk, pv, cache.block_table, cache.seq_lens, mesh,
+                                        **kw)
+
+    _, plain_ms = perf_func(plain, iters=2, warmup_iters=1)
+    # the chain is ~1000 launches a step, enqueued slower than they run: its
+    # device time is the sum of its kernels' times in a trace
+    chain_ms = device_kernel_ms(torch, lambda: fused_eng.model.decode(params, fused_eng.cache, tok),
+                                steps=4)
+    weights = sum(nbytes(*[w for w in (lp.ln1, lp.ln2, lp.attn.wqkv, lp.attn.wo, lp.attn.q_norm,
+                                      lp.attn.k_norm, lp.mlp.gate_up, lp.mlp.down)
+                           if w is not None]) for lp in params.layers)
+    pos = int(cache.seq_lens[:b].sum())
+    kv = L * 2 * pos * c.num_kv_heads * c.head_dim * 2            # K and V prefixes, bf16
+    fn_bytes = weights + kv + 2 * nbytes(x) + L * 2 * b * c.num_kv_heads * c.head_dim * 2
+    cost = costs.persistent_decode(L, b, c.hidden, c.num_heads // n, c.num_kv_heads // n,
+                                   pos // b, c.head_dim, c.intermediate // n, n, c.dtype)
+    bound_ms, bound_by = bound(n * cost.flops, fn_bytes, H100_BF16_FLOPS)
+    joins = 1 + L * (10 + 2 * n)
+    return dict(
+        name=f"persistent_decode[tp{n}]", route="cuda", source=PERSISTENT_SOURCE,
+        replaces="triton_distributed_tpu/ops/persistent_decode.py:368", max_abs_err=err,
+        share_of_limit=shares, yardstick_share_of_limit=yardstick,
+        faulty_share_of_limit=faults, tol=PERSISTENT_MAIN_TOL,
+        ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None, library=None,
+        chain_ms=chain_ms, chain=f"the device time of one tp = {n} 'fused' step",
+        flops=n * cost.flops, function_bytes=fn_bytes, joins_per_step=joins,
+        ms_beyond_bound_per_join=(ms - bound_ms) / joins,
+        shape=f"Qwen3-8B n={n} B={b} L={L} position ~{pos // b} bf16",
+        counter="persistent_decode", form=(n, L, b, c.hidden))
 
 
 def to_cpu(torch, obj):
@@ -2519,7 +3359,8 @@ def phase_parity(tt, torch) -> None:
     start = {kv: prefilled(kv) for kv in (None, "int8")}
     for label, mode, kv_dtype in (("paged+fused", "fused", None),
                                   ("paged+int8", "psum", "int8"),
-                                  ("paged+int8+fused", "fused", "int8")):
+                                  ("paged+int8+fused", "fused", "int8"),
+                                  ("paged+persistent", "persistent", None)):
         card, host = (tt.Qwen3(c, device=w, decode_mode=mode) for w in (dev, "cpu"))
         ccache = copy(start[kv_dtype][0], "cpu")
         gcache = copy(ccache, dev)
@@ -2605,7 +3446,8 @@ def phase_parity_tp(tt, torch) -> None:
                   f"{what}: {name}'s greedy tokens differ from cpu tp=4's")
         return errs
 
-    for layout, modes in (("contiguous", ("psum",)), ("paged", ("psum", "ar", "gemm_ar"))):
+    for layout, modes in (("contiguous", ("psum", "fused", "persistent")),
+                          ("paged", ("psum", "ar", "gemm_ar", "fused", "persistent"))):
         start, logs = {}, {}
         for name, (model, params, tp, where) in sides.items():
             cache = (tt.init_paged_cache(c.num_layers, b, c.num_kv_heads, c.max_length,
@@ -2634,6 +3476,25 @@ def phase_parity_tp(tt, torch) -> None:
                 tok = step_logs["cpu tp=4"].argmax(-1).to(torch.int32)
             emit({"phase": "parity_tp", "layout": layout, "mode": mode, "decode_steps": gen,
                   "max_abs_err_vs_cpu_tp4": worst, "tol": PARITY_TOL, "tokens_equal": True})
+            if mode in ("fused", "persistent") and layout == "paged":
+                # decode_multi (the argmax fed back on the device) against gen
+                # single steps fed their own argmax, on the card at tp = 4 and 1
+                same = {}
+                for name in ("card tp=4", "card tp=1"):
+                    model, params, _, where = models[name], sides[name][1], None, sides[name][3]
+                    tok0 = logs["cpu tp=4"].argmax(-1).to(torch.int32).to(where)
+                    multi, _ = model.decode_multi(params, clone_cache(torch, start[name]), tok0,
+                                                  gen)
+                    single, cache, tok = [], clone_cache(torch, start[name]), tok0
+                    for _ in range(gen):
+                        lg, cache = model.decode(params, cache, tok)
+                        tok = lg.argmax(-1).to(torch.int32)
+                        single.append(tok)
+                    same[name] = bool(torch.equal(multi, torch.stack(single)))
+                    check(same[name], f"{mode} {name}: decode_multi differs from {gen} single "
+                                      "steps")
+                emit({"phase": "parity_tp", "layout": layout, "mode": mode,
+                      "decode_multi_equals_single_steps": same})
     emit({"phase": "parity_tp_done", "config": "Qwen3-8B width, 2 layers, f32, tp = 4",
           "batch": b, "prompt": s, "seconds": time.perf_counter() - t0})
     del sides, params4, params1, cparams4, card4, card1, cpu4
@@ -2691,12 +3552,18 @@ def main() -> int:
         rows.update(coll_rows)
         phase = "overlap_cases"
         rows.update(phase_overlap(tt, torch))
+        phase = "fused_tp"
+        rows.update(phase_fused_tp(tt, torch))
+        phase = "persistent_cases"
+        phase_persistent_cases(tt, torch)
         phase = "serve"
         t0 = time.perf_counter()
-        launches = phase_serve(tt, torch)
+        launches, serve_forms, serve_rows = phase_serve(tt, torch)
+        rows.update(serve_rows)
         emit({"phase": "serve_done", "seconds": time.perf_counter() - t0})
         phase = "serve_tp"
-        tp_launches, tp_forms = phase_serve_tp(tt, torch)
+        tp_launches, tp_forms, tp_rows = phase_serve_tp(tt, torch)
+        rows.update(tp_rows)
         phase = "serve_moe"
         t0 = time.perf_counter()
         moe_launches, forms = phase_serve_moe(tt, torch)
@@ -2705,7 +3572,7 @@ def main() -> int:
                         *coll_launches.items(), *tp_launches.items()]:
             launches[name] += n
         forms.update(local_forms)
-        for key, n in [*coll_forms.items(), *tp_forms.items()]:
+        for key, n in [*coll_forms.items(), *tp_forms.items(), *serve_forms.items()]:
             forms[key] = forms.get(key, 0) + n
         for name, n in launches.items():
             check(n > 0, f"{name} was not launched on the main path")
@@ -2721,7 +3588,7 @@ def main() -> int:
         for name, row in rows.items():
             # K5's and K6's rows: the launches of the row's form, as counted
             n = (forms.get((row.get("counter", "grouped_matmul"), row["form"]), 0)
-                 if "form" in row else launches.get(name))
+                 if "form" in row else launches.get(row.get("counter", name)))
             check(n > 0, f"{name}: no launch of its form on the main path")
             kernels.append({k: row[k] for k in (
                 "name", "route", "source", "replaces")} | {

@@ -174,8 +174,11 @@ def test_wrappers_refuse_unserved_arguments():
     with pytest.raises(ValueError, match="kv_dtype"):
         tkv.init_paged_cache(1, 1, 1, 8, 8, page_size=4, device="cpu",
                              kv_dtype="quarter")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tt.fused_linear_ar(torch.zeros(1, 4), torch.zeros(4, 4), world_size=2)
+    # the fused MLP ring serves n ranks now; its quantized wire waits for B9
+    mesh = tt.make_mesh({"tp": 2}, device="cpu")
+    with pytest.raises(NotImplementedError, match="B9"):
+        tt.fused_mlp_ar(torch.zeros(1, 8), torch.zeros(2, 8, 16), torch.zeros(2, 8, 16), mesh,
+                        wire_dtype="fp8")
 
 
 def test_port_import_leaves_jax_out():
@@ -199,6 +202,8 @@ def test_port_import_leaves_jax_out():
         "import triton_distributed_tpu_torch.layers.tp_mlp\n"
         "import triton_distributed_tpu_torch.layers.tp_attn\n"
         "import triton_distributed_tpu_torch.models.convert\n"
+        "import triton_distributed_tpu_torch.ops.fused_decode\n"
+        "import triton_distributed_tpu_torch.ops.persistent_decode\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'triton_distributed_tpu'"
         " or m.startswith('triton_distributed_tpu.')]\n"

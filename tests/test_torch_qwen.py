@@ -108,8 +108,15 @@ def test_engine_greedy_tokens_match_jax(models, layout):
 
 
 def test_engine_refuses_unserved_modes():
-    with pytest.raises(NotImplementedError, match="decode_mode"):
-        tt.Engine.build(TCFG, device="cpu", decode_mode="persistent")
+    # "persistent" is served: one step of every layer (on the CPU JAX's
+    # n = 1 reference step), the same greedy tokens as "psum" here
+    ids = torch.zeros((1, 4), dtype=torch.int32)
+    pers = tt.Engine.build(TCFG, device="cpu", decode_mode="persistent", cache_layout="paged",
+                           page_size=PAGE, generator=torch.Generator().manual_seed(3))
+    assert pers.model.decode_mode == "persistent"
+    want = tt.Engine(tt.Qwen3(TCFG, device="cpu"), pers.params, batch=1, cache_layout="paged",
+                     page_size=PAGE).generate(ids, 3)
+    assert torch.equal(pers.generate(ids, 3), want)
     # at tp = 1 the AllReduce modes reduce nothing and serve as "psum" (JAX
     # qwen.py:182-190); tests/test_torch_tp.py serves them at tp = 4
     for mode in ("ar", "gemm_ar"):

@@ -541,14 +541,13 @@ def test_gemm_ar_mode_takes_ar_path_for_ragged_batch(port_tp):
 
 
 def test_tp_refusals(monkeypatch):
-    """What this slice does not serve at tp > 1 raises by name; a mesh on
-    CUDA without CUDA raises; at tp = 1 "ar" and "gemm_ar" reduce nothing
-    and serve as "psum", as in JAX."""
+    """What is not served at tp > 1 raises by name ("fused" and
+    "persistent" are served: tests/test_torch_persistent.py holds them to
+    JAX); a mesh on CUDA without CUDA raises; at tp = 1 "ar" and "gemm_ar"
+    reduce nothing and serve as "psum", as in JAX."""
     mesh = tt.make_mesh({"tp": N}, device="cpu")
-    with pytest.raises(NotImplementedError, match="B7"):
-        tt.Qwen3(TCFG, mesh=mesh, decode_mode="fused")
-    with pytest.raises(NotImplementedError, match="persistent"):
-        tt.Qwen3(TCFG, mesh=mesh, decode_mode="persistent")
+    for mode in ("fused", "persistent"):
+        assert tt.Qwen3(TCFG, mesh=mesh, decode_mode=mode).decode_mode == mode
     with pytest.raises(NotImplementedError, match="int8"):
         tt.Engine.build(TCFG, mesh=mesh, cache_layout="paged", kv_dtype="int8")
     with pytest.raises(NotImplementedError, match="MoE"):

@@ -7,7 +7,8 @@ MoE (Qwen3-30B-A3B, TP strategy), on one NVIDIA Hopper GPU at tp = 1 (and
 dense at tp = n on co-located ranks, below):
 prefill, then decode on a contiguous or a paged KV cache, with
 full-precision or int8 pages, in ``decode_mode`` "psum" (the per-kernel
-chain) or "fused" (one attention megakernel per layer on a paged cache).
+chain), "fused" (one attention megakernel per layer on a paged cache) or
+"persistent" (every layer of a step in one launch, :func:`persistent_decode_step`).
 Attention and the MoE expert products run through hand-written CUDA kernels
 (``csrc/``), built by ``nvcc`` for ``sm_90a`` at first use; every other
 product of the model is ``torch.matmul``.
@@ -30,7 +31,9 @@ Collectives (``comm``) on a mesh of ranks co-located on one card
 launch over every rank, on the signal pads and symmetric buffers of
 ``core/symm.py``.  Dense Qwen3 runs on such a mesh at tp = n
 (``Engine.build(config, mesh=make_mesh({"tp": 4}))``): prefill on K12 and
-K13, decode in "psum", "ar" (K11) or "gemm_ar" (K14).
+K13, decode in "psum", "ar" (K11), "gemm_ar" (K14), "fused" (K4 for every
+rank in one launch, the reductions on :func:`fused_linear_ar` and
+:func:`fused_mlp_ar`, K15) or "persistent" (K16).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``, where
 the kernels' plain PyTorch versions run instead.  Without CUDA and without
@@ -74,6 +77,8 @@ from .ops.attention import (
 from .ops.ag_gemm import ag_gemm
 from .ops.fused_decode import fused_attn_decode, fused_linear_ar, fused_mlp_ar
 from .ops.gemm_ar import gemm_ar
+from .ops.persistent_decode import (StackedDecodeParams, decode_bundle, persistent_decode_step,
+                                    stack_decode_params)
 from .ops.gemm_rs import gemm_rs
 from .ops.group_gemm import GroupGemmConfig, grouped_matmul
 from .ops.matmul import matmul, matmul_callable
@@ -84,6 +89,7 @@ __all__ = [
     "DP_AXIS", "EP_AXIS", "PP_AXIS", "SP_AXIS", "SymmetricBuffer", "TP_AXIS",
     "comm", "make_mesh", "shard", "symm_buffer", "symm_signal", "unshard",
     "ag_gemm", "gemm_ar", "gemm_rs",
+    "StackedDecodeParams", "decode_bundle", "persistent_decode_step", "stack_decode_params",
     "reblock", "unshard_cache",
     "Engine", "GroupGemmConfig", "KVCache", "LibraryBackend", "MoEMLP",
     "MoEParams", "ModelConfig", "PagePoolExhausted", "PagedKVCache",

@@ -18,8 +18,8 @@ import collections
 
 import torch
 
-from ..lang.primitives import (Matmul, Notify, Put, Reduce, Team, Wait, collective_prologue,
-                               notify, put, wait)
+from ..lang.primitives import (Matmul, Notify, Put, Reduce, Swiglu, Team, Wait,
+                               collective_prologue, notify, put, wait)
 
 
 def chunk(idx: int, m: int) -> tuple[int, int]:
@@ -134,6 +134,26 @@ def rs_ring_phase(prog: list, team: Team, me: int, last_dst: tuple[str, int],
         notify(prog, ("ack", slot_in), left)
 
 
+def chunk_ar_phase(prog: list, team: Team, me: int, src: tuple[str, int], dst: str,
+                   armed: bool) -> None:
+    """One column-chunked GEMM + two-shot AllReduce instance (JAX
+    ``comm/ring.py::gemm_rs_chunk_phase`` then ``ag_ring_phase``, as
+    ``fused_decode.py:507-580`` and ``persistent_decode.py:206-252``
+    ``_chained_ar`` run them): the ReduceScatter ring of
+    :func:`rs_ring_phase` whose chunk j is the product of the activations
+    ``src`` with weight column chunk ("w", j), made just before the step
+    that reads it, its last add landing in chunk ``me`` of ``dst``; then the
+    AllGather ring of the reduced chunks of ``dst``.  ``armed`` (an
+    instance after the first on the same flags) first takes the previous
+    instance's outstanding ACK credits (:func:`rs_ack_drain`); an instance
+    drains none at its own end."""
+    if armed:
+        rs_ack_drain(prog, team.size)
+    rs_ring_phase(prog, team, me, (dst, me), last_f32=False, local="mm",
+                  produce=lambda j: prog.append(Matmul(("mm", j), src, ("w", j))))
+    ag_ring_phase(prog, team, me, dst)
+
+
 def rs_ack_drain(prog: list, n: int) -> None:
     """Take the ACK credits still outstanding at the end of the ring: the
     in-loop waits covered sends 0..n-4; the last two sends' credits (one
@@ -152,8 +172,12 @@ def rs_ack_drain(prog: list, n: int) -> None:
 def _apply(op, r: int, bufs: list[dict]) -> None:
     if isinstance(op, Matmul):
         # the f32 product of the operands, rounded once by the copy
-        a, b = bufs[r][op.src[0]][op.src[1]], bufs[r]["b"][0]
+        a, b = bufs[r][op.src[0]][op.src[1]], bufs[r][op.w[0]][op.w[1]]
         bufs[r][op.dst[0]][op.dst[1]].copy_(torch.matmul(a.float(), b.float()))
+        return
+    if isinstance(op, Swiglu):
+        g, u = (bufs[r][name][i].float() for name, i in (op.g, op.u))
+        bufs[r][op.dst[0]][op.dst[1]].copy_(torch.nn.functional.silu(g) * u)
         return
     src = [bufs[r][b][i] for b, i in op.srcs]
     if isinstance(op, Put):
@@ -168,10 +192,11 @@ def _apply(op, r: int, bufs: list[dict]) -> None:
         bufs[r][op.dst[0]][op.dst[1]].copy_(src[0] + src[1])
 
 
-def walk(programs: list[list], bufs: list[dict[str, list[torch.Tensor]]]) -> None:
+def walk(programs: list[list], bufs: list[dict[str, list[torch.Tensor]]] | None) -> None:
     """Run the programs of one team's ranks on tensors: ``bufs[r][name][i]``
     is entry ``i`` (a chunk or a slot) of rank ``r``'s buffer ``name``
     (``bufs[r]["b"][0]``: the rank's B operand of a :class:`Matmul`).
+    ``bufs`` None walks the protocol alone: credits and waits, no data.
 
     Each rank runs until a :class:`Wait` finds its flag short, then the next
     rank runs; a round in which no rank moves is a deadlock and raises, as
@@ -191,7 +216,8 @@ def walk(programs: list[list], bufs: list[dict[str, list[torch.Tensor]]]) -> Non
                 elif isinstance(op, Notify):
                     flags[op.target, op.flag] += 1
                 else:
-                    _apply(op, r, bufs)
+                    if bufs is not None:
+                        _apply(op, r, bufs)
                     if isinstance(op, Put) and op.flag is not None:
                         flags[op.dst_rank, op.flag] += 1
                 pcs[r] += 1

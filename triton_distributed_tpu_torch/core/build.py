@@ -41,7 +41,7 @@ SIGNATURES = {
     "tdt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                             _F, _I, _P],
     "tdt_decode_attention": [*[_P] * 10, *[_I] * 9, _F, _F, _I, _P],
-    "tdt_fused_attn_decode": [*[_P] * 19, *[_I] * 11, _F, _F, _F, _I, _P],
+    "tdt_fused_attn_decode": [*[_P] * 19, *[_I] * 11, _F, _F, _F, _I, _I, _P],
     "tdt_fused_attn_decode_blocks_per_sm": [_I, _I, _I, _I],
     "tdt_grouped_matmul": [*[_P] * 4, *[_I] * 9, _P],
     "tdt_grouped_schedule": [_P, _I, _I, _I, _P, _P],
@@ -58,6 +58,11 @@ SIGNATURES = {
     "tdt_ag_gemm": [_P, _I, _P],
     "tdt_gemm_rs": [_P, _P],
     "tdt_gemm_ar": [_P, _P],
+    # K15 and K16 take a pointer to their FusedArArgs / PersistentArgs
+    "tdt_fused_ar": [_P, _I, _P],
+    "tdt_fused_ar_lanes": [_I, _I, _I, _I],
+    "tdt_persistent_decode": [_P, _I, _I, _P],
+    "tdt_persistent_lanes": [_I, _I, _I, _I],
 }
 
 

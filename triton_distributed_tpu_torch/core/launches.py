@@ -29,6 +29,9 @@ KERNELS = (
     "ag_gemm",                       # K12, form (ring, n, A shard, B shard)
     "gemm_rs",                       # K13, form ("ring", n, A shard, B shard)
     "gemm_ar",                       # K14, form ("ring", n, A shard, B shard)
+    "fused_mlp_ar",                  # K15 swiglu, form (n, B, K, F / n, N)
+    "fused_linear_ar",               # K15 linear, form (n, B, F / n, N)
+    "persistent_decode",             # K16, form (n, layers, B, K)
 )
 
 _counts = dict.fromkeys(KERNELS, 0)

@@ -152,7 +152,54 @@ class GemmArgs(ctypes.Structure):
                 ("m_loc", ctypes.c_int), ("k", ctypes.c_int), ("n_cols", ctypes.c_int)]
 
 
-def _peers(ptrs) -> _Peers:
+class Gemv(ctypes.Structure):
+    """A decode product's plan (csrc/fused_ar.cuh Gemv): B rows, depth Kd,
+    ``cols`` output columns, the K rows cut into ``n_kslice`` slices of
+    ``k_chunk``."""
+
+    _fields_ = [("B", ctypes.c_int), ("Kd", ctypes.c_int), ("cols", ctypes.c_int),
+                ("n_kslice", ctypes.c_int), ("k_chunk", ctypes.c_int)]
+
+
+class FusedArArgs(ctypes.Structure):
+    """K15's launch arguments (csrc/fused_ar.cu FusedArArgs): the ring's
+    :class:`CollArgs`, the peer tables of the activations, the gate/up and
+    down (or o-proj) weights, the SwiGLU output and the f32 partials, the
+    (B, N) result, and the products' plans."""
+
+    _fields_ = [("c", CollArgs), ("a", _Peers), ("w_up", _Peers), ("w", _Peers),
+                ("act", _Peers), ("part", _Peers), ("rows_out", ctypes.c_void_p),
+                ("K", ctypes.c_int), ("F", ctypes.c_int), ("N", ctypes.c_int),
+                ("up", Gemv), ("dn", Gemv)]
+
+
+PERSISTENT_REGIONS = ("x", "h", "att", "act", "q_buf", "k_tok", "v_tok", "part_proj",
+                      "part_acc", "part_ml", "part")
+
+
+class PersistentArgs(ctypes.Structure):
+    """K16's launch arguments (csrc/persistent_decode.cu PersistentArgs):
+    the ring's :class:`CollArgs`, the layer table and each weight kind's
+    per-rank stride, the step's tensors, each rank's scratch base and the
+    regions' offsets in it (:data:`PERSISTENT_REGIONS`), and the plans."""
+
+    _fields_ = [("c", CollArgs), ("layers", ctypes.c_void_p),
+                ("w_stride", ctypes.c_longlong * 8),
+                ("x_in", ctypes.c_void_p), ("x_out", ctypes.c_void_p),
+                ("pool_k", ctypes.c_void_p), ("pool_v", ctypes.c_void_p),
+                ("table", ctypes.c_void_p), ("lens", ctypes.c_void_p),
+                ("inv_freq", ctypes.c_void_p), ("scratch", _Peers),
+                ("off", ctypes.c_longlong * len(PERSISTENT_REGIONS)),
+                ("layer_pool_elems", ctypes.c_longlong),
+                *[(f, ctypes.c_int) for f in ("L", "B", "K", "F", "hk", "ps", "mp", "proj_nks",
+                                             "proj_kchunk", "n_split", "chunk")],
+                ("o", Gemv), ("up", Gemv), ("dn", Gemv),
+                *[(f, ctypes.c_float) for f in ("sm_scale", "soft_cap", "qk_eps", "rms_eps")],
+                ("qk_norm", ctypes.c_int)]
+
+
+def peers(ptrs) -> _Peers:
+    """A peer table of the given addresses (one per mesh slot; none: all null)."""
     p = _Peers()
     for i, v in enumerate(ptrs or ()):
         p.p[i] = v
@@ -163,8 +210,8 @@ def gemm_args(coll: CollArgs, mesh: Mesh, *, a: torch.Tensor | None, b: torch.Te
               y: torch.Tensor, m_loc: int, k: int, n_cols: int) -> GemmArgs:
     """:class:`GemmArgs` around ``coll`` with the peer tables of the
     rank-stacked ``a`` (None: unused), ``b`` and ``y``."""
-    return GemmArgs(coll, _peers(slot_ptrs(a, mesh) if a is not None else None),
-                    _peers(slot_ptrs(b, mesh)), _peers(slot_ptrs(y, mesh)), m_loc, k, n_cols)
+    return GemmArgs(coll, peers(slot_ptrs(a, mesh) if a is not None else None),
+                    peers(slot_ptrs(b, mesh)), peers(slot_ptrs(y, mesh)), m_loc, k, n_cols)
 
 
 def coll_args(team: Team, mesh: Mesh, *, x: torch.Tensor, out: torch.Tensor,
@@ -174,9 +221,9 @@ def coll_args(team: Team, mesh: Mesh, *, x: torch.Tensor, out: torch.Tensor,
     tables of ``x``, ``out``, the landing slots and the pad, and the team
     layout (``slot[g * n + r]`` is the mesh slot of rank r of team g)."""
     a = CollArgs()
-    a.x, a.out = _peers(slot_ptrs(x, mesh)), _peers(slot_ptrs(out, mesh))
-    a.land = _peers(land.ptrs() if land is not None else None)
-    a.flags = _peers(pad.ptrs())
+    a.x, a.out = peers(slot_ptrs(x, mesh)), peers(slot_ptrs(out, mesh))
+    a.land = peers(land.ptrs() if land is not None else None)
+    a.flags = peers(pad.ptrs())
     a.chunk_elems = chunk_elems
     groups = team.groups()
     a.n, a.groups = team.size, len(groups)

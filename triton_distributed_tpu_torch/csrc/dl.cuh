@@ -50,11 +50,10 @@ constexpr unsigned long long kWaitNs = 2000000000ull;  // ~2 s
 constexpr int kBarrier = 0;
 constexpr int kRsRecv = 1;   // + slot (0, 1): the ReduceScatter ring's arrivals
 constexpr int kAck = 3;      // + slot: consumption credits of those slots
+// Rank-wide barrier counters, in lane 0's row only (rank_sync)
+constexpr int kSyncArrive = 5;
+constexpr int kSyncLeave = 6;
 constexpr int kRecv = 8;     // + chunk or one-shot slot: arrivals
-// Rank-wide counters, in lane 0's row only (lanes_join): the lanes that hold
-// their part of a chunk, and the lanes that are past waiting for all of them
-constexpr int kReady = 16;   // + chunk
-constexpr int kDone = 24;    // + chunk
 
 struct Peers {
   char* p[kMaxRanks];  // base address, per mesh slot
@@ -201,36 +200,52 @@ __device__ __forceinline__ void collective_prologue(const Rank& c, bool neighbor
   else barrier_all(c);
 }
 
-// Join of every lane of this rank on `chunk` (the overlapped GEMMs): a chunk
-// moves in lane slices but a GEMM tile reads whole rows of it, and a tile's
-// output feeds every lane's slice, so a counting wait (one consumer) cannot
-// say "all of the chunk is here".  Each lane, once its part is written (its
-// stores fenced as a put's), adds one to the rank's ready[chunk] and waits
-// until all gridDim.x lanes have; the last lane past the wait (done[chunk]
-// reaches gridDim.x) clears both, so the pad is at rest after the launch.
-// Each chunk is joined once a launch, so no lane can add to a counter after
-// it is cleared.  Bounded like wait().
-__device__ __forceinline__ void lanes_join(const Rank& c, int chunk) {
-  put_fence();
+// A rank-wide barrier that a launch may pass any number of times (K12-K14's
+// chunks, K15's and K16's stages: each reads what other lanes of the rank
+// wrote; a GEMM tile reads whole rows of a chunk that moves in lane slices,
+// and writes columns that every lane's slice covers): the
+// lanes' arrivals count up in lane 0's row at kSyncArrive, and the g-th
+// barrier of the launch waits until g * gridDim.x lanes have arrived.  Each
+// lane keeps `gen`, its own count of barriers passed; every lane passes the
+// same barriers in the same order.  The lanes of a rank are always on one
+// card, so the fence, the arrival and the polls are at device scope (a
+// peer's flags keep system scope).  rank_sync_exit, after a lane's last
+// barrier, clears both counters once the last lane is past it, so the pad
+// is at rest after the launch.  Bounded like wait().
+__device__ __forceinline__ int ld_acquire_gpu(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void rank_sync(const Rank& c, int& gen) {
+  __syncthreads();
+  ++gen;
   if (threadIdx.x == 0) {
-    int* row = reinterpret_cast<int*>(c.a.flags.p[c.slot(c.me)]);
-    int* ready = row + kReady + chunk;
-    const int want = static_cast<int>(gridDim.x);
-    red_release_add(ready, 1);
-    int seen = ld_acquire(ready);
+    __threadfence();
+    int* arrive = reinterpret_cast<int*>(c.a.flags.p[c.slot(c.me)]) + kSyncArrive;
+    const int want = gen * static_cast<int>(gridDim.x);
+    asm volatile("red.release.gpu.global.add.s32 [%0], %1;" ::"l"(arrive), "r"(1) : "memory");
+    int seen = ld_acquire_gpu(arrive);
     if (seen < want) {
       const unsigned long long t0 = globaltimer();
-      while ((seen = ld_acquire(ready)) < want) {
-        if (globaltimer() - t0 > kWaitNs) timed_out(c, kReady + chunk, seen, want);
+      while ((seen = ld_acquire_gpu(arrive)) < want) {
+        if (globaltimer() - t0 > kWaitNs) timed_out(c, kSyncArrive, seen, want);
         __nanosleep(32);
       }
     }
-    if (atomicAdd_system(row + kDone + chunk, 1) == want - 1) {
-      atomicExch_system(ready, 0);
-      atomicExch_system(row + kDone + chunk, 0);
-    }
   }
   __syncthreads();
+}
+
+__device__ __forceinline__ void rank_sync_exit(const Rank& c) {
+  if (threadIdx.x == 0) {
+    int* row = reinterpret_cast<int*>(c.a.flags.p[c.slot(c.me)]);
+    if (atomicAdd_system(row + kSyncLeave, 1) == static_cast<int>(gridDim.x) - 1) {
+      atomicExch_system(row + kSyncArrive, 0);
+      atomicExch_system(row + kSyncLeave, 0);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -240,21 +255,23 @@ __device__ __forceinline__ void lanes_join(const Rank& c, int chunk) {
 template <typename U>
 __device__ __forceinline__ U ldcg(const U* p) { return __ldcg(p); }
 
-// dst[k][i] = src[i] for k < ndst, i in [lo, hi): one read, ndst writes
+// dst[k][i] = src[i] for k < ndst, i in [lo, hi): one read, ndst writes.
+// Strided by the block's threads (K9-K14 run kThreads, K15/K16 fewer).
 template <typename U>
 __device__ __forceinline__ void copy_units(U* const* dst, int ndst, const U* src,
                                            long long lo, long long hi) {
   constexpr int kUnroll = 4;
+  const int nt = blockDim.x;
   long long i = lo + threadIdx.x;
-  for (; i + (kUnroll - 1) * kThreads < hi; i += kUnroll * kThreads) {
+  for (; i + (kUnroll - 1) * nt < hi; i += kUnroll * nt) {
     U v[kUnroll];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) v[u] = ldcg(src + i + u * kThreads);
+    for (int u = 0; u < kUnroll; ++u) v[u] = ldcg(src + i + u * nt);
     for (int k = 0; k < ndst; ++k)
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) dst[k][i + u * kThreads] = v[u];
+      for (int u = 0; u < kUnroll; ++u) dst[k][i + u * nt] = v[u];
   }
-  for (; i < hi; i += kThreads) {
+  for (; i < hi; i += nt) {
     const U v = ldcg(src + i);
     for (int k = 0; k < ndst; ++k) dst[k][i] = v;
   }
@@ -267,17 +284,12 @@ __device__ __forceinline__ void copy_units(U* const* dst, int ndst, const U* src
 // (allocated at the first call; collectives.cu).
 cudaError_t record_words(int** dev);
 
-// One cooperative launch of `kernel(*args)` over (lanes, n * groups) blocks
-// of kThreads with `smem` bytes of dynamic shared memory: `want` lanes, at
-// most what the card holds at once (every block must be resident: blocks
-// spin on each other's flags).  `coll` is the CollArgs inside `args`.
-template <typename K, typename Args>
-cudaError_t cooperative_launch(K kernel, Args* args, CollArgs* coll, long long want,
-                               int smem, cudaStream_t st) {
-  cudaError_t e = record_words(&coll->record);
-  if (e != cudaSuccess) return e;
-  const int ranks = coll->n * coll->groups;
-  if (coll->n < 1 || ranks > kMaxRanks) return cudaErrorInvalidValue;
+// The lanes a cooperative launch of `kernel` over `ranks` ranks can have
+// (blocks of `threads` threads with `smem` bytes of dynamic shared memory):
+// what the card holds at once, split among the ranks; 0 if none fit.
+template <typename K>
+cudaError_t resident_lanes(K kernel, int ranks, int threads, int smem, long long* lanes) {
+  cudaError_t e;
   if (smem > 48 * 1024 &&
       (e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
           cudaSuccess)
@@ -286,17 +298,33 @@ cudaError_t cooperative_launch(K kernel, Args* args, CollArgs* coll, long long w
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) !=
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem)) !=
       cudaSuccess)
     return e;
-  long long lanes = min(want, static_cast<long long>(per_sm) * sms / ranks);
-  lanes = max(1LL, min(lanes, static_cast<long long>(kMaxLanes)));
-  if (lanes * ranks > static_cast<long long>(per_sm) * sms)
-    return cudaErrorCooperativeLaunchTooLarge;
+  *lanes = min(static_cast<long long>(per_sm) * sms / max(ranks, 1),
+               static_cast<long long>(kMaxLanes));
+  return cudaSuccess;
+}
+
+// One cooperative launch of `kernel(*args)` over (lanes, n * groups) blocks
+// of `threads` with `smem` bytes of dynamic shared memory: `want` lanes, at
+// most what the card holds at once (every block must be resident: blocks
+// spin on each other's flags).  `coll` is the CollArgs inside `args`.
+template <typename K, typename Args>
+cudaError_t cooperative_launch(K kernel, Args* args, CollArgs* coll, long long want,
+                               int smem, cudaStream_t st, int threads = kThreads) {
+  cudaError_t e = record_words(&coll->record);
+  if (e != cudaSuccess) return e;
+  const int ranks = coll->n * coll->groups;
+  if (coll->n < 1 || ranks > kMaxRanks) return cudaErrorInvalidValue;
+  long long fit = 0;
+  if ((e = resident_lanes(kernel, ranks, threads, smem, &fit)) != cudaSuccess) return e;
+  if (fit < 1) return cudaErrorCooperativeLaunchTooLarge;
+  const long long lanes = max(1LL, min(want, fit));
   Args copy = *args;
   void* params[] = {&copy};
   return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
-                                     dim3(static_cast<unsigned>(lanes), ranks), dim3(kThreads),
+                                     dim3(static_cast<unsigned>(lanes), ranks), dim3(threads),
                                      params, smem, st);
 }
 

@@ -45,364 +45,123 @@
 // block to exit clears the counters for the next launch; launches on one
 // stream are ordered, and the counters belong to one stream at a time.
 //
+// Rank-folded (tp = n co-located ranks, n_ranks > 1): one launch serves every
+// rank.  Items are handed out every rank's projection items first, then every
+// rank's attention items, so the argument above holds across ranks; an item
+// of rank r runs on rank r's view of the arguments (fused_stages.cuh
+// at_rank: its wqkv block, its B sequences of the folded table, lengths and
+// pools, its outputs and scratch) with rank r's counters.  x is read with
+// stride 0 over the ranks.  That launch is its own instantiation (FOLDED,
+// full-precision pages only: int8 pages are served at tp = 1); the tp = 1
+// launch takes its arguments as they are, the kernel it was.
+//
 // Rounding follows the JAX kernel: q, k, v are rounded to T after the f32
 // projection, after the norm and after RoPE; q is scaled in f32 and rounded
 // before its products; p is rounded to T before it multiplies V.
-#include "decode_split.cuh"
+#include "fused_stages.cuh"
 
 namespace tdt {
 namespace {
 
-constexpr int kProjBatch = 4;   // sequences per pass over a weight tile
-constexpr int kProjUnroll = 8;  // weight rows in flight per lane group
-
-struct FusedArgs {
-  const void* x;             // (B, K) T
-  const void* wqkv;          // (K, N) T, N = (Hq + 2 Hkv) D, columns [q | k | v]
-  const void* q_norm;        // (D,) T, null without qk-norm
-  const void* k_norm;
-  void* pool_k;              // (P, Hkv, ps, D) S
-  void* pool_v;
-  const float* k_scale;      // (P * Hkv) f32 for int8 pools, else null
-  const float* v_scale;
-  const int* table;          // (B, max_pages)
-  const int* lens;           // (B,) position of the new token
-  const float* inv_freq;     // (D / 2) RoPE inverse frequencies
-  void* out;                 // (B, Hq, D) T
-  void* q_buf;               // (B, Hq, D) T: the normed, rotated queries
-  void* k_tok;               // (B, Hkv, D) T: the new token's k and v
-  void* v_tok;
-  float* part_proj;          // (n_kslice, B, N) f32 projection partials
-  float* part_acc;           // (B * Hkv * n_split, G, D) f32 split states
-  float* part_ml;            // (B * Hkv * n_split, G, 2)
-  int* sync;                 // [work, exit, tile tickets (Hkv (G + 2)), head
-                             //  tickets (Hkv), ready (Hkv), split tickets
-                             //  (B Hkv)], zero at rest
-  int B, K, Hkv, page_size, max_pages, n_kslice, k_chunk, n_split, chunk;
-  float sm_scale, soft_cap, eps;
-};
-
-__device__ __forceinline__ float ldcg_f32(const float* p) { return __ldcg(p); }
-__device__ __forceinline__ float ldcg_f32(const bf16* p) {
-  return __bfloat162float(__ushort_as_bfloat16(
-      __ldcg(reinterpret_cast<const unsigned short*>(p))));
+// The per-rank counters of the sync buffer: tile tickets Hkv (G + 2), head
+// tickets Hkv, ready flags Hkv, split tickets B Hkv.
+template <int G>
+__device__ __forceinline__ int rank_sync_words(const FusedArgs& a) {
+  return a.Hkv * (G + 2) + 2 * a.Hkv + a.B * a.Hkv;
 }
 
-// Every thread's writes become visible, then thread 0 counts this block in;
-// true (in every thread) for the block that brings the count to `total`.
-__device__ __forceinline__ bool arrive_last(int* counter, int total) {
-  __shared__ int s_last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) s_last = atomicAdd(counter, 1) == total - 1;
-  __syncthreads();
-  const bool last = s_last;
-  if (last) __threadfence();
-  __syncthreads();  // s_last may be reused
-  return last;
-}
-
-__device__ __forceinline__ void raise_flag(int* flag) {
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) atomicExch(flag, 1);
-}
-
-__device__ __forceinline__ int load_acquire(const int* p) {
-  int v;
-  asm volatile("ld.global.acquire.gpu.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-// Waits for a flag another block raises, polling with plain acquire loads
-// (no read-modify-write traffic on the flag's L2 line).  The wait is
-// bounded: a flag still down after about 2^26 polls (seconds, where a step
-// takes microseconds) means corrupt counters, and the kernel traps, which
-// fails the launch, rather than spin on.
-__device__ __forceinline__ void wait_flag(const int* flag) {
-  if (threadIdx.x == 0) {
-    unsigned polls = 0;
-    while (load_acquire(flag) == 0) {
-      __nanosleep(64);
-      if (++polls == (1u << 26)) __trap();
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-// First wqkv column of tile `tile` of kv head h: tiles 0..G-1 are its query
-// heads, G its k head, G + 1 its v head.
-template <int D, int G>
-__device__ __forceinline__ int column0(int tile, int h, int Hkv) {
-  const int Hq = Hkv * G;
-  if (tile < G) return (h * G + tile) * D;
-  return (Hq + (tile == G ? 0 : Hkv) + h) * D;
-}
-
-// Phase 1: partial sums of x[b] . wqkv[k0:k1, col0:col0 + D] for every b.
-template <typename T, int D>
-__device__ void project_tile(const FusedArgs& a, int N, int col0, int ks) {
-  constexpr int E = 16 / sizeof(T);  // weight columns per 16-byte load
-  constexpr int LPW = D / E;         // lanes per weight row of the tile
-  constexpr int RPW = 32 / LPW;      // weight rows per warp
-  constexpr int RPB = kWarps * RPW;  // weight rows per block and step
-  constexpr int U = kProjUnroll;
-  constexpr int PB = kProjBatch;
-  static_assert(LPW <= 32 && 32 % LPW == 0, "unsupported head dim");
-  __shared__ float s_red[kWarps][PB][D];
-  const T* __restrict__ x = static_cast<const T*>(a.x);
-  const T* __restrict__ w = static_cast<const T*>(a.wqkv);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int sub = lane % LPW, row = warp * RPW + lane / LPW;
-  const int k0 = ks * a.k_chunk, k1 = min(a.K, k0 + a.k_chunk);
-  for (int b0 = 0; b0 < a.B; b0 += PB) {
-    float acc[PB][E];
-#pragma unroll
-    for (int bb = 0; bb < PB; ++bb)
-#pragma unroll
-      for (int e = 0; e < E; ++e) acc[bb][e] = 0.f;
-    for (int kk = k0 + row; kk < k1; kk += RPB * U) {
-      uint4 wr[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int k = kk + u * RPB;
-        wr[u] = make_uint4(0u, 0u, 0u, 0u);
-        if (k < k1)
-          wr[u] = __ldg(reinterpret_cast<const uint4*>(
-              w + static_cast<size_t>(k) * N + col0 + sub * E));
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int k = kk + u * RPB;
-        if (k < k1) {
-          float wf[E];
-          unpack16(wr[u], wf, T());
-#pragma unroll
-          for (int bb = 0; bb < PB; ++bb) {
-            if (b0 + bb < a.B) {
-              const float xv = to_f32(x[static_cast<size_t>(b0 + bb) * a.K + k]);
-#pragma unroll
-              for (int e = 0; e < E; ++e) acc[bb][e] = fmaf(xv, wf[e], acc[bb][e]);
-            }
-          }
-        }
-      }
-    }
-    // the rows of a warp, then the warps
-#pragma unroll
-    for (int off = LPW; off < 32; off <<= 1)
-#pragma unroll
-      for (int bb = 0; bb < PB; ++bb)
-#pragma unroll
-        for (int e = 0; e < E; ++e) acc[bb][e] += __shfl_xor_sync(kFullMask, acc[bb][e], off);
-    if (lane < LPW) {
-#pragma unroll
-      for (int bb = 0; bb < PB; ++bb)
-#pragma unroll
-        for (int e = 0; e < E; ++e) s_red[warp][bb][sub * E + e] = acc[bb][e];
-    }
-    __syncthreads();
-    for (int i = tid; i < PB * D; i += kThreads) {
-      const int bb = i / D, c = i % D;
-      if (b0 + bb < a.B) {
-        float sum = 0.f;
-#pragma unroll
-        for (int wp = 0; wp < kWarps; ++wp) sum += s_red[wp][bb][c];
-        a.part_proj[(static_cast<size_t>(ks) * a.B + b0 + bb) * N + col0 + c] = sum;
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// Column tile `tile` of kv head h (a query head, or its k or v) for every
-// sequence, from the projection partials: one warp per sequence, D / 32
-// elements per lane, so the norm is a warp reduction and each RoPE pair
-// (d, d + D / 2) sits in one lane.
+// One work item: projection item i, or attention item i, of rank r, on that
+// rank's view `ar` of the arguments (at tp = 1, `a` itself).
 template <typename T, typename S, int D, int G>
-__device__ void finalize_tile(const FusedArgs& a, int N, int h, int tile) {
-  constexpr bool QUANT = sizeof(S) == 1;
-  constexpr int J = D / 32;
-  constexpr int HJ = J / 2;
-  constexpr int KU = 4;   // slices whose loads are in flight together
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int Hq = a.Hkv * G;
-  const int col0 = column0<D, G>(tile, h, a.Hkv);
-  const bool is_v = tile == G + 1;
-  const T* nw = static_cast<const T*>(tile < G ? a.q_norm : a.k_norm);
-  for (int b = warp; b < a.B; b += kWarps) {
-    const float* part = a.part_proj + static_cast<size_t>(b) * N + col0 + lane;
-    const size_t slice = static_cast<size_t>(a.B) * N;
-    float val[J];
-#pragma unroll
-    for (int j = 0; j < J; ++j) val[j] = 0.f;
-    for (int ks = 0; ks < a.n_kslice; ks += KU) {
-      float t[KU][J];
-#pragma unroll
-      for (int u = 0; u < KU; ++u)
-#pragma unroll
-        for (int j = 0; j < J; ++j)
-          t[u][j] = ks + u < a.n_kslice ? __ldcg(part + (ks + u) * slice + 32 * j) : 0.f;
-#pragma unroll
-      for (int u = 0; u < KU; ++u)
-#pragma unroll
-        for (int j = 0; j < J; ++j) val[j] += t[u][j];
-    }
-#pragma unroll
-    for (int j = 0; j < J; ++j) val[j] = round_to<T>(val[j]);
-    if (!is_v) {
-      if (nw != nullptr) {
-        float ss = 0.f;
-#pragma unroll
-        for (int j = 0; j < J; ++j) ss = fmaf(val[j], val[j], ss);
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) ss += __shfl_xor_sync(kFullMask, ss, off);
-        const float inv = rsqrtf(ss / D + a.eps);
-#pragma unroll
-        for (int j = 0; j < J; ++j)
-          val[j] = round_to<T>(val[j] * inv * to_f32(nw[lane + 32 * j]));
-      }
-      const float pos = static_cast<float>(__ldg(a.lens + b));
-#pragma unroll
-      for (int j = 0; j < HJ; ++j) {
-        const float ang = pos * __ldg(a.inv_freq + lane + 32 * j);
-        const float cs = cosf(ang), sn = sinf(ang);
-        const float x1 = val[j], x2 = val[j + HJ];
-        val[j] = round_to<T>(x1 * cs - x2 * sn);
-        val[j + HJ] = round_to<T>(x2 * cs + x1 * sn);
-      }
-    }
-    if (tile < G) {
-      T* qb = static_cast<T*>(a.q_buf) + (static_cast<size_t>(b) * Hq + h * G + tile) * D;
-#pragma unroll
-      for (int j = 0; j < J; ++j) qb[lane + 32 * j] = from_f32<T>(val[j]);
-    } else {
-      T* tok = static_cast<T*>(is_v ? a.v_tok : a.k_tok) +
-               (static_cast<size_t>(b) * a.Hkv + h) * D;
-#pragma unroll
-      for (int j = 0; j < J; ++j) tok[lane + 32 * j] = from_f32<T>(val[j]);
-      if constexpr (!QUANT) {
-        const int pos = __ldg(a.lens + b);
-        const int pg = min(pos / a.page_size, a.max_pages - 1);
-        const int page = __ldg(a.table + static_cast<size_t>(b) * a.max_pages + pg);
-        S* pool = static_cast<S*>(is_v ? a.pool_v : a.pool_k) +
-                  ((static_cast<size_t>(page) * a.Hkv + h) * a.page_size +
-                   pos % a.page_size) * D;
-#pragma unroll
-        for (int j = 0; j < J; ++j) pool[lane + 32 * j] = from_f32<S>(val[j]);
-      }
-    }
-  }
-}
-
-// Merge the splits of (sequence b, kv head h), fold in the new token, and
-// write the G normalized outputs.
-template <typename T, int D, int G>
-__device__ void combine_fold(const FusedArgs& a, int b, int h) {
-  __shared__ float s_mx[G], s_alpha[G], s_pr[G], s_den[G];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int Hq = a.Hkv * G;
-  const size_t first = (static_cast<size_t>(b) * a.Hkv + h) * a.n_split;
-  const T* q = static_cast<const T*>(a.q_buf) + (static_cast<size_t>(b) * Hq + h * G) * D;
-  const T* kt = static_cast<const T*>(a.k_tok) + (static_cast<size_t>(b) * a.Hkv + h) * D;
-  const T* vt = static_cast<const T*>(a.v_tok) + (static_cast<size_t>(b) * a.Hkv + h) * D;
-  for (int g = warp; g < G; g += kWarps) {
-    float mn, den;
-    merge_ml(a.part_ml, first, a.n_split, G, g, mn, den);
-    float s = 0.f;
-    for (int d = lane; d < D; d += 32)
-      s = fmaf(round_to<T>(ldcg_f32(q + g * D + d) * a.sm_scale), ldcg_f32(kt + d), s);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(kFullMask, s, off);
-    if (a.soft_cap > 0.f) s = tanhf(s / a.soft_cap) * a.soft_cap;
-    const float m_cur = fmaxf(mn, s);
-    const float p = expf(s - m_cur);
-    const float alpha = expf(mn - m_cur);
-    if (lane == 0) {
-      s_mx[g] = mn;
-      s_alpha[g] = alpha;
-      s_pr[g] = round_to<T>(p);
-      s_den[g] = den * alpha + p;
-    }
-  }
-  __syncthreads();
-  T* out = static_cast<T*>(a.out) + (static_cast<size_t>(b) * Hq + h * G) * D;
-  for (int i = threadIdx.x; i < G * D; i += kThreads) {
-    const int g = i / D, d = i % D;
-    const float num = merge_acc(a.part_acc, a.part_ml, first, a.n_split, G, D, g, d, s_mx[g]);
-    const float acc = num * s_alpha[g] + s_pr[g] * ldcg_f32(vt + d);
-    out[static_cast<size_t>(g) * D + d] = from_f32<T>(s_den[g] > 0.f ? acc / s_den[g] : 0.f);
-  }
-}
-
-template <typename T, typename S, int D, int G>
-__global__ void __launch_bounds__(kThreads) fused_attn_decode_kernel(const FusedArgs a) {
-  __shared__ int s_item;
-  int* work = a.sync;
-  int* exited = a.sync + 1;
-  int* tile_ticket = a.sync + 2;
+__device__ __forceinline__ void fused_item(const FusedArgs& a, const FusedArgs& ar, int r,
+                                           bool proj, int i) {
+  const int N = (a.Hkv * G + 2 * a.Hkv) * D;
+  const int per_head = (G + 2) * a.n_kslice;
+  int* tile_ticket = a.sync + 2 + r * rank_sync_words<G>(a);
   int* head_ticket = tile_ticket + a.Hkv * (G + 2);
   int* ready = head_ticket + a.Hkv;
   int* split_ticket = ready + a.Hkv;
-  const int N = (a.Hkv * G + 2 * a.Hkv) * D;
-  const int per_head = (G + 2) * a.n_kslice;
-  const int n_proj = a.Hkv * per_head;
-  if (threadIdx.x == 0) s_item = atomicAdd(work, 1);
-  __syncthreads();
-  const int item = s_item;
-  if (item < n_proj) {
-    const int h = item / per_head, tile = (item % per_head) / a.n_kslice;
-    project_tile<T, D>(a, N, column0<D, G>(tile, h, a.Hkv), item % a.n_kslice);
+  if (proj) {
+    const int h = i / per_head, tile = (i % per_head) / a.n_kslice;
+    project_tile<T, D>(ar, N, column0<D, G>(tile, h, a.Hkv), i % a.n_kslice);
     if (arrive_last(tile_ticket + h * (G + 2) + tile, a.n_kslice)) {
-      finalize_tile<T, S, D, G>(a, N, h, tile);
+      finalize_tile<T, S, D, G>(ar, N, h, tile);
       if (arrive_last(head_ticket + h, G + 2)) raise_flag(ready + h);
     }
   } else {
-    const int i = item - n_proj;
     const int h = i / (a.B * a.n_split);
     const int b = (i / a.n_split) % a.B, split = i % a.n_split;
     wait_flag(ready + h);
     const int capacity = a.max_pages * a.page_size;
-    const int len = min(max(__ldg(a.lens + b), 0), capacity);
+    const int len = min(max(__ldg(ar.lens + b), 0), capacity);
     const int start = split * a.chunk, end = min(start + a.chunk, len);
     const size_t pair = static_cast<size_t>(b) * a.Hkv + h;
     const size_t state = pair * a.n_split + split;
     split_state<T, S, D, G, true>(
-        static_cast<const T*>(a.q_buf) + pair * G * D,
+        static_cast<const T*>(ar.q_buf) + pair * G * D,
         static_cast<const S*>(a.pool_k), static_cast<const S*>(a.pool_v),
-        a.k_scale, a.v_scale, a.table + static_cast<size_t>(b) * a.max_pages, h,
+        a.k_scale, a.v_scale, ar.table + static_cast<size_t>(b) * a.max_pages, h,
         a.Hkv, capacity, a.page_size, start, end, a.sm_scale, a.soft_cap,
-        a.part_acc + state * G * D, a.part_ml + state * G * 2);
-    if (arrive_last(split_ticket + pair, a.n_split)) combine_fold<T, D, G>(a, b, h);
+        ar.part_acc + state * G * D, ar.part_ml + state * G * 2);
+    if (arrive_last(split_ticket + pair, a.n_split)) combine_fold<T, D, G>(ar, b, h);
+  }
+}
+
+// FOLDED: a rank-folded launch (n_ranks > 1, full-precision pages only);
+// the tp = 1 launch uses its arguments as they are, with no rank view.
+template <typename T, typename S, int D, int G, bool FOLDED>
+__global__ void __launch_bounds__(kThreads) fused_attn_decode_kernel(const FusedArgs a) {
+  __shared__ int s_item;
+  int* work = a.sync;
+  int* exited = a.sync + 1;
+  const int n_proj = a.Hkv * (G + 2) * a.n_kslice;   // a rank's projection items
+  const int n_attn = a.B * a.Hkv * a.n_split;        // a rank's attention items
+  if (threadIdx.x == 0) s_item = atomicAdd(work, 1);
+  __syncthreads();
+  const int item = s_item;
+  if constexpr (FOLDED) {
+    const bool proj = item < a.n_ranks * n_proj;
+    const int i = proj ? item : item - a.n_ranks * n_proj;
+    const int r = proj ? i / n_proj : i / n_attn;
+    const FusedArgs ar = at_rank<T, D, G>(a, r);
+    fused_item<T, S, D, G>(a, ar, r, proj, proj ? i % n_proj : i % n_attn);
+  } else {
+    const bool proj = item < n_proj;
+    fused_item<T, S, D, G>(a, a, 0, proj, proj ? item : item - n_proj);
   }
   // the last block out clears the counters for the next launch
   __syncthreads();
   if (threadIdx.x == 0) {
     __threadfence();
     if (atomicAdd(exited, 1) == static_cast<int>(gridDim.x) - 1) {
-      const int n = 2 + a.Hkv * (G + 2) + 2 * a.Hkv + a.B * a.Hkv;
+      const int n = 2 + a.n_ranks * rank_sync_words<G>(a);
       for (int k = 0; k < n; ++k) a.sync[k] = 0;
       __threadfence();
     }
   }
 }
 
+template <typename T, typename S, int D, int G>
+cudaError_t launch_kernel(const FusedArgs& a, cudaStream_t st) {
+  // one block per work item: every rank's projection items, then every
+  // rank's attention items
+  const int blocks = a.n_ranks * (a.Hkv * (G + 2) * a.n_kslice + a.B * a.Hkv * a.n_split);
+  if (a.n_ranks == 1) {
+    fused_attn_decode_kernel<T, S, D, G, false><<<blocks, kThreads, 0, st>>>(a);
+  } else {
+    if constexpr (sizeof(S) == 1) return cudaErrorInvalidValue;   // int8 pages: tp = 1 only
+    else fused_attn_decode_kernel<T, S, D, G, true><<<blocks, kThreads, 0, st>>>(a);
+  }
+  return cudaGetLastError();
+}
+
 template <typename T, typename S, int D>
 cudaError_t dispatch_g(int G, const FusedArgs& a, cudaStream_t st) {
-  // one block per work item: the projection items, then the attention items
-  const int n_attn = a.B * a.Hkv * a.n_split;
   switch (G) {
-#define TDT_FUSED_CASE(g)                                                      \
-    case g:                                                                   \
-      fused_attn_decode_kernel<T, S, D, g>                                    \
-          <<<a.Hkv * (g + 2) * a.n_kslice + n_attn, kThreads, 0, st>>>(a);    \
-      return cudaGetLastError();
-    TDT_FUSED_CASE(1)
-    TDT_FUSED_CASE(2)
-    TDT_FUSED_CASE(4)
-    TDT_FUSED_CASE(8)
-#undef TDT_FUSED_CASE
+    case 1: return launch_kernel<T, S, D, 1>(a, st);
+    case 2: return launch_kernel<T, S, D, 2>(a, st);
+    case 4: return launch_kernel<T, S, D, 4>(a, st);
+    case 8: return launch_kernel<T, S, D, 8>(a, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -424,10 +183,10 @@ int occupancy(K kernel) {
 template <typename T, typename S, int D>
 int blocks_per_sm(int G) {
   switch (G) {
-    case 1: return occupancy(fused_attn_decode_kernel<T, S, D, 1>);
-    case 2: return occupancy(fused_attn_decode_kernel<T, S, D, 2>);
-    case 4: return occupancy(fused_attn_decode_kernel<T, S, D, 4>);
-    case 8: return occupancy(fused_attn_decode_kernel<T, S, D, 8>);
+    case 1: return occupancy(fused_attn_decode_kernel<T, S, D, 1, false>);
+    case 2: return occupancy(fused_attn_decode_kernel<T, S, D, 2, false>);
+    case 4: return occupancy(fused_attn_decode_kernel<T, S, D, 4, false>);
+    case 8: return occupancy(fused_attn_decode_kernel<T, S, D, 8, false>);
     default: return -1;
   }
 }
@@ -454,6 +213,13 @@ int blocks_per_sm_d(int D, int G) {
 // of the prefix covers positions [s * chunk, (s + 1) * chunk).  eps: the
 // qk-norm epsilon.  dtype (of x): 0 = float32, 1 = bfloat16.  Returns the
 // cudaError_t of the launch.
+//
+// n_ranks > 1 (tp = n on co-located ranks, one launch for every rank): H and
+// Hkv are one rank's heads, wqkv is rank-stacked (n_ranks, K, (H + 2 Hkv) D),
+// x stays one (B, K) copy, and table, lens, out, k_tok, v_tok are those of
+// n_ranks B sequences (rank r's at [r B, (r + 1) B)) over the folded pools;
+// the scratch and the sync buffer grow n_ranks-fold (sync: 2 + n_ranks (Hkv
+// (G + 2) + 2 Hkv + B Hkv)).
 extern "C" int tdt_fused_attn_decode(
     const void* x, const void* wqkv, const void* q_norm, const void* k_norm,
     void* pool_k, void* pool_v, const float* k_scale, const float* v_scale,
@@ -462,15 +228,17 @@ extern "C" int tdt_fused_attn_decode(
     float* part_ml, int* sync, int B, int K, int H, int Hkv, int D,
     int page_size, int max_pages, int n_kslice, int k_chunk, int n_split,
     int chunk, float sm_scale, float soft_cap, float eps, int dtype,
-    void* stream) {
+    int n_ranks, void* stream) {
   using namespace tdt;
   if ((q_norm == nullptr) != (k_norm == nullptr) ||
-      (k_scale == nullptr) != (v_scale == nullptr) || H % Hkv != 0)
+      (k_scale == nullptr) != (v_scale == nullptr) || H % Hkv != 0 || n_ranks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  const long long w_rank_stride = static_cast<long long>(K) * (H + 2 * Hkv) * D;
   const FusedArgs a{x, wqkv, q_norm, k_norm, pool_k, pool_v, k_scale, v_scale,
                     table, lens, inv_freq, out, q_buf, k_tok, v_tok, part_proj,
                     part_acc, part_ml, sync, B, K, Hkv, page_size, max_pages,
-                    n_kslice, k_chunk, n_split, chunk, sm_scale, soft_cap, eps};
+                    n_kslice, k_chunk, n_split, chunk, sm_scale, soft_cap, eps,
+                    n_ranks, w_rank_stride};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int G = H / Hkv;
   const bool int8_pages = k_scale != nullptr;

@@ -36,7 +36,7 @@
 // loop: mma.sync bf16 -> f32 on 128 x 128 x 32 tiles of 8 warps, a 4-stage
 // cp.async ring; f32 by scalar FMA on 64 x 64 tiles).  A tile reads whole
 // rows of a chunk and writes columns that every lane's slice covers, so the
-// lanes of a rank meet at dl.cuh's lanes_join before a chunk is multiplied
+// lanes of a rank meet at dl.cuh's rank_sync before a chunk is multiplied
 // (K12: every slice is here) or sent (K13/K14: every tile is written).  The
 // grid is sized by the occupancy API to what is co-resident, split among
 // the ranks; no block waits on a flag that only it, or a block that is not
@@ -111,6 +111,7 @@ template <typename T, typename OT, bool BIDIR>
 __global__ void __launch_bounds__(kThreads) ag_gemm_kernel(const __grid_constant__ GemmArgs g) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Rank c(g.c);
+  int gen = 0;  // rank_sync's count
   {  // own shard into gathered chunk me: this lane's slice, as the ring cuts it
     long long lo, hi;
     c.slice(16 / sizeof(T), 16, lo, hi);
@@ -122,13 +123,14 @@ __global__ void __launch_bounds__(kThreads) ag_gemm_kernel(const __grid_constant
   const T* B = base<const T>(g.b, c);
   OT* C = base<OT>(g.y, c);
   auto consume = [&](int r) {
-    lanes_join(c, r);
+    rank_sync(c, gen);
     lane_tiles<T, OT>(c.at<T>(g.c.out, c.me, r), B,
                       C + static_cast<long long>(r) * g.m_loc * g.n_cols, g.m_loc, g.n_cols,
                       g.k, smem);
   };
   if (BIDIR) bidir_ring_phase<T, uint4, 16>(c, consume);
   else ag_ring_phase<T, uint4, 16>(c, consume);
+  rank_sync_exit(c);
 }
 
 // K13 (AR false) and K14 (AR true).  The ring runs in OT, the products'
@@ -137,17 +139,19 @@ template <typename T, typename OT, bool AR>
 __global__ void __launch_bounds__(kThreads) gemm_rs_kernel(const __grid_constant__ GemmArgs g) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Rank c(g.c);
+  int gen = 0;  // rank_sync's count
   collective_prologue(c, true);
   const T* A = base<const T>(g.a, c);
   const T* B = base<const T>(g.b, c);
   auto produce = [&](int j) {
     lane_tiles<T, OT>(A + static_cast<long long>(j) * g.m_loc * g.k, B,
                       c.at<OT>(g.c.x, c.me, j), g.m_loc, g.n_cols, g.k, smem);
-    lanes_join(c, j);
+    rank_sync(c, gen);
   };
   rs_ring_phase<OT, OT, true, false>(c, AR ? c.me : 0, produce);
   if (AR) ag_ring_phase<OT, uint4, 16>(c);
   rs_ack_drain(c);
+  rank_sync_exit(c);
 }
 
 bool aligned16(const Peers& p, int ranks) {

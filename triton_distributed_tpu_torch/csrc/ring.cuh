@@ -95,7 +95,7 @@ template <typename T, typename OT, bool VEC>
 __device__ __forceinline__ void sum_units(OT* dst, const T* const* src, int ns,
                                           long long lo, long long hi) {
   constexpr int G = Elems<T, VEC>::G;
-  for (long long i = lo + threadIdx.x; i < hi; i += kThreads) {
+  for (long long i = lo + threadIdx.x; i < hi; i += blockDim.x) {
     float acc[G], v[G];
     load<T, VEC>(src[0], i, acc);
     for (int k = 1; k < ns; ++k) {

@@ -109,12 +109,11 @@ def ring_src_rank(team: Team, me: int, step: int) -> int:
 FLAGS_PER_LANE = 32
 FLAG_IDS = {("barrier", 0): 0, ("rs_recv", 0): 1, ("rs_recv", 1): 2,
             ("ack", 0): 3, ("ack", 1): 4,
-            **{("recv", c): 8 + c for c in range(8)},
-            # the overlapped GEMMs' rank-wide joins, in lane 0's row only
-            # (csrc/dl.cuh lanes_join): lanes that hold their part of chunk
-            # c, and lanes past waiting for all of them
-            **{("ready", c): 16 + c for c in range(8)},
-            **{("done", c): 24 + c for c in range(8)}}
+            # the rank-wide barrier of K12-K16, in lane 0's row only
+            # (csrc/dl.cuh rank_sync): lanes arrived, lanes past the
+            # launch's last one
+            ("sync_arrive", 0): 5, ("sync_leave", 0): 6,
+            **{("recv", c): 8 + c for c in range(8)}}
 FLAG_NAMES = {v: f"{name}[{i}]" for (name, i), v in FLAG_IDS.items()}
 
 
@@ -164,13 +163,27 @@ class Reduce:
 
 @dataclasses.dataclass(frozen=True)
 class Matmul:
-    """Local: entry ``src`` (rows of A) times this rank's B, accumulated in
-    f32 and rounded once to the dtype of entry ``dst`` (JAX
-    ``blocks.matmul_body``), into ``dst``.  The overlapped GEMMs' compute
-    step; on the card every lane of the rank takes its tiles of it."""
+    """Local: entry ``src`` (rows of A) times entry ``w`` of this rank's
+    weights (the overlapped GEMMs' B is entry ("b", 0); the column-chunked
+    ring's chunk j of W is ("w", j)), accumulated in f32 and rounded once
+    to the dtype of entry ``dst`` (JAX ``blocks.matmul_body``), into
+    ``dst``.  The fused GEMMs' compute step; on the card every lane of the
+    rank takes its part of it."""
 
     dst: tuple[str, int]
     src: tuple[str, int]
+    w: tuple[str, int] = ("b", 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class Swiglu:
+    """Local: ``silu(g) * u`` of entries ``g`` and ``u``, in f32, rounded
+    once to the dtype of entry ``dst`` (JAX ``blocks.swiglu_body`` as
+    ``_mlp_act_host`` rounds it): K15's prologue."""
+
+    dst: tuple[str, int]
+    g: tuple[str, int]
+    u: tuple[str, int]
 
 
 def put(prog: list, dst: str, index: int, dst_rank: int, srcs, flag=None) -> None:

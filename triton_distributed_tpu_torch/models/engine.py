@@ -18,6 +18,7 @@ import torch
 from ..core.mesh import Mesh
 from .config import ModelConfig
 from .kv_cache import init_cache, init_paged_cache, reset
+from ..ops.persistent_decode import stack_decode_params
 from .qwen import Qwen3, QwenParams
 
 
@@ -62,6 +63,7 @@ class Engine:
     kv_dtype: str | None = None
 
     def __post_init__(self):
+        self._stacked = None
         c = self.model.config
         dev, tp = self.model.device, self.model.tp
         if self.cache_layout == "paged":
@@ -100,10 +102,21 @@ class Engine:
     def device(self) -> torch.device:
         return self.model.device
 
+    def stacked(self):
+        """The persistent kernel's layer table of these parameters, built
+        once (JAX's ``EngineBackend`` hoists it out of the step); None in
+        the other modes."""
+        if self.model.decode_mode != "persistent" or self.model.config.is_moe:
+            return None
+        if self._stacked is None or self._stacked.layers[0] is not self.params.layers[0]:
+            self._stacked = stack_decode_params(self.params)
+        return self._stacked
+
     def set_decode_mode(self, mode: str) -> None:
-        """Swap the decode-step chain (reference ``set_fwd``); parameters and
-        cache are kept.  The engine gets a model of its own, so an engine
-        sharing the old model keeps its mode."""
+        """Swap the decode-step chain (reference ``set_fwd``): "psum", "ar",
+        "gemm_ar", "fused" or "persistent"; parameters and cache are kept.
+        The engine gets a model of its own, so an engine sharing the old
+        model keeps its mode."""
         m = self.model
         self.model = Qwen3(m.config, device=m.device, decode_mode=mode,
                            mesh=m.mesh, axis=m.axis)
@@ -135,8 +148,16 @@ class Engine:
 
     def decode_step(self, tokens: torch.Tensor) -> torch.Tensor:
         logits, self.cache = self.model.decode(self.params, self.cache,
-                                               tokens.to(self.device))
+                                               tokens.to(self.device), stacked=self.stacked())
         return logits
+
+    def decode_multi(self, tokens: torch.Tensor, steps: int) -> torch.Tensor:
+        """``steps`` greedy steps with the argmax fed back on the device
+        (``Qwen3.decode_multi``).  Returns (steps, B) int32 tokens."""
+        toks, self.cache = self.model.decode_multi(self.params, self.cache,
+                                                   tokens.to(self.device), steps,
+                                                   stacked=self.stacked())
+        return toks
 
     def generate(self, input_ids: torch.Tensor, gen_len: int,
                  generator: torch.Generator | None = None) -> torch.Tensor:

@@ -33,9 +33,19 @@ one copy:
   on the partials, "gemm_ar" the GEMM-AllReduce (K14) when the batch divides
   by n, else the "ar" path.
 
-"fused" at tp > 1 needs the decode megakernels B7/B8 and raises; MoE and
-int8 pages at tp > 1 raise too.  At tp = 1 "ar" and "gemm_ar" reduce
-nothing and run as "psum", as in JAX.
+  "fused" (``qwen.py:152-166``, ``:628-734``) runs every rank's attention
+  on a paged cache in one launch of the attention megakernel (K4,
+  rank-folded; a contiguous cache keeps the per-kernel attention) and both
+  reductions on the fused GEMM + AllReduce ring (K15: the o-projection's
+  ``fused_linear_ar``, the MLP's ``fused_mlp_ar``) where the dims divide;
+  "persistent" (``:736-857``) runs all the layers of a step in one launch
+  of the persistent kernel (K16) on a paged full-precision cache of a dense
+  model (``_persistent_ok``), every other cache the "fused" chain, as JAX.
+
+MoE and int8 pages at tp > 1 raise.  At tp = 1 "ar" and "gemm_ar" reduce
+nothing and run as "psum", as in JAX; "persistent" on a paged cache runs
+K16 at one rank (the plain version, JAX's n = 1 reference step, on the
+CPU).
 
 The model is a static definition; parameters (:class:`QwenParams`) and the
 cache travel separately, as in the JAX package, so a test can hand both
@@ -63,6 +73,7 @@ from ..ops.attention import (
     paged_decode_attention,
 )
 from ..ops.ag_gemm import ag_gemm
+from ..ops import persistent_decode as pd
 from ..ops.fused_decode import fused_attn_decode, fused_linear_ar, fused_mlp_ar
 from ..ops.gemm_ar import gemm_ar
 from ..ops.gemm_rs import gemm_rs
@@ -112,8 +123,7 @@ def logits_f32(x: torch.Tensor, lm_head: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), lm_head.float())
 
 
-DECODE_MODES = ("psum", "ar", "gemm_ar", "fused")
-LATER_DECODE_MODES = ("persistent",)
+DECODE_MODES = ("psum", "ar", "gemm_ar", "fused", "persistent")
 
 
 class Qwen3(nn.Module):
@@ -128,14 +138,8 @@ class Qwen3(nn.Module):
                  decode_mode: str = "psum", mesh: Mesh | None = None,
                  axis: str = TP_AXIS):
         super().__init__()
-        if decode_mode in LATER_DECODE_MODES:
-            raise NotImplementedError(
-                f"decode_mode {decode_mode!r} (the persistent decode kernel, B8) "
-                "belongs to a later slice of the port; "
-                f"{DECODE_MODES} are served")
         if decode_mode not in DECODE_MODES:
-            raise ValueError(f"decode_mode {decode_mode!r} not in "
-                             f"{DECODE_MODES + LATER_DECODE_MODES}")
+            raise ValueError(f"decode_mode {decode_mode!r} not in {DECODE_MODES}")
         if config.is_moe and config.moe_strategy != "tp":
             raise NotImplementedError(
                 f"moe_strategy {config.moe_strategy!r} (experts partitioned "
@@ -163,11 +167,6 @@ class Qwen3(nn.Module):
 
     def _check_tp(self, c: ModelConfig, mesh: Mesh, decode_mode: str) -> None:
         n = self.tp
-        if decode_mode == "fused":
-            raise NotImplementedError(
-                "decode_mode 'fused' at tp > 1 needs the fused MLP + AllReduce "
-                "megakernel (B7, ops/fused_decode.py:507) and the persistent decode "
-                "kernel (B8), not ported yet; 'psum', 'ar' and 'gemm_ar' are served")
         if c.is_moe:
             raise NotImplementedError(
                 "MoE at tp > 1 (the experts' AllGather and ReduceScatter around the "
@@ -333,9 +332,10 @@ class Qwen3(nn.Module):
     def _attn_decode_paged_fused(self, p: TPAttnParams, x: torch.Tensor,
                                  cache: PagedKVCache, layer: int) -> torch.Tensor:
         """The attention megakernel step (``qwen.py:628-693``): one launch
-        per layer projects, normalizes, rotates, appends and attends.  On an
-        int8 cache the kernel returns the token, which the exact requantizing
-        append then writes (``append_layer_quantized``)."""
+        per layer projects, normalizes, rotates, appends and attends, for
+        every rank at tp > 1 (the rank-stacked wqkv, the folded cache).  On
+        an int8 cache the kernel returns the token, which the exact
+        requantizing append then writes (``append_layer_quantized``)."""
         c = self.config
         res = fused_attn_decode(
             x, p.wqkv, p.q_norm, p.k_norm, cache.k[layer], cache.v[layer],
@@ -349,18 +349,28 @@ class Qwen3(nn.Module):
                                    k_tok, v_tok)
         return self._row_parallel_reduce(res[0], p.wo)
 
+    def _k15_serves(self, n_dim: int) -> bool:
+        """Whether the fused modes' reduction runs on K15 at tp > 1 (JAX
+        ``qwen.py:157-163``, ``:697-702``: F and N divide by tp; F does by
+        the rank-stacked layout); else the "psum" path, as JAX's other
+        shapes.  Widths K15 does not take raise in its wrapper."""
+        return self.decode_mode in ("fused", "persistent") and n_dim % self.tp == 0
+
     def _row_parallel_reduce(self, h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """A decode step's ``AllReduce(h @ w)`` (``qwen.py:152-190``).  At
-        tp = 1 the fused mode's GEMM + AllReduce entry, else the product.
+        tp = 1 the fused modes' GEMM + AllReduce entry, else the product.
         At tp = n, ``h`` (n, B, F / n) and ``w`` (n, F / n, K) rank-stacked,
-        the result (B, K) replicated: "gemm_ar" on K14 when B divides by n,
-        "ar" (and "gemm_ar" otherwise) the ranks' partials in h's dtype on
-        K11, "psum" the sum of their f32 partials rounded once."""
+        the result (B, K) replicated: "fused" and "persistent" on K15,
+        "gemm_ar" on K14 when B divides by n, "ar" (and "gemm_ar" otherwise)
+        the ranks' partials in h's dtype on K11, "psum" the sum of their f32
+        partials rounded once."""
         n = self.tp
         if n == 1:
-            if self.decode_mode == "fused":
+            if self.decode_mode in ("fused", "persistent"):
                 return fused_linear_ar(h, w)
             return torch.matmul(h, w)
+        if self._k15_serves(w.shape[2]):
+            return fused_linear_ar(h, w, self.mesh, self.axis)
         if self.decode_mode == "gemm_ar" and h.shape[1] % n == 0:
             return gemm_ar(h, w, self.mesh, self.axis)[0]
         if self.decode_mode in ("ar", "gemm_ar"):
@@ -381,24 +391,32 @@ class Qwen3(nn.Module):
         if self.config.is_moe:
             return self.moe.forward_replicated(p, x)
         if self.tp > 1:
+            if self._k15_serves(p.down.shape[2]):
+                return fused_mlp_ar(x, p.gate_up, p.down, self.mesh, self.axis)
             if self.decode_mode == "gemm_ar" and x.shape[0] % self.tp == 0:
                 return tp_mlp.forward_ar(p, x, self.mesh, self.axis)[0]
             # each rank's gate/up columns and SwiGLU, then the reduction
             h = tp_mlp.act_combine(tp_mlp.replicated_column_gemm(x, p.gate_up))
             return self._row_parallel_reduce(h, p.down)
-        if self.decode_mode == "fused":
+        if self.decode_mode in ("fused", "persistent"):
             return fused_mlp_ar(x, p.gate_up, p.down)
         return mlp_forward(p, x)
 
     @torch.no_grad()
-    def decode(self, params: QwenParams, cache, tokens: torch.Tensor):
+    def decode(self, params: QwenParams, cache, tokens: torch.Tensor, *,
+               stacked: pd.StackedDecodeParams | None = None):
         """One decode step.  ``tokens``: (B,).  Each layer writes the new
         token's K/V at its position and attends over the cache up to and
         including it (``qwen.py:736-781``).  Returns (f32 logits (B, V),
-        cache advanced by 1)."""
+        cache advanced by 1).  In "persistent" mode on a cache it serves,
+        one launch of every layer, through ``stacked`` (the layer table;
+        built for this call when None)."""
+        if self.decode_mode == "persistent" and self._persistent_ok(cache):
+            sp = stacked if stacked is not None else pd.stack_decode_params(params)
+            return self._persistent_step(params, sp, cache, tokens)
         c = self.config
         paged = isinstance(cache, PagedKVCache)
-        fused = paged and self.decode_mode == "fused"
+        fused = paged and self.decode_mode in ("fused", "persistent")
         cos = sin = None
         if not fused:
             if paged:
@@ -419,17 +437,41 @@ class Qwen3(nn.Module):
             x = x + self._mlp_decode(lp.mlp, rms_norm(x, lp.ln2, c.rms_eps))
         return self._finish(params, x), advance(cache, 1)
 
+    # -- persistent decode ------------------------------------------------
+
+    def _persistent_ok(self, cache) -> bool:
+        """Whether the persistent kernel serves this cache (``qwen.py:785-796``):
+        paged full-precision pools, a dense MLP, every sharded dim divisible
+        by tp.  Anything else runs the "fused" chain."""
+        c, n = self.config, self.tp
+        return (isinstance(cache, PagedKVCache) and not cache.quantized and not c.is_moe
+                and c.hidden % n == 0 and c.intermediate % n == 0
+                and c.num_kv_heads % n == 0 and c.num_heads % n == 0)
+
+    def _persistent_step(self, params: QwenParams, sp: pd.StackedDecodeParams,
+                         cache: PagedKVCache, tokens: torch.Tensor):
+        """Every layer of one step in one launch, then the final norm and
+        the lm_head outside it (``qwen.py:798-817``); the pools are appended
+        in place."""
+        c = self.config
+        x = params.embed[tokens.to(self.device)]
+        x, _, _ = pd.persistent_decode_step(
+            x, sp, cache.k, cache.v, cache.block_table, cache.seq_lens, self.mesh, self.axis,
+            rope_theta=c.rope_theta, rms_eps=c.rms_eps,
+            qk_eps=c.rms_eps if c.qk_norm else None)
+        return self._finish(params, x), advance(cache, 1)
+
     @torch.no_grad()
     def decode_multi(self, params: QwenParams, cache, tokens: torch.Tensor,
-                     steps: int):
+                     steps: int, *, stacked: pd.StackedDecodeParams | None = None):
         """``steps`` greedy decode steps (``qwen.py:824-857``): each step's
         argmax is fed back as the next token on the device, so nothing is
-        read back to the host inside the window.  Returns (tokens
-        (steps, B) int32, cache)."""
+        read back to the host inside the window.  In "persistent" mode the
+        layer table (``stacked``, or built here) is made once, outside the
+        loop.  Returns (tokens (steps, B) int32, cache)."""
         tok = tokens.to(device=self.device, dtype=torch.int32)
-        out = []
-        for _ in range(int(steps)):
-            logits, cache = self.decode(params, cache, tok)
-            tok = torch.argmax(logits, dim=-1).to(torch.int32)
-            out.append(tok)
-        return torch.stack(out), cache
+        if self.decode_mode == "persistent" and self._persistent_ok(cache):
+            sp = stacked if stacked is not None else pd.stack_decode_params(params)
+            return pd.decode_bundle(lambda ca, t: self._persistent_step(params, sp, ca, t),
+                                    cache, tok, steps)
+        return pd.decode_bundle(lambda ca, t: self.decode(params, ca, t), cache, tok, steps)

@@ -1,7 +1,7 @@
 """Flop and byte counts of a kernel call, and its roofline time on the card
 (counterpart of ``triton_distributed_tpu/obs/costs.py``; the ``matmul``
-calculator, the overlapped GEMMs' and ``sol_ms`` are ported, the others come
-with the kernels they describe).  Counts are per rank, as JAX's; a call on n
+calculator, the overlapped GEMMs', the decode megakernels' and ``sol_ms`` are
+ported, the others come with the kernels they describe).  Counts are per rank, as JAX's; a call on n
 co-located ranks does n times the work on one card."""
 
 from __future__ import annotations
@@ -16,6 +16,13 @@ class KernelCost:
     flops: float
     bytes_accessed: float
     wire_bytes: float = 0.0   # bytes a rank sends its peers
+
+    def scaled(self, k: float) -> "KernelCost":
+        return KernelCost(self.flops * k, self.bytes_accessed * k, self.wire_bytes * k)
+
+    def __add__(self, other: "KernelCost") -> "KernelCost":
+        return KernelCost(self.flops + other.flops, self.bytes_accessed + other.bytes_accessed,
+                          self.wire_bytes + other.wire_bytes)
 
 
 def _itemsize(dtype) -> int:
@@ -67,6 +74,57 @@ def gemm_ar(m_loc: int, k_loc: int, n_dim: int, num_ranks: int, dtype,
     return KernelCost(flops=rs.flops,
                       bytes_accessed=rs.bytes_accessed + 2 * ag_wire,
                       wire_bytes=rs.wire_bytes + ag_wire)
+
+
+def decode_attention(b: int, h: int, hk: int, seq_kv: int, d: int, kv_dtype) -> KernelCost:
+    """One token against a (B, Hkv, seq_kv, D) cache: K and V streamed
+    once, q read and the output written (JAX ``costs.decode_attention``)."""
+    ib = _itemsize(kv_dtype)
+    scores = b * h * seq_kv
+    return KernelCost(flops=4 * scores * d,
+                      bytes_accessed=2 * b * hk * seq_kv * d * ib + 2 * b * h * d * ib)
+
+
+def fused_attn_decode(b: int, k_dim: int, h: int, hk: int, seq_kv: int, d: int,
+                      kv_dtype) -> KernelCost:
+    """The attention megakernel (K4) per rank: the qkv product (its weight
+    read once, the activation rows read), the token's K/V slots written,
+    and the decode over the cache (JAX ``costs.fused_attn_decode``)."""
+    ib = _itemsize(kv_dtype)
+    qkv_cols = (h + 2 * hk) * d
+    att = decode_attention(b, h, hk, seq_kv, d, kv_dtype)
+    return KernelCost(flops=att.flops + 2 * b * k_dim * qkv_cols,
+                      bytes_accessed=att.bytes_accessed
+                      + ib * (k_dim * qkv_cols + b * k_dim + 2 * b * hk * d))
+
+
+def fused_mlp_ar(b: int, k_in: int, k_loc: int, n_dim: int, num_ranks: int, dtype,
+                 out_dtype=None, *, swiglu: bool = True) -> KernelCost:
+    """K15 per rank: [the gate/up product and SwiGLU when ``swiglu``] and
+    the down (or o-proj) chunk products, the travelling partials' adds, and
+    2 (n - 1) / n of the (B, n_dim) output on the ring's two phases (JAX
+    ``costs.fused_mlp_ar``)."""
+    n = num_ranks
+    ob = _itemsize(out_dtype or dtype)
+    dn = matmul(b, n_dim, k_loc, dtype, out_dtype)
+    flops = dn.flops + (n - 1) * b * (n_dim // max(n, 1))
+    nbytes = dn.bytes_accessed
+    if swiglu:
+        up = matmul(b, 2 * k_loc, k_in, dtype, out_dtype)
+        flops += up.flops + 3 * b * k_loc
+        nbytes += up.bytes_accessed + 3 * b * k_loc * ob
+    wire = 2 * (n - 1) * b * (n_dim // max(n, 1)) * ob
+    return KernelCost(flops=flops, bytes_accessed=nbytes + 2 * wire, wire_bytes=wire)
+
+
+def persistent_decode(layers: int, b: int, k_dim: int, h: int, hk: int, seq_kv: int,
+                      d: int, f_loc: int, num_ranks: int, kv_dtype) -> KernelCost:
+    """K16 per rank: L x (K4's cell, the o-proj's K15 instance and the
+    MLP's), h, hk and f_loc a rank's (JAX ``costs.persistent_decode``)."""
+    att = fused_attn_decode(b, k_dim, h, hk, seq_kv, d, kv_dtype)
+    oproj = fused_mlp_ar(b, h * d, h * d, k_dim, num_ranks, kv_dtype, swiglu=False)
+    mlp = fused_mlp_ar(b, k_dim, f_loc, k_dim, num_ranks, kv_dtype, swiglu=True)
+    return (att + oproj + mlp).scaled(layers)
 
 
 def sol_ms(cost: KernelCost, dtype=torch.bfloat16) -> float:

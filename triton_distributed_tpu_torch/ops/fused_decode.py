@@ -1,27 +1,41 @@
 """The decode megakernel path (``decode_mode="fused"``): counterpart of
-``triton_distributed_tpu/ops/fused_decode.py`` at tp = 1.
+``triton_distributed_tpu/ops/fused_decode.py``.
 
 - :func:`fused_attn_decode`: one layer's attention side of a decode step
   (qkv projection, qk-RMSNorm, RoPE, the ragged append of the new token's
   K/V into the paged pool, and block-table flash decode with the token
   folded in last) in one launch of ``csrc/fused_decode.cu`` (K4), which
-  replaces the Pallas ``_fused_attn_kernel``.  Its plain version is
-  :func:`fused_attn_decode_ref`; the wrapper takes it only for CPU tensors.
-- :func:`fused_mlp_ar` / :func:`fused_linear_ar`: the MLP and the o-proj
-  chained into an AllReduce ring.  At one rank the JAX functions are plain
-  products (``:756-762``, ``:851-853``), and so are these; more ranks
-  belong to the multi-GPU slice of the port.
+  replaces the Pallas ``_fused_attn_kernel``.  At tp = n co-located ranks
+  (a rank-stacked ``wqkv``) one launch serves every rank, the rank folded
+  into the batch as the caches fold it.  Its plain version is
+  :func:`fused_attn_decode_ref` (per rank); the wrapper takes it only for
+  CPU tensors.
+- :func:`fused_mlp_ar` / :func:`fused_linear_ar`: the MLP (gate/up product,
+  SwiGLU, down projection) and the o-projection chained into the
+  column-chunked GEMM + two-shot AllReduce ring, on rank-stacked operands:
+  one cooperative launch of ``csrc/fused_ar.cu`` (K15) over every rank,
+  which replaces the Pallas ``_fused_mlp_ar_kernel`` (``:507``).  Their
+  plain versions walk the same schedule (:func:`ar_program`, on
+  ``comm/ring.py::chunk_ar_phase``).  Without a mesh, or at one rank, the
+  JAX functions are plain products (``:756-762``, ``:851-853``), and so are
+  these.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
 
-from ..core import build
+from ..comm import ring
+from ..comm.launch import GEMM_DTYPES, check_config, walk_teams
+from ..core import build, symm
 from ..core.launches import count
+from ..core.mesh import TP_AXIS, Mesh
 from ..core.utils import cdiv
+from ..lang import primitives as dl
+from ..lang.primitives import Matmul, Swiglu, Team
 from ..layers.norm import rms_norm
 from ..layers.tp_mlp import TPMLPParams, mlp_forward
 from .attention import (
@@ -149,7 +163,9 @@ def fused_plan(b: int, k_dim: int, hk: int, g: int, capacity: int,
     """(n_kslice, k_chunk, n_split, chunk): the projection cuts wqkv's K rows
     into ``n_kslice`` slices of ``k_chunk`` so that the Hkv * (G + 2) column
     tiles make one full wave of ``blocks_per_sm`` blocks on every SM; the
-    attention cuts the prefix as the decode kernels do."""
+    attention cuts the prefix as the decode kernels do.  A rank-folded
+    launch takes the plan of one rank, so that each rank's arithmetic is
+    that of its own tp = 1 launch."""
     tiles = hk * (g + 2)
     want = max(1, blocks_per_sm * _sm_count(device.index) // tiles)
     n = max(1, min(want, cdiv(k_dim, PROJ_ROW_GRANULE)))
@@ -157,6 +173,19 @@ def fused_plan(b: int, k_dim: int, hk: int, g: int, capacity: int,
     n_split, chunk = decode_split_plan(b * hk, capacity, device,
                                        granule=page_size)
     return cdiv(k_dim, k_chunk), k_chunk, n_split, chunk
+
+
+def _fused_attn_folded_ref(x, wqkv, q_norm, k_norm, pool_k, pool_v, block_table,
+                           seq_lens, **kw):
+    """The plain version at tp = n: rank r's tp = 1 step on its rows of the
+    folded table and lengths, the pools shared (each rank's pages are its
+    own); outputs stacked by rank."""
+    n, b = wqkv.shape[0], x.shape[0]
+    out = torch.stack([fused_attn_decode_ref(x, wqkv[r], q_norm, k_norm, pool_k, pool_v,
+                                             block_table[r * b:(r + 1) * b],
+                                             seq_lens[r * b:(r + 1) * b], **kw)[0]
+                       for r in range(n)])
+    return out, pool_k, pool_v
 
 
 def fused_attn_decode(x: torch.Tensor, wqkv: torch.Tensor,
@@ -177,6 +206,13 @@ def fused_attn_decode(x: torch.Tensor, wqkv: torch.Tensor,
     outputs before the o-proj, the pools updated in place with the new
     token at each sequence's position.
 
+    At tp = n co-located ranks ``wqkv`` is rank-stacked (n, K, (Hq + 2 Hkv)
+    D) with each rank's heads, x stays one replicated (B, K) copy, and the
+    pools, table (n B, max_pages) and lengths (n B,) are the rank-folded
+    ones of ``models/kv_cache.py`` (rank r's sequences at [r B, (r + 1)
+    B)); out is (n, B, Hq D), rank-stacked.  One launch serves every rank.
+    int8 pages are served at tp = 1 only.
+
     int8 pools (``k_scale``/``v_scale`` (P, Hkv) f32): the pages are
     dequantized as they stream and nothing is appended; the return is
     ``(out, pool_k, pool_v, k_tok, v_tok)`` with the new token's k/v
@@ -187,8 +223,9 @@ def fused_attn_decode(x: torch.Tensor, wqkv: torch.Tensor,
     if pool_v.shape != pool_k.shape:
         raise ValueError(f"pool shape mismatch: {tuple(pool_k.shape)} vs "
                          f"{tuple(pool_v.shape)}")
-    qkv_cols = wqkv.shape[1]
-    if wqkv.dim() != 2 or wqkv.shape[0] != k_dim or qkv_cols % d:
+    n_ranks = wqkv.shape[0] if wqkv.dim() == 3 else 1
+    qkv_cols = wqkv.shape[-1]
+    if wqkv.dim() not in (2, 3) or wqkv.shape[-2] != k_dim or qkv_cols % d:
         raise ValueError(f"wqkv {tuple(wqkv.shape)} inconsistent with x "
                          f"{tuple(x.shape)} / head_dim {d}")
     h = qkv_cols // d - 2 * hk
@@ -196,11 +233,14 @@ def fused_attn_decode(x: torch.Tensor, wqkv: torch.Tensor,
         raise ValueError(f"wqkv {tuple(wqkv.shape)} does not hold [q|k|v] for "
                          f"{hk} kv heads at head_dim {d}")
     mp = block_table.shape[1]
-    if block_table.dim() != 2 or block_table.shape[0] != b \
-            or tuple(seq_lens.shape) != (b,):
+    if block_table.dim() != 2 or block_table.shape[0] != n_ranks * b \
+            or tuple(seq_lens.shape) != (n_ranks * b,):
         raise ValueError(f"block_table {tuple(block_table.shape)} / seq_lens "
-                         f"{tuple(seq_lens.shape)} inconsistent with B={b}")
+                         f"{tuple(seq_lens.shape)} inconsistent with {n_ranks} rank(s) "
+                         f"of B={b}")
     quantized = check_page_scales(pool_k, pool_v, k_scale, v_scale)
+    if quantized and wqkv.dim() == 3:
+        raise NotImplementedError("int8 pages at tp > 1 are not served; int8 pages serve tp = 1")
     norms = (q_norm, k_norm) if qk_eps is not None else ()
     if any(n is None for n in norms):
         raise ValueError("qk_eps needs q_norm and k_norm")
@@ -213,10 +253,12 @@ def fused_attn_decode(x: torch.Tensor, wqkv: torch.Tensor,
                         "full-precision pools hold x's dtype")
     sm_scale = d ** -0.5 if sm_scale is None else float(sm_scale)
     if x.device.type == "cpu":
-        return fused_attn_decode_ref(
-            x, wqkv, q_norm, k_norm, pool_k, pool_v, block_table, seq_lens,
-            rope_theta=rope_theta, qk_eps=qk_eps, sm_scale=sm_scale,
-            soft_cap=soft_cap, k_scale=k_scale, v_scale=v_scale)
+        kw = dict(rope_theta=rope_theta, qk_eps=qk_eps, sm_scale=sm_scale, soft_cap=soft_cap)
+        if wqkv.dim() == 3:
+            return _fused_attn_folded_ref(x, wqkv, q_norm, k_norm, pool_k, pool_v,
+                                          block_table, seq_lens, **kw)
+        return fused_attn_decode_ref(x, wqkv, q_norm, k_norm, pool_k, pool_v, block_table,
+                                     seq_lens, k_scale=k_scale, v_scale=v_scale, **kw)
     g = h // hk
     _check_kernel_shape(d, g)
     check_int32(block_table=block_table, seq_lens=seq_lens)
@@ -225,16 +267,18 @@ def fused_attn_decode(x: torch.Tensor, wqkv: torch.Tensor,
         b, k_dim, hk, g, mp * ps, ps, dev,
         _blocks_per_sm(d, g, x.dtype, quantized))
     f32 = dict(dtype=torch.float32, device=dev)
-    out = torch.empty((b, h * d), dtype=x.dtype, device=dev)
-    q_buf = torch.empty((b, h, d), dtype=x.dtype, device=dev)
-    k_tok = torch.empty((b, hk, d), dtype=x.dtype, device=dev)
+    nb = n_ranks * b
+    out = torch.empty((nb, h * d), dtype=x.dtype, device=dev)
+    q_buf = torch.empty((nb, h, d), dtype=x.dtype, device=dev)
+    k_tok = torch.empty((nb, hk, d), dtype=x.dtype, device=dev)
     v_tok = torch.empty_like(k_tok)
-    part_proj = torch.empty((n_kslice * b * qkv_cols,), **f32)
-    part_acc = torch.empty((b * hk * n_split * g * d,), **f32)
-    part_ml = torch.empty((b * hk * n_split * g * 2,), **f32)
+    part_proj = torch.empty((n_ranks * n_kslice * b * qkv_cols,), **f32)
+    part_acc = torch.empty((nb * hk * n_split * g * d,), **f32)
+    part_ml = torch.empty((nb * hk * n_split * g * 2,), **f32)
     stream = _stream(dev)
-    sync = _sync_buffer(dev, stream, 2 + hk * (g + 2) + 2 * hk + b * hk)
+    sync = _sync_buffer(dev, stream, 2 + n_ranks * (hk * (g + 2) + 2 * hk + b * hk))
     qn_, kn_ = norms if norms else (None, None)
+    wqkv = wqkv.contiguous()
     lib = build.library()
     err = lib.tdt_fused_attn_decode(
         x.data_ptr(), wqkv.data_ptr(), _ptr(qn_), _ptr(kn_), pool_k.data_ptr(),
@@ -246,38 +290,242 @@ def fused_attn_decode(x: torch.Tensor, wqkv: torch.Tensor,
         sync.data_ptr(), b, k_dim, h, hk, d, ps, mp, n_kslice, k_chunk,
         n_split, chunk, sm_scale, float(soft_cap),
         float(qk_eps) if qk_eps is not None else 0.0, KERNEL_DTYPES[x.dtype],
-        stream)
+        n_ranks, stream)
     name = "fused_attn_decode_int8" if quantized else "fused_attn_decode"
     build.check(err, name)
-    count(name)
+    # a rank-folded launch is counted by its form as well
+    count(name, (n_ranks, b, k_dim, h, hk, d) if n_ranks > 1 else None)
+    if wqkv.dim() == 3:
+        out = out.reshape(n_ranks, b, h * d)
     if quantized:
         return out, pool_k, pool_v, k_tok, v_tok
     return out, pool_k, pool_v
 
 
 # ---------------------------------------------------------------------------
-# the MLP and o-proj reductions, one rank
+# K15: the MLP and the o-projection chained into the AllReduce ring
 
 
-def _one_rank(world_size: int, name: str) -> None:
-    if world_size != 1:
+def ar_program(team: Team, me: int, swiglu: bool) -> list:
+    """JAX ``_fused_mlp_ar_kernel``'s schedule (``fused_decode.py:507-580``):
+    with ``swiglu`` the prologue (x times the gate and the up columns,
+    SwiGLU) before the entry barrier; then one column-chunked AllReduce
+    instance over the activations and the weight's column chunks, and the
+    ACK drain."""
+    prog = []
+    if swiglu:
+        prog += [Matmul(("g", 0), ("x", 0), ("wg", 0)), Matmul(("u", 0), ("x", 0), ("wu", 0)),
+                 Swiglu(("act", 0), ("g", 0), ("u", 0))]
+    dl.collective_prologue(prog, team, me, neighbors_only=True)
+    ring.chunk_ar_phase(prog, team, me, ("act" if swiglu else "x", 0), "out", armed=False)
+    ring.rs_ack_drain(prog, team.size)
+    return prog
+
+
+def _swiglu_program(team: Team, me: int) -> list:
+    return ar_program(team, me, True)
+
+
+def _linear_program(team: Team, me: int) -> list:
+    return ar_program(team, me, False)
+
+
+def _ar_buffers(x, w, out, n: int, out_dtype, gate_up=None):
+    """``bufs_of`` of the plain walk: the activations (one copy, or rank
+    r's), the weight's column chunks, the gate/up blocks and SwiGLU entries
+    (swiglu), fresh product entries and receive slots, every rank's reduced
+    chunks (``out`` (n, n, B, cn))."""
+    b, cn = out.shape[-2], out.shape[-1]
+    f = w.shape[-2]
+
+    def bufs_of(s):
+        new = functools.partial(torch.empty, dtype=out_dtype, device=w.device)
+        bufs = {"x": [x if gate_up is not None else x[s]],
+                "w": list(w[s].split(cn, dim=1)), "out": list(out[s]),
+                "mm": list(new((n, b, cn))), "recv": list(new((2, b, cn)))}
+        if gate_up is not None:
+            bufs.update(wg=[gate_up[s][:, :f]], wu=[gate_up[s][:, f:]],
+                        g=[new((b, f))], u=[new((b, f))], act=[new((b, f))])
+        return bufs
+
+    return bufs_of
+
+
+def _rows(out: torch.Tensor) -> torch.Tensor:
+    """Rank 0's (n, B, cn) chunk-major reduced chunks as (B, n cn) rows
+    (JAX ``_ar_chunks_to_rows``)."""
+    return out[0].permute(1, 0, 2).reshape(out.shape[-2], -1)
+
+
+def _walk_ar(swiglu: bool, x, gate_up, w, mesh: Mesh, axis: str, out_dtype):
+    team = Team.of(mesh, axis)
+    n = team.size
+    b, cols = x.shape[-2], w.shape[-1]
+    out = torch.empty((n, n, b, cols // n), dtype=out_dtype, device=w.device)
+    walk_teams(_swiglu_program if swiglu else _linear_program, team,
+               _ar_buffers(x, w, out, n, out_dtype, gate_up))
+    return out
+
+
+def fused_mlp_ar_ref(x: torch.Tensor, gate_up: torch.Tensor, down: torch.Tensor,
+                     mesh: Mesh, axis: str = TP_AXIS, *, out_dtype=None) -> torch.Tensor:
+    """Plain version of K15's swiglu form, on any device: the schedule
+    walked on tensors (g and u rounded to ``out_dtype``, SwiGLU in f32
+    rounded once, each chunk product rounded, each hop added in f32 and
+    rounded once).  Returns (B, N)."""
+    out_dtype = out_dtype or x.dtype
+    return _rows(_walk_ar(True, x, gate_up, down, mesh, axis, out_dtype))
+
+
+def fused_linear_ar_ref(h: torch.Tensor, w: torch.Tensor, mesh: Mesh, axis: str = TP_AXIS, *,
+                        out_dtype=None) -> torch.Tensor:
+    """Plain version of K15's linear form: ``AllReduce(h_r @ w_r)`` on the
+    ring's schedule.  Returns (B, N)."""
+    out_dtype = out_dtype or h.dtype
+    return _rows(_walk_ar(False, h, None, w, mesh, axis, out_dtype))
+
+
+GEMV_TILE_COLS = 64   # csrc/fused_ar.cuh kTileCols
+GEMV_ROW_GRANULE = 64
+
+
+def gemv_plan(b: int, kd: int, cols: int, lanes: int) -> symm.Gemv:
+    """A decode product's plan: about two (64-column tile, K slice) items
+    for every lane of the rank, so that every lane streams weights and the
+    lanes' shares differ by one item at most."""
+    tiles = cdiv(cols, GEMV_TILE_COLS)
+    n = max(1, min(cdiv(2 * lanes, tiles), cdiv(kd, GEMV_ROW_GRANULE)))
+    k_chunk = cdiv(cdiv(kd, n), GEMV_ROW_GRANULE) * GEMV_ROW_GRANULE
+    return symm.Gemv(b, kd, cols, cdiv(kd, k_chunk), k_chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_ar_lanes(dtype_code: int, out_code: int, swiglu: bool, ranks: int) -> int:
+    lanes = build.library().tdt_fused_ar_lanes(dtype_code, out_code, int(swiglu), ranks)
+    if lanes <= 0:
+        raise RuntimeError(f"fused_ar: no co-resident lanes for {ranks} ranks ({lanes})")
+    return lanes
+
+
+def _launch_ar(swiglu: bool, x, gate_up, w, mesh: Mesh, axis: str, out_dtype) -> torch.Tensor:
+    """K15 over every rank of the mesh; returns the (B, N) result."""
+    team = Team.of(mesh, axis)
+    n = team.size
+    b, cols = x.shape[-2], w.shape[-1]
+    f, cn, k = w.shape[-2], cols // n, x.shape[-1]
+    dt, ot = symm.DTYPE_CODES[w.dtype], symm.DTYPE_CODES[out_dtype]
+    lanes = _fused_ar_lanes(dt, ot, swiglu, mesh.size)
+    up = gemv_plan(b, k, 2 * f, lanes) if swiglu else symm.Gemv()
+    dn = gemv_plan(b, f, cn, lanes)
+    part_elems = max(up.n_kslice * b * 2 * f, 2 * dn.n_kslice * b * cn)
+    fam = "fused_ar"
+    chunk = b * cn
+    mm = symm.landing(mesh, axis, f"{fam}_mm", (n, chunk), out_dtype).data
+    red = symm.landing(mesh, axis, f"{fam}_out", (n, chunk), out_dtype).data
+    land = symm.landing(mesh, axis, fam, (2, chunk), out_dtype)
+    part = symm.landing(mesh, axis, f"{fam}_part", (part_elems,), torch.float32).data
+    act = symm.landing(mesh, axis, f"{fam}_act", (b * f,), out_dtype).data if swiglu else None
+    rows = torch.empty((b, cols), dtype=out_dtype, device=w.device)
+    coll = symm.coll_args(team, mesh, x=mm, out=red, land=land,
+                          pad=symm.signal_pad(mesh, axis, fam), chunk_elems=chunk, method=0)
+    coll.dtype, coll.out_dtype = dt, ot
+    none = symm.peers(None)
+    args = symm.FusedArArgs(
+        coll, symm.peers([x.data_ptr()] * mesh.size) if swiglu else symm.peers(symm.slot_ptrs(x, mesh)),
+        symm.peers(symm.slot_ptrs(gate_up, mesh)) if swiglu else none,
+        symm.peers(symm.slot_ptrs(w, mesh)),
+        symm.peers(symm.slot_ptrs(act, mesh)) if swiglu else none,
+        symm.peers(symm.slot_ptrs(part, mesh)), rows.data_ptr(), k, f, cols, up, dn)
+    stream = torch.cuda.current_stream(w.device).cuda_stream
+    build.check(build.library().tdt_fused_ar(ctypes.byref(args), int(swiglu), stream),
+                "fused_ar")
+    return rows
+
+
+def _ar_operands(name: str, act, w, mesh: Mesh | None, axis: str, out_dtype, wire_dtype: str,
+                 config, gate_up=None):
+    """The checks JAX's fused_mlp_ar / fused_linear_ar make, on rank-stacked
+    operands; returns n and the output dtype."""
+    if wire_dtype != "bf16":
         raise NotImplementedError(
-            f"{name} over {world_size} ranks (the fused GEMM + AllReduce ring) "
-            "belongs to the multi-GPU slice of the port")
+            f"{name}: wire_dtype={wire_dtype!r}: the quantized wire needs the pack kernel "
+            "B9 (lang/quant.py:145), not ported yet; use 'bf16'")
+    check_config(config)
+    n = 1 if mesh is None else mesh.shape[axis]
+    out_dtype = out_dtype or act.dtype
+    if n == 1:
+        return n, out_dtype
+    if isinstance(axis, (tuple, list)) or len(mesh.axes) != 1:
+        raise NotImplementedError(f"{name}: the co-located ranks run a mesh of one axis")
+    k = act.shape[-1]
+    if w.dim() != 3 or w.shape[0] != n or (gate_up is None and (
+            act.dim() != 3 or act.shape[0] != n or w.shape[1] != k)):
+        raise ValueError(f"{name}: operands {tuple(act.shape)} @ {tuple(w.shape)} are not "
+                         f"rank-stacked on {n} ranks")
+    if gate_up is not None and (act.dim() != 2 or tuple(gate_up.shape) != (n, k, 2 * w.shape[1])):
+        raise ValueError(f"{name}: gate_up {tuple(gate_up.shape)} inconsistent with x "
+                         f"{tuple(act.shape)} / down {tuple(w.shape)} on {n} ranks")
+    if w.shape[2] % n:
+        raise ValueError(f"{name}: N={w.shape[2]} must be divisible by {axis}={n}")
+    if act.is_cuda and (w.shape[1] % 8 or (w.shape[2] // n) % 8 or k % 8):
+        raise ValueError(f"{name}: F / n = {w.shape[1]}, N / n = {w.shape[2] // n} and K = {k} "
+                         "must be multiples of 8 for K15 (16-byte rows)")
+    if (w.dtype, out_dtype) not in GEMM_DTYPES or act.dtype != w.dtype or (
+            gate_up is not None and gate_up.dtype != w.dtype):
+        raise TypeError(f"{name}: operands {act.dtype}, {w.dtype} -> {out_dtype}: K15 takes "
+                        f"{[(str(a)[6:], str(o)[6:]) for a, o in GEMM_DTYPES]}")
+    for t in (act, w) if gate_up is None else (act, gate_up, w):
+        if t.device != mesh.device:
+            raise ValueError(f"{name}: operand on {t.device}, the mesh on {mesh.device}")
+    return n, out_dtype
+
+
+def _local_weight(w: torch.Tensor) -> torch.Tensor:
+    return w[0] if w.dim() == 3 else w
 
 
 def fused_mlp_ar(x: torch.Tensor, gate_up: torch.Tensor, down: torch.Tensor,
-                 world_size: int = 1) -> torch.Tensor:
-    """The SwiGLU MLP of (B, K) ``x`` (``gate_up`` (K, 2F) as
-    ``[gate | up]``, ``down`` (F, K)) and its AllReduce; at one rank the MLP
-    alone (JAX ``fused_decode.py:756-762``)."""
-    _one_rank(world_size, "fused_mlp_ar")
-    return mlp_forward(TPMLPParams(gate_up=gate_up, down=down), x)
+                 mesh: Mesh | None = None, axis: str = TP_AXIS, *, config=None,
+                 out_dtype=None, wire_dtype: str = "bf16") -> torch.Tensor:
+    """``AllReduce(swiglu(x @ gate_up) @ down)`` (JAX ``fused_decode.py:717``)
+    in one launch of K15 over every rank.
+
+    ``x``: (B, K) replicated, one copy; ``gate_up``: rank-stacked (n, K,
+    2F / n), rank r's ``[gate_r | up_r]``; ``down``: (n, F / n, N).  Returns
+    (B, N), every rank's sum.  Needs N % n == 0 (the ring's column chunks);
+    on the card also F / n, N / n, K multiples of 8 (K15's 16-byte rows),
+    else it raises; B is free.  Without a mesh or at one
+    rank (2-D or one-rank weights) the plain MLP, as JAX's n == 1.  A wire
+    other than "bf16" raises (the pack kernel B9 is not ported)."""
+    n, out_dtype = _ar_operands("fused_mlp_ar", x, down, mesh, axis, out_dtype, wire_dtype,
+                                config, gate_up if mesh is not None and mesh.shape[axis] > 1
+                                else None)
+    if n == 1:
+        p = TPMLPParams(gate_up=_local_weight(gate_up), down=_local_weight(down))
+        out = mlp_forward(p, x)
+        return out if out.dtype == out_dtype else out.to(out_dtype)
+    if not x.is_cuda:
+        return fused_mlp_ar_ref(x, gate_up, down, mesh, axis, out_dtype=out_dtype)
+    out = _launch_ar(True, x.contiguous(), gate_up.contiguous(), down.contiguous(), mesh, axis,
+                     out_dtype)
+    count("fused_mlp_ar", (n, x.shape[0], x.shape[1], down.shape[1], down.shape[2]))
+    return out
 
 
-def fused_linear_ar(h: torch.Tensor, w: torch.Tensor,
-                    world_size: int = 1) -> torch.Tensor:
-    """``AllReduce(h @ w)``; at one rank the product (JAX
-    ``fused_decode.py:851-853``)."""
-    _one_rank(world_size, "fused_linear_ar")
-    return torch.matmul(h, w)
+def fused_linear_ar(h: torch.Tensor, w: torch.Tensor, mesh: Mesh | None = None,
+                    axis: str = TP_AXIS, *, config=None, out_dtype=None) -> torch.Tensor:
+    """``AllReduce(h @ w)`` (JAX ``fused_decode.py:828``, the decode
+    o-projection) in one launch of K15 over every rank.  ``h``: rank-stacked
+    (n, B, F / n); ``w``: (n, F / n, N).  Returns (B, N).  Needs N % n == 0;
+    on the card also F / n, N / n multiples of 8, else it raises; B is free.  Without a mesh or at one
+    rank the product."""
+    n, out_dtype = _ar_operands("fused_linear_ar", h, w, mesh, axis, out_dtype, "bf16", config)
+    if n == 1:
+        hh = h[0] if h.dim() == 3 else h
+        out = torch.matmul(hh, _local_weight(w))
+        return out if out.dtype == out_dtype else out.to(out_dtype)
+    if not h.is_cuda:
+        return fused_linear_ar_ref(h, w, mesh, axis, out_dtype=out_dtype)
+    out = _launch_ar(False, h.contiguous(), None, w.contiguous(), mesh, axis, out_dtype)
+    count("fused_linear_ar", (n, h.shape[1], h.shape[2], w.shape[2]))
+    return out
