@@ -79,7 +79,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
                bytes), the plain version, the chain and one torch.matmul of
                the whole unsharded product.
 4. serve    -- Qwen3-8B at full width and depth with seeded random weights,
-               batch 4, max_length 2048: requests of 1024 prompt tokens and 64
+               batch 4, max_length 2048: two requests of 1024 prompt tokens and 64
                new tokens in five modes (contiguous, paged, paged + fused,
                paged + int8, paged + int8 + fused); the launch counters must
                rise by 36 per prefill (K1) and by 36 per decode step for the
@@ -95,6 +95,22 @@ Phases, each printing JSON lines; any failure exits non-zero:
                per mode: wall vs kernel time, idle share, kernel time by
                class (attention, grouped GEMM, overlapped GEMM, collective,
                GEMM, other).
+   ep_cases -- K17 (the EP all-to-all) on co-located ranks, n 2, 3, 4, 8:
+               f32 and bf16 rows of widths 8, 136 and 2048, packed u8 rows of
+               H 16, 144 and 2048 (+ 128; 136-byte rows refused),
+               37 or 200 rows a rank, uniform and skewed splits (every row to
+               one peer, a silent rank, empty experts, short totals), the
+               farthest-first emission order; dispatch and combine held
+               bitwise to the plain versions on the valid rows with every
+               landing buffer planted with NaN first, the round trip equal to
+               the input, every pad at rest.  K18 (the wire pack) bitwise
+               against its plain version, fp8 and int8, f32 and bf16 rows,
+               1-1000 rows, H 16-4096, with an all-zero, an all-negative, a
+               denormal-range row and one element at 1e4, decoded within the
+               codec's envelope.  The parity-slot AllGather layer (B17 on
+               K9): slots alternate, call k intact through call k + 1,
+               memory flat from the second call.  The collectives phase's
+               stalled-rank child runs K17 too (it must fail by name).
    serve_tp -- Qwen3-8B at tp = 4 on four ranks co-located on the card, full
                width and depth (the tp = 1 engines freed first), batch 4,
                prompts of 1024, 64 new tokens, in contiguous psum and paged
@@ -102,6 +118,22 @@ Phases, each printing JSON lines; any failure exits non-zero:
                step K2 or K3 +36, K11 +72 (ar), K14 +72 (gemm_ar), nothing
                else; two requests a mode, a profile, peak memory; the tp = 4
                decode step of each mode under the sync check.
+   serve_ep -- Qwen3-30B-A3B at tp = 4 under expert parallelism
+               (moe_strategy="ep"), full width and 48 layers, from the tp = 1
+               draw of the MoE serve (the experts' tensors shared, its engines freed
+               first).  First the main rows at its prefill (8192 routed rows a
+               rank, splits from a real routing): K17 dispatch and combine on
+               bf16 and u8 rows, K18 on the rows it packs on each hop, bitwise,
+               timed beside the bound, the plain version and an
+               index_select gather; the layer unchanged by NaN in every landing
+               buffer, on both wires, held to the tp = 1 layer (the fp8 wire:
+               with the codec applied, within one bf16 ulp, a limit the bf16
+               wire misses by FAULT_MARGIN).  Then paged
+               psum, paged fused and paged fused with moe_fp8_wire, two requests
+               each: per prefill K1 +48, K12 +48, K13 +48, K17 +96, K5 +96 (and
+               K18 +96 with the fp8 wire), per step K3 or K4 + K15 +48 and K5
+               +96, exact and by form; an EP prefill and step under the sync
+               check on each wire; a profile per mode; peak memory.
 5. parity   -- full width at 2 layers in f32, batch 2, prompt 128, 8 new
                tokens: the port on the card (kernels) and on the CPU (plain
                versions) from the same weights give the same logits within
@@ -116,6 +148,14 @@ Phases, each printing JSON lines; any failure exits non-zero:
                tp = 1 on the card, from one seed, give prefill logits and every
                decode step's logits within PARITY_TOL and the same greedy
                tokens, in every served tp = 4 mode on both caches.
+   parity_ep -- Qwen3-30B-A3B width at 2 layers in f32, batch 2, prompt 128,
+               8 new tokens: EP at tp = 4 on the card and on the CPU and tp = 1
+               on the card, from one draw: prefill logits and every psum and
+               fused decode step within PARITY_TOL, the same greedy tokens and
+               the same top-8 experts for every token, layer and step; the fp8
+               wire's prefill, card against CPU, within FP8_GAP_SHARE of the
+               fp8-vs-bf16 wire gap (which the bf16 wire's logits must miss),
+               the same greedy tokens and first-layer experts.
 6. the kernels line, the card line, and the result line.
 
 The script imports nothing of JAX.
@@ -1483,8 +1523,8 @@ def phase_collective_cases(tt, torch) -> None:
 
 def stalled_rank_child(kernel: str) -> int:
     """Run in a child process by phase_wait_bound: a two-rank gather (K9's
-    one-way ring) or AG-GEMM (K12's) in which rank 1 never credits its
-    puts, so rank 0's wait runs out and the launch fails.  Exits non-zero
+    one-way ring), AG-GEMM (K12's), K16 step or EP dispatch (K17) in which
+    rank 1 never credits its puts, so a wait runs out and the launch fails.  Exits non-zero
     through the uncaught error, which names the rank and the flag."""
     import torch
 
@@ -1508,6 +1548,11 @@ def stalled_rank_child(kernel: str) -> int:
         PD._launch(params.embed[:2], PD.stack_decode_params(params), cache.k, cache.v,
                    cache.block_table, cache.seq_lens, mesh, "tp", rope_theta=c.rope_theta,
                    rms_eps=c.rms_eps, qk_eps=None, sm_scale=0.125, soft_cap=0.0, stall_rank=1)
+    elif kernel == "all_to_all":
+        from triton_distributed_tpu_torch.comm.all_to_all import AllToAllConfig, _dispatch
+
+        splits = torch.full((2, 2), 2, dtype=torch.int32, device="cuda")
+        _dispatch(x, splits, mesh, "tp", AllToAllConfig(), stall_rank=1)
     elif kernel == "ag_gemm":
         w = torch.ones(2, 64, 64, device="cuda")
         _ag_gemm(x, w, mesh, "tp", torch.float32, bidir=False, stall_rank=1)
@@ -1523,13 +1568,15 @@ def stalled_rank_child(kernel: str) -> int:
     return 0
 
 
-STALL_KERNELS = ("all_gather", "ag_gemm", "persistent_decode")
+STALL_KERNELS = ("all_gather", "ag_gemm", "persistent_decode", "all_to_all")
 # the (rank, flag) a stalled child must name: K16's rank 1 credits none of
 # its ring puts, so rank 0 waits on its first ReduceScatter arrival, or rank
 # 1, past its own ReduceScatter, on its first AllGather arrival, whichever
 # wait runs out first
 STALL_NAMES = {"all_gather": (("rank 0 ", "recv[1]"),), "ag_gemm": (("rank 0 ", "recv[1]"),),
-               "persistent_decode": (("rank 0 ", "rs_recv[0]"), ("rank 1 ", "recv[0]"))}
+               "persistent_decode": (("rank 0 ", "rs_recv[0]"), ("rank 1 ", "recv[0]")),
+               # K17: rank 1 credits none of its puts, its own zone's included
+               "all_to_all": (("rank 0 ", "recv[1]"), ("rank 1 ", "recv[1]"))}
 
 
 def phase_wait_bound(torch, kernels=STALL_KERNELS) -> None:
@@ -2690,14 +2737,16 @@ MOE_SERVE_MODES = (
 MOE_REQUESTS = 2
 
 
-def phase_serve_moe(tt, torch) -> tuple[dict, dict]:
+def phase_serve_moe(tt, torch) -> tuple[dict, dict, dict]:
     """Qwen3-30B-A3B at full width and depth in two modes (paged K3, paged +
     fused K4), with the launch counters set to 0 before each mode's
     requests and read after: per prefill K1 +48 and K5 +96, per decode step
     the mode's kernel +48 and K5 +96, nothing else.  Then the sync check
-    and a profile of each mode.  Returns the launches summed over the
-    modes, and K5's launches by form ((T, K, N) of the product, as the
-    wrapper counts them), summed likewise."""
+    and a profile of each mode; then, its engines freed, the same draw
+    serves the EP model at tp = 4 (phase_serve_ep).  Returns the launches
+    summed over the modes and the EP modes, the launches by form (K5's
+    (T, K, N), K17's and K18's forms), summed likewise, and the EP kernel
+    rows."""
     c = dataclasses.replace(tt.QWEN3_30B_A3B, max_length=MAX_LEN)
     dev = torch.device("cuda")
     torch.cuda.reset_peak_memory_stats()
@@ -2756,12 +2805,21 @@ def phase_serve_moe(tt, torch) -> tuple[dict, dict]:
           "device_total": torch.cuda.get_device_properties(0).total_memory})
     for label, (eng, ids) in engines.items():
         phase_profile(eng, ids, torch, label)
-    del engines, models, params, eng
-    gc.collect()
-    torch.cuda.empty_cache()
     check(sum(form_totals.values()) == totals["grouped_matmul"],
           f"K5 launches by form {form_totals} do not add up to {totals['grouped_matmul']}")
-    return totals, form_totals
+    # the tp = 1 engines' caches go; the draw serves the EP model at tp = 4
+    del engines, models, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    ep_launches, ep_forms_, ep_rows = phase_serve_ep(tt, torch, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k, n in ep_launches.items():
+        totals[k] += n
+    for key, n in ep_forms_.items():
+        form_totals[key] = form_totals.get(key, 0) + n
+    return totals, form_totals, ep_rows
 
 
 def phase_parity_moe(tt, torch) -> None:
@@ -2862,6 +2920,748 @@ def phase_parity_moe(tt, torch) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# expert parallelism: K17 (the EP all-to-all), K18 (the wire pack), the
+# parity-slot AllGather layer (B17, on K9), and Qwen3-30B-A3B under EP at
+# tp = 4 on co-located ranks
+
+A2A_SOURCE = "triton_distributed_tpu_torch/csrc/all_to_all.cu"
+PACK_SOURCE = "triton_distributed_tpu_torch/csrc/quant_pack.cu"
+EP_RANKS = (2, 3, 4, 8)
+EP_WIDTHS = (8, 136, 2048)
+# packed u8 rows: K18 packs H a multiple of 16 into H + 128 bytes (K17 moves
+# rows of a multiple of 16 bytes and refuses others, checked below)
+EP_U8_WIDTHS = (16, 144, 2048)
+EP_MODES = ("uniform", "one_peer", "silent", "empty_experts", "short")
+EP_TP = 4
+# The fp8 EP layer on the card against the tp = 1 layer with the codec where
+# the wire applies it: the same arithmetic and the same codes (K18 is bitwise
+# its plain version), so one bf16 ulp of the result, at most 2^-7 of it.
+FP8_LAYER_RTOL = 2.0 ** -7
+# The fp8 prefill, card against CPU: a share of the fp8-vs-bf16 wire gap the
+# same run measures on the CPU (f32 sums that differ in the last bits flip a
+# code at an e4m3 boundary; the bf16 wire's logits must fail the limit).
+FP8_GAP_SHARE = 0.25
+H100_F32_FLOPS = 67e12       # float32 outside the tensor cores, H100 SXM
+
+
+def ep_splits(torch, gen, n: int, t: int, e: int, mode: str):
+    """(n, E) int32 rows per expert of each rank's T rows, on the card:
+    uniform; every row to rank n - 1's first expert; rank 1 sending
+    nothing; half the experts empty; totals short of T."""
+    out = torch.zeros((n, e), dtype=torch.int32)
+    for r in range(n):
+        tot = t if mode != "short" else int(torch.randint(0, t + 1, (1,), generator=gen))
+        if mode == "one_peer":
+            ids = torch.full((tot,), e - e // n)
+        elif mode == "silent" and r == 1:
+            ids = torch.zeros((0,), dtype=torch.long)
+        elif mode == "empty_experts":
+            ids = torch.randint(0, e // 2, (tot,), generator=gen) * 2
+        else:
+            ids = torch.randint(0, e, (tot,), generator=gen)
+        out[r] = torch.bincount(ids, minlength=e)
+    return out.cuda()
+
+
+def plant_landing(torch) -> int:
+    """Fill every EP landing buffer with NaN (u8: 0xFF, an e4m3 NaN and a
+    NaN scale): what a zone tail or a stale row holds must not reach a
+    result.  Returns the buffers planted."""
+    from triton_distributed_tpu_torch.core import symm
+
+    planted = 0
+    for key, buf in symm._landing.items():
+        if key[3] in ("ep_dispatch", "ep_combine"):
+            buf.fill_(255 if buf.dtype == torch.uint8 else float("nan"))
+            planted += 1
+    return planted
+
+
+def a2a_case(torch, mesh, x, spl, config=None) -> None:
+    """K17's dispatch and combine of ``x`` against the plain versions, the
+    landing buffers planted with NaN first: every valid zone row and
+    recv_splits bitwise, combine's real rows bitwise and equal to ``x``'s
+    (the round trip), every pad at rest after each call."""
+    from triton_distributed_tpu_torch import comm
+
+    n, t = x.shape[0], x.shape[1]
+    want, want_rs = comm.ep_dispatch_ref(x, spl, mesh, "tp", config=config)
+    # both landing buffers exist, then every byte of them is NaN
+    comm.ep_combine(comm.ep_dispatch(x, spl, mesh, "tp", config=config)[0], spl, mesh, "tp",
+                    token_dim=t, config=config)
+    plant_landing(torch)
+    recv, rs = comm.ep_dispatch(x, spl, mesh, "tp", config=config)
+    torch.cuda.synchronize()
+    check(pads_at_rest(), "a signal pad is not at rest after a dispatch")
+    check(torch.equal(rs, want_rs) and recv.shape == want.shape, "recv_splits differ")
+    sent = spl.reshape(n, n, -1).sum(-1).cpu()   # [source, destination]
+    for r in range(n):
+        for p in range(n):
+            cnt = int(sent[p, r])
+            check(torch.equal(recv[r, p, :cnt], want[r, p, :cnt]),
+                  f"dispatch: rank {r}'s zone from {p} differs from the plain version")
+    back = comm.ep_combine(want, spl, mesh, "tp", token_dim=t, config=config)
+    torch.cuda.synchronize()
+    check(pads_at_rest(), "a signal pad is not at rest after a combine")
+    back_ref = comm.ep_combine_ref(want, spl, mesh, "tp", token_dim=t, config=config)
+    for r, tot in enumerate(spl.sum(1).tolist()):
+        check(torch.equal(back[r, :tot], back_ref[r, :tot]) and torch.equal(back[r, :tot],
+                                                                             x[r, :tot]),
+              f"combine: rank {r}'s rows differ from the plain version or the input")
+
+
+def pack_edge_rows(torch, gen, rows: int, h: int, dtype):
+    """Randn rows with, where there are enough rows, an all-zero row, an
+    all-negative row, a denormal-range row and a row with one element at
+    1e4."""
+    x = torch.randn((rows, h), generator=gen, device="cuda")
+    if rows >= 4:
+        x[0] = 0.0
+        x[1] = -x[1].abs()
+        x[2] *= 1e-40
+        x[3, h // 2] = 1e4
+    return x.to(dtype)
+
+
+def phase_ep_cases(tt, torch) -> None:
+    """K17 at n 2, 3, 4, 8 for f32 and bf16 rows of widths 8, 136 and 2048
+    and packed u8 rows of H 16, 144 and 2048 (+ 128 bytes; a row of 136
+    bytes is refused), 37 or 200 rows a rank, the split modes in turn, and
+    the farthest-first emission order at n 4 and 8; K18 bitwise against its
+    plain version on the card at the edge rows (fp8 and int8, f32 and bf16,
+    1-1000 rows, H 16-4096); the AllGather layer's parity slots."""
+    from triton_distributed_tpu_torch import comm
+    from triton_distributed_tpu_torch.core.mesh import make_mesh
+    from triton_distributed_tpu_torch.lang import quant as Q
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 51)
+    cgen = torch.Generator(device="cuda").manual_seed(SEED + 52)
+    i = 0
+    for n in EP_RANKS:
+        mesh = make_mesh({"tp": n})
+        for kind in ("f32", "bf16", "u8"):
+            for w in (EP_U8_WIDTHS if kind == "u8" else EP_WIDTHS):
+                t, mode = (37, 200)[i % 2], EP_MODES[i % len(EP_MODES)]
+                i += 1
+                spl = ep_splits(torch, gen, n, t, 2 * n, mode)
+                if kind == "u8":
+                    x = torch.randint(0, 256, (n, t, w + Q.SIDECAR), generator=cgen,
+                                      device="cuda", dtype=torch.uint8)
+                else:
+                    x = torch.randn((n, t, w), generator=cgen, device="cuda").to(
+                        torch.float32 if kind == "f32" else torch.bfloat16)
+                a2a_case(torch, mesh, x, spl)
+                emit({"phase": "ep_case", "kernel": "all_to_all", "n": n, "rows": kind,
+                      "row_bytes": x.shape[-1] * x.element_size(), "rows_a_rank": t,
+                      "splits": mode, "bitwise": True, "nan_planted": True,
+                      "pads_at_rest": True})
+        if n >= 4:
+            order = tuple(sorted(range(n), key=lambda p: -min(p, n - p)))
+            spl = ep_splits(torch, gen, n, 200, 2 * n, "uniform")
+            x = torch.randn((n, 200, 136), generator=cgen, device="cuda").to(torch.bfloat16)
+            a2a_case(torch, mesh, x, spl, comm.AllToAllConfig(schedule=order))
+            emit({"phase": "ep_case", "kernel": "all_to_all", "n": n, "schedule": list(order),
+                  "bitwise": True})
+    mesh = make_mesh({"tp": 2})
+    try:
+        comm.ep_dispatch(torch.zeros((2, 4, 136), dtype=torch.uint8, device="cuda"),
+                         torch.full((2, 2), 2, dtype=torch.int32, device="cuda"), mesh, "tp")
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "K17 took rows of 136 bytes (not a multiple of 16)")
+    emit({"phase": "ep_case", "kernel": "all_to_all", "row_bytes": 136, "refused": True})
+    for dt in (torch.float32, torch.bfloat16):
+        for rows in (1, 37, 1000):
+            for h in (16, 2048, 4096):
+                x = pack_edge_rows(torch, cgen, rows, h, dt)
+                for wire in ("fp8", "int8"):
+                    got, want = Q.pack_rows(x, wire), Q.pack_rows_ref(x, wire)
+                    check(got.shape == want.shape and torch.equal(got, want),
+                          f"K18 {wire} {dt} {rows}x{h}: {int((got != want).sum())} bytes differ "
+                          "from the plain version")
+                    dec = Q.unpack_rows(got, h, wire, torch.float32)
+                    xf = x.float()
+                    lim = Q.abs_error_bound(xf.abs().amax(-1, keepdim=True), wire) \
+                        + 2.0 ** -23 * xf.abs()
+                    check(bool(((dec - xf).abs() <= lim).all()),
+                          f"K18 {wire} {dt} {rows}x{h}: decoded rows leave the codec's envelope")
+        emit({"phase": "ep_case", "kernel": "quant_pack", "dtype": str(dt),
+              "rows": [1, 37, 1000], "h": [16, 2048, 4096], "wires": ["fp8", "int8"],
+              "edge_rows": True, "bitwise": True})
+    allgather_layer_case(tt, torch)
+    emit({"phase": "ep_cases", "seconds": time.perf_counter() - t0})
+
+
+def allgather_layer_case(tt, torch) -> None:
+    """The parity-slot AllGather layer at n = 4: calls alternate the two
+    workspaces, call k's result is intact after call k + 1, every result
+    equals the plain AllGather, and device memory stays flat from the
+    second call on."""
+    from triton_distributed_tpu_torch import comm
+    from triton_distributed_tpu_torch.core.mesh import make_mesh
+
+    mesh = make_mesh({"tp": EP_TP})
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 53)
+    layer = tt.AllGatherLayer(mesh, 64, (4096,), dtype=torch.bfloat16, axis="tp")
+    ws = layer.workspaces
+    xs = [torch.randn((EP_TP, 64, 4096), generator=gen, device="cuda").to(torch.bfloat16)
+          for _ in range(4)]
+    out0 = layer(xs[0])
+    keep0 = out0.clone()
+    out1 = layer(xs[1])
+    check(out0 is ws[0] and out1 is ws[1], "the layer's calls do not alternate its slots")
+    check(torch.equal(out0, keep0), "call k's result changed during call k + 1")
+    keep1 = out1.clone()
+    torch.cuda.synchronize()
+    mem = torch.cuda.memory_allocated()
+    out2 = layer(xs[2])
+    check(out2 is ws[0] and torch.equal(out1, keep1), "call k + 1's result changed in k + 2")
+    layer(xs[3])
+    torch.cuda.synchronize()
+    flat = torch.cuda.memory_allocated() == mem
+    for x, out in ((xs[2], ws[0]), (xs[3], ws[1])):
+        check(torch.equal(out, comm.all_gather_ref(x, mesh, "tp", layer.method)),
+              "the layer's gather differs from the plain AllGather")
+    check(flat, "the AllGather layer allocated in its steady state")
+    check(pads_at_rest(), "a signal pad is not at rest after the AllGather layer")
+    emit({"phase": "ep_case", "kernel": "allgather_layer", "method": layer.method.value,
+          "slots_alternate": True, "previous_intact": True, "memory_flat": flat,
+          "bitwise": True})
+    # timed at K9's main row (Qwen3-8B's width under tp = 4, 1024 rows a rank),
+    # beside K9's bound, its plain version and one PyTorch call; off the path
+    from triton_distributed_tpu_torch.core.utils import perf_func
+
+    big = tt.AllGatherLayer(mesh, BATCH * PROMPT // EP_TP, (COLL_WIDTH,),
+                            dtype=torch.bfloat16, axis="tp")
+    x = torch.randn((EP_TP, BATCH * PROMPT // EP_TP, COLL_WIDTH), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    tt.reset_launch_counts()
+    got = big(x)
+    launches = tt.launch_counts()["all_gather"]
+    check(torch.equal(got, comm.all_gather_ref(x, mesh, "tp", big.method)),
+          "the AllGather layer differs from the plain AllGather at K9's main row")
+    _, ms = perf_func(lambda: big(x), iters=20)
+    _, plain_ms = perf_func(lambda: comm.all_gather_ref(x, mesh, "tp", big.method), iters=3)
+    _, lib_ms = perf_func(lambda: x.reshape(1, -1, COLL_WIDTH).expand(EP_TP, -1, -1)
+                          .contiguous(), iters=20)
+    fn_bytes = nbytes(x) + EP_TP * nbytes(x)
+    emit({"phase": "kernel_main", "name": f"allgather_layer[{big.method.value} "
+          f"{x.shape[1]}x{COLL_WIDTH}]", "route": "cuda", "source": COLL_SOURCE,
+          "replaces": "triton_distributed_tpu/layers/allgather_layer.py:50", "max_abs_err": 0.0,
+          "ms": ms, "plain_ms": plain_ms, "bound_ms": fn_bytes / H100_BYTES_PER_S * 1e3,
+          "bound_by": "bytes", "library_ms": lib_ms, "library": "expand(...).contiguous()",
+          "launches_a_call": launches, "off_the_main_path": True})
+
+
+def ep_a2a_index(torch, sent, z: int, t: int, combine: bool):
+    """The flat source row of every zone row (n, n, Z) of one exchange, from
+    the host's (source, destination) counts: the gather that builds the same
+    layout (rows past a count read row 0)."""
+    n = sent.shape[0]
+    idx = torch.zeros((n, n, z), dtype=torch.long)
+    for r in range(n):
+        for p in range(n):
+            if combine:   # back zone p of rank r: rank p's zone r rows
+                cnt = int(sent[r, p])
+                idx[r, p, :cnt] = (p * n + r) * z + torch.arange(cnt)
+            else:          # zone p of rank r: rank p's rows to r
+                cnt, first = int(sent[p, r]), int(sent[p, :r].sum())
+                idx[r, p, :cnt] = p * t + first + torch.arange(cnt)
+    return idx.reshape(-1).cuda()
+
+
+def ep_main_rows(tt, torch, layer) -> dict:
+    """K17 and K18 at Qwen3-30B-A3B's EP prefill (B = 4 x 1024 tokens, top-8:
+    8192 rows a rank, four ranks), splits from a real routing of unit
+    activations through ``layer``'s router: K17 dispatch and combine on
+    bf16 and on packed u8 rows, K18 on the 32768 rows it packs on each hop.
+    Each bitwise against its plain version (valid rows),
+    timed with CUDA events beside its bound (the real rows read once and
+    written once), the plain version and, for K17, one ``index_select``
+    gather building the same zones; the path counted once.  Then the layer:
+    forward_ep with every landing buffer planted with NaN equals the clean
+    call, on both wires; the bf16 wire is held to the tp = 1 layer, the fp8
+    wire to the tp = 1 layer with the codec where the wire applies it
+    (``fp8_layer_ref``) within FP8_LAYER_RTOL, a limit that the bf16 wire's
+    output must miss by FAULT_MARGIN."""
+    from triton_distributed_tpu_torch.comm import all_to_all as A
+    from triton_distributed_tpu_torch.core import symm
+    from triton_distributed_tpu_torch.core.mesh import make_mesh
+    from triton_distributed_tpu_torch.core.utils import perf_func
+    from triton_distributed_tpu_torch.lang import quant as Q
+    from triton_distributed_tpu_torch.lang.primitives import Team
+    from triton_distributed_tpu_torch.obs import costs
+
+    c = tt.QWEN3_30B_A3B
+    n, h = EP_TP, c.hidden
+    mesh = make_mesh({"tp": n})
+    team = Team.of(mesh, "tp")
+    moe = tt.MoEMLP(num_experts=c.num_experts, top_k=c.top_k, swiglu=True, mesh=mesh,
+                    axis="tp")
+    p = moe.shard_params_ep(layer.router, layer.w_up, layer.w_dn)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 54)
+    x = torch.randn((n, MOE_TOKENS // n, h), generator=g, device="cuda").to(c.dtype)
+    x_sorted, splits, _, _ = moe._route_and_sort_ranks(x, p.router)
+    t = x_sorted.shape[1]
+    cfg = A.AllToAllConfig()
+    chunk, z = A.zone_geometry(t, cfg)
+    meta = A._meta(splits, team, mesh)
+    sent = splits.reshape(n, n, -1).sum(-1).cpu()
+    real = int(sent.sum())
+    zone_offs = (torch.arange(n, dtype=torch.int32, device="cuda") * z).expand(n, n).contiguous()
+    packed = Q.pack_rows(x_sorted, "fp8")
+    zones = {}
+    for wire, xs in (("bf16", x_sorted), ("u8", packed)):
+        zones[wire] = A.ep_dispatch_ref(xs, splits, mesh, "tp")[0]   # zero tails
+    # (name, kernel, plain, same(got, want), library (label, thunk) or None,
+    #  bound (flops, bytes, rate), form)
+    specs = []
+    for wire, xs in (("bf16", x_sorted), ("u8", packed)):
+        rb = xs.shape[-1] * xs.element_size()
+        recv = symm.landing(mesh, "tp", "ep_dispatch", (n, z, xs.shape[-1]), xs.dtype).data
+        back = symm.landing(mesh, "tp", "ep_combine", (n, z, xs.shape[-1]), xs.dtype).data
+        ys = zones[wire]
+        d_idx, c_idx = (ep_a2a_index(torch, sent, z, t, comb) for comb in (False, True))
+        cost = costs.all_to_all(real, rb)
+
+        def push(role, src, dst, send, offs, exp, plain):
+            A._push(role, src.reshape(n, -1, src.shape[-1]), dst.reshape(n, n, z, -1), send,
+                    offs, exp, team, mesh, chunk, z, cfg, plain, -1)
+            return dst
+
+        def valid(got, want, sent_to=sent):
+            return all(torch.equal(got[r, q, :int(sent_to[q, r])], want[r, q, :int(sent_to[q, r])])
+                       for r in range(n) for q in range(n))
+
+        specs.append((
+            f"all_to_all[dispatch {wire} {t}x{rb}B]",
+            lambda xs=xs, recv=recv: push("dispatch", xs, recv, meta.send, meta.offs,
+                                          meta.expected, False),
+            lambda xs=xs, recv=recv: push("dispatch", xs, torch.zeros_like(recv), meta.send,
+                                          meta.offs, meta.expected, True),
+            valid, ("index_select", lambda xs=xs, i=d_idx: xs.reshape(-1, xs.shape[-1])
+                    .index_select(0, i)),
+            (0, cost.bytes_accessed, H100_BF16_FLOPS), ("dispatch", n, t, rb)))
+        specs.append((
+            f"all_to_all[combine {wire} {n * z}x{rb}B]",
+            lambda ys=ys, back=back: push("combine", ys, back, meta.expected, zone_offs,
+                                          meta.send, False),
+            lambda ys=ys, back=back: push("combine", ys, torch.zeros_like(back),
+                                          meta.expected, zone_offs, meta.send, True),
+            lambda got, want: valid(got, want, sent.T),
+            ("index_select", lambda ys=ys, i=c_idx: ys.reshape(-1, ys.shape[-1])
+             .index_select(0, i)),
+            (0, cost.bytes_accessed, H100_BF16_FLOPS), ("combine", n, n * z, rb)))
+    # the layer packs the dispatch's rows and the experts' rows, n T of each
+    cost = costs.quant_pack(n * t, h, x_sorted.dtype)
+    specs.append((
+        f"quant_pack[fp8 {n * t}x{h}]", lambda: Q.pack_rows(x_sorted, "fp8"),
+        lambda: Q.pack_rows_ref(x_sorted, "fp8"), torch.equal, None,
+        (cost.flops, cost.bytes_accessed, H100_F32_FLOPS), ("fp8", n * t, h)))
+    # the path: every row once, through the kernels, counted
+    torch.cuda.synchronize()
+    tt.reset_launch_counts()
+    outs = {s[0]: s[1]().clone() for s in specs}
+    torch.cuda.synchronize()
+    launches, forms = tt.launch_counts(), tt.launch_forms()
+    check(pads_at_rest(), "a signal pad is not at rest after the EP path")
+    emit({"phase": "ep_path", "launches": {k: v for k, v in launches.items() if v},
+          "by_form": [[name, list(f), v] for (name, f), v in forms.items()]})
+    rows = {}
+    for name, kern, plain, same, lib, (flops, nb, rate), form in specs:
+        want = plain()
+        check(same(outs.pop(name), want), f"{name}: the kernel differs from its plain version")
+        del want
+        _, ms = perf_func(kern, iters=20)
+        _, plain_ms = perf_func(plain, iters=2)
+        lib_ms = perf_func(lib[1], iters=20)[1] if lib else None
+        b_ms, b_by = bound(flops, nb, rate)
+        k17 = name.startswith("all_to_all")
+        rows[name] = dict(
+            name=name, route="cuda", source=A2A_SOURCE if k17 else PACK_SOURCE,
+            replaces=("triton_distributed_tpu/comm/all_to_all.py:69" if k17
+                      else "triton_distributed_tpu/lang/quant.py:145"),
+            max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms, library=(f"{lib[0]} gather of the zones" if lib else None),
+            chain=None if k17 else "the plain chain (no one PyTorch call packs the message)",
+            real_rows=real if k17 else form[1], counter="all_to_all" if k17 else "quant_pack",
+            form=form)
+        emit({"phase": "kernel_main", **{k: v for k, v in rows[name].items() if k != "form"}})
+        gc.collect()
+    # the layer: NaN in every landing buffer changes nothing; the bf16 wire
+    # against tp = 1, the fp8 wire against tp = 1 with the codec
+    one = tt.MoEMLP(num_experts=c.num_experts, top_k=c.top_k, swiglu=True)
+    refs = {False: one.forward_tp(layer, x.reshape(-1, h)).reshape(x.shape),
+            True: fp8_layer_ref(tt, torch, one, layer, x)}
+    limits = {False: BF16_TOL + K5_RTOL * refs[False].float().abs(),
+              True: F32_UNIT + FP8_LAYER_RTOL * refs[True].float().abs()}
+    clean = {}
+    for fp8 in (False, True):
+        m = dataclasses.replace(moe, fp8_wire=fp8)
+        clean[fp8] = m.forward_ep(p, x)
+        planted = plant_landing(torch)
+        again = m.forward_ep(p, x)
+        torch.cuda.synchronize()
+        err = (clean[fp8].float() - refs[fp8].float()).abs()
+        share = (err / limits[fp8]).max().item()
+        emit({"phase": "ep_layer", "fp8_wire": fp8, "nan_planted_buffers": planted,
+              "unchanged_by_nan": bool(torch.equal(clean[fp8], again)),
+              "finite": bool(torch.isfinite(clean[fp8]).all()),
+              "reference": "tp = 1 layer" + (" with the fp8 codec" if fp8 else ""),
+              "max_abs_err_vs_ref": err.max().item(), "share_of_tol_vs_ref": share})
+        check(torch.equal(clean[fp8], again), f"fp8_wire={fp8}: NaN in the landing buffers "
+                                              "changed the layer's output")
+        check(bool(torch.isfinite(clean[fp8]).all()), f"fp8_wire={fp8}: the layer's output is "
+                                                      "not finite")
+        check(share <= 1.0, f"fp8_wire={fp8}: the EP layer differs from its tp = 1 reference "
+                            f"by {err.max()}")
+    # the control: the bf16 wire (the codec skipped) misses the fp8 limit
+    control = ((clean[False].float() - refs[True].float()).abs() / limits[True]).max().item()
+    emit({"phase": "ep_layer", "control": "bf16 wire against the fp8 reference",
+          "share_of_fp8_tol": control, "required": FAULT_MARGIN})
+    check(control >= FAULT_MARGIN, f"the bf16 wire's output is {control} fp8 limits from the "
+                                   "fp8 reference: the limit cannot see the codec")
+    del x_sorted, packed, zones, outs, recv, back, refs, limits, clean
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def fp8_layer_ref(tt, torch, one, layer, x):
+    """The tp = 1 MoE layer ``one`` with the fp8 wire's codec where the EP
+    layer applies it: every routed row packed and unpacked before the
+    up-projection, every expert row after the down-projection (the plain
+    pack).  ``x`` (n, m, K) -> the same."""
+    from triton_distributed_tpu_torch.lang import quant as Q
+    from triton_distributed_tpu_torch.ops import moe_utils as mu
+
+    def codec(v):
+        return Q.unpack_rows(Q.pack_rows_ref(v, "fp8"), v.shape[-1], "fp8", v.dtype)
+
+    xf = x.reshape(-1, x.shape[-1])
+    eid, wts = mu.topk_route(torch.matmul(xf, layer.router), one.top_k,
+                             renormalize=one.renormalize)
+    xr, eflat, wflat = mu.flatten_topk(xf, eid, wts)
+    xs, splits, unsort = mu.sort_by_expert(xr, eflat, one.num_experts)
+    hh = one._combine(tt.grouped_matmul(codec(xs), layer.w_up, splits))
+    y = codec(tt.grouped_matmul(hh, layer.w_dn, splits).to(x.dtype))
+    return mu.unsort_combine(y, unsort, wflat, one.top_k).to(x.dtype).reshape(x.shape)
+
+
+EP_SERVE_MODES = (   # (label, decode mode, fp8 wire, the decode step's attention kernel)
+    ("ep4 paged psum", "psum", False, "paged_decode_attention"),
+    ("ep4 paged fused", "fused", False, "fused_attn_decode"),
+    ("ep4 paged fused fp8", "fused", True, "fused_attn_decode"),
+)
+EP_REQUESTS = 2
+
+
+def ep_step_launches(c, mode: str, fp8: bool) -> tuple[dict, dict]:
+    """The launches of one prefill and one decode step of Qwen3-MoE at tp = 4
+    under EP: per layer a prefill runs one flash attention for every rank,
+    the qkv AG-GEMM, the o GEMM-RS, two K17 (dispatch, combine), two K5 and,
+    with the fp8 wire, two K18; a step runs the mode's attention ("fused":
+    K4 and the o-projection's K15) and two K5."""
+    layers = c.num_layers
+    prefill = {"flash_attention": layers, "ag_gemm": layers, "gemm_rs": layers,
+               "all_to_all": 2 * layers, "grouped_matmul": 2 * layers}
+    if fp8:
+        prefill["quant_pack"] = 2 * layers
+    step = {"grouped_matmul": 2 * layers}
+    if mode == "fused":
+        step.update({"fused_attn_decode": layers, "fused_linear_ar": layers})
+    else:
+        step["paged_decode_attention"] = layers
+    return prefill, step
+
+
+def ep_forms(c, fp8: bool) -> tuple[dict, dict]:
+    """K5's, K17's and K18's launches of one prefill and one step by form."""
+    from triton_distributed_tpu_torch.comm.all_to_all import AllToAllConfig, zone_geometry
+
+    n, layers, h = EP_TP, c.num_layers, c.hidden
+    t = BATCH * PROMPT // n * c.top_k
+    z = zone_geometry(t, AllToAllConfig())[1]
+    f2 = 2 * c.moe_intermediate
+    rb = h + 128 if fp8 else 2 * h
+    prefill = {("grouped_matmul", (n * t, h, f2)): layers,
+               ("grouped_matmul", (n * t, c.moe_intermediate, h)): layers,
+               ("all_to_all", ("dispatch", n, t, rb)): layers,
+               ("all_to_all", ("combine", n, n * z, rb)): layers}
+    if fp8:   # the dispatch's rows and the experts' rows
+        prefill[("quant_pack", ("fp8", n * t, h))] = 2 * layers
+    step = {("grouped_matmul", (BATCH * c.top_k, h, f2)): layers,
+            ("grouped_matmul", (BATCH * c.top_k, c.moe_intermediate, h)): layers}
+    return prefill, step
+
+
+def phase_sync_check_ep(tt, torch, model, params, mesh) -> None:
+    """An EP prefill and an EP decode step (paged, tp = 4) under
+    ``torch.cuda.set_sync_debug_mode("error")``: nothing in them may read
+    back to the host."""
+    c = model.config
+    ids = torch.randint(0, c.vocab, (BATCH, 64), device=mesh.device,
+                        generator=torch.Generator(device=mesh.device).manual_seed(SEED + 8))
+    tok = torch.zeros((BATCH,), dtype=torch.int32, device=mesh.device)
+    eng = tt.Engine(model, params, batch=BATCH, cache_layout="paged", page_size=PAGE)
+    eng.prefill(ids)
+    eng.decode_step(tok)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, cache = model.prefill(params, eng.cache, ids)
+        step, _ = model.decode(params, cache, tok)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for what, lg in (("prefill", logits[:, -1]), ("step", step)):
+        check(tuple(lg.shape) == (BATCH, c.vocab) and bool(torch.isfinite(lg).all()),
+              f"EP {what}: bad logits")
+    emit({"phase": "sync_check", "tp": EP_TP, "moe_strategy": "ep",
+          "moe_fp8_wire": c.moe_fp8_wire, "decode_mode": model.decode_mode,
+          "checked": ["prefill", "decode_step"], "ok": True})
+    del eng
+
+
+def phase_serve_ep(tt, torch, params1) -> tuple[dict, dict, dict]:
+    """Qwen3-30B-A3B at tp = 4 under expert parallelism on four ranks
+    co-located on the card, full width and depth, its weights the tp = 1
+    draw of ``params1`` (the experts' tensors shared, the attention sharded):
+    first the EP main rows (K17, K18) on layer 0's experts, then per mode
+    (paged psum, paged fused, paged fused with the fp8 wire) the launches of
+    one prefill and one step, exact and by form, and EP_REQUESTS requests
+    with the counters set to 0 just before and read just after; the sync
+    check of a prefill and a step in each wire; a profile per mode; peak
+    device memory.  Returns the launches, the launches by form and the
+    kernel rows."""
+    t0 = time.perf_counter()
+    rows = ep_main_rows(tt, torch, params1.layers[0].mlp)
+    c = dataclasses.replace(tt.QWEN3_30B_A3B, max_length=MAX_LEN, moe_strategy="ep")
+    mesh = tt.make_mesh({"tp": EP_TP})
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    models = {(mode, fp8): tt.Qwen3(dataclasses.replace(c, moe_fp8_wire=fp8), mesh=mesh,
+                                    decode_mode=mode)
+              for _, mode, fp8, _ in EP_SERVE_MODES}
+    params = models[("psum", False)].shard_params(params1)
+    torch.cuda.synchronize()
+    emit({"phase": "serve_ep_setup", "tp": EP_TP, "init_s": time.perf_counter() - t0,
+          "added_param_bytes": torch.cuda.memory_allocated() - before,
+          "experts_shared": params.layers[0].mlp.w_up is params1.layers[0].mlp.w_up})
+    check(params.layers[0].mlp.w_up is params1.layers[0].mlp.w_up,
+          "the EP experts are not the tp = 1 draw's tensors")
+    for key in (("psum", False), ("fused", True)):
+        phase_sync_check_ep(tt, torch, models[key], params, mesh)
+    totals = dict.fromkeys(tt.launch_counts(), 0)
+    forms: dict = {}
+    engines = {}
+    for label, mode, fp8, _ in EP_SERVE_MODES:
+        model = models[(mode, fp8)]
+        eng = tt.Engine(model, params, batch=BATCH, cache_layout="paged", page_size=PAGE)
+        want_prefill, want_step = ep_step_launches(c, mode, fp8)
+        form_prefill, form_step = ep_forms(c, fp8)
+        ids = torch.randint(0, c.vocab, (BATCH, PROMPT), device=mesh.device,
+                            generator=torch.Generator(device=mesh.device).manual_seed(300))
+        tt.reset_launch_counts()
+        tok = eng.prefill(ids).argmax(-1).to(torch.int32)
+        one_prefill = {k: v for k, v in tt.launch_counts().items() if v}
+        prefill_forms = {k: v for k, v in tt.launch_forms().items()
+                         if k[0] in ("grouped_matmul", "all_to_all", "quant_pack")}
+        tt.reset_launch_counts()
+        eng.decode_step(tok)
+        one_step = {k: v for k, v in tt.launch_counts().items() if v}
+        step_forms = {k: v for k, v in tt.launch_forms().items()
+                      if k[0] in ("grouped_matmul", "all_to_all", "quant_pack")}
+        emit({"phase": "serve_ep_launches", "layout": label, "per_prefill": one_prefill,
+              "per_decode_step": one_step,
+              "prefill_by_form": [[k, list(f), v] for (k, f), v in prefill_forms.items()],
+              "step_by_form": [[k, list(f), v] for (k, f), v in step_forms.items()]})
+        check(one_prefill == want_prefill and one_step == want_step,
+              f"{label}: launches a prefill {one_prefill} (want {want_prefill}), a step "
+              f"{one_step} (want {want_step})")
+        check(prefill_forms == form_prefill and step_forms == form_step,
+              f"{label}: launches by form {prefill_forms} / {step_forms}, want "
+              f"{form_prefill} / {form_step}")
+        tt.reset_launch_counts()
+        for req in range(EP_REQUESTS):
+            ids = torch.randint(0, c.vocab, (BATCH, PROMPT), device=mesh.device,
+                                generator=torch.Generator(device=mesh.device).manual_seed(
+                                    400 + req))
+            before = tt.launch_counts()
+            tokens, stats = eng.serve(ids, GEN)
+            torch.cuda.synchronize()
+            after = tt.launch_counts()
+            delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+            want = {k: 2 * v for k, v in want_prefill.items()}
+            for k, v in want_step.items():
+                want[k] = want.get(k, 0) + GEN * v
+            emit({"phase": "serve_ep", "layout": label, "request": req, **stats,
+                  "launches": delta})
+            check(delta == want, f"{label} request {req}: launches {delta}, want {want}")
+            check(tuple(tokens.shape) == (BATCH, GEN) and int(tokens.min()) >= 0
+                  and int(tokens.max()) < c.vocab, f"{label}: bad tokens")
+        check(pads_at_rest(), f"{label}: a signal pad is not at rest after the requests")
+        for k, v in tt.launch_counts().items():
+            totals[k] += v
+        for key, v in tt.launch_forms().items():
+            forms[key] = forms.get(key, 0) + v
+        engines[label] = (eng, ids)
+    for i, (label, (eng, ids)) in enumerate(engines.items()):
+        # the prefill differs between the wires: profiled in the first and the last
+        phase_profile(eng, ids, torch, label, prefill=i != 1)
+    emit({"phase": "serve_memory", "model": "Qwen3-30B-A3B tp = 4 EP",
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "device_total": torch.cuda.get_device_properties(0).total_memory})
+    del engines, models, params, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_ep_done", "seconds": time.perf_counter() - t0})
+    return totals, forms, rows
+
+
+def phase_parity_ep(tt, torch) -> None:
+    """Qwen3-30B-A3B at full width and 2 layers in f32, batch 2, prompt 128:
+    the port under EP at tp = 4 on the card (K17, K5, ...) against EP at
+    tp = 4 on the CPU (plain versions) and tp = 1 on the card, from one
+    draw.  Prefill logits, then 8 decode steps in paged psum and paged fused
+    from the CPU's cache state, the CPU's greedy token fed to every side:
+    logits within PARITY_TOL, greedy tokens equal, and every token's top-8
+    experts equal in every layer and step.  The fp8 wire's prefill, card
+    against CPU: logits within PARITY_TOL + FP8_GAP_SHARE of the CPU's
+    fp8-vs-bf16 wire gap (a code at an e4m3 rounding boundary may flip on
+    f32 sums that differ in the last bits), a limit the card's bf16-wire
+    logits must miss; greedy tokens and the first layer's experts equal."""
+    import triton_distributed_tpu_torch.layers.moe as moe_mod
+
+    t0 = time.perf_counter()
+    c1 = dataclasses.replace(tt.QWEN3_30B_A3B, num_layers=2, dtype=torch.float32,
+                             max_length=256)
+    c = dataclasses.replace(c1, moe_strategy="ep")
+    dev = torch.device("cuda")
+    b, s, gen = 2, 128, 8
+    mesh, cmesh = tt.make_mesh({"tp": EP_TP}), tt.make_mesh({"tp": EP_TP}, device="cpu")
+    card1 = tt.Qwen3(c1, device=dev)
+    params1 = card1.init(torch.Generator(device=dev).manual_seed(SEED + 13))
+    card4, cpu4 = tt.Qwen3(c, mesh=mesh), tt.Qwen3(c, mesh=cmesh)
+    params4 = card4.shard_params(params1)
+    cparams4 = cpu4.shard_params(to_cpu(torch, params1))
+    ids = torch.randint(0, c.vocab, (b, s), generator=torch.Generator().manual_seed(SEED + 14))
+    routes: dict[str, list] = {}
+    side = ["cpu ep4"]
+    route = moe_mod.topk_route
+
+    def recording_route(logits, k, **kw):   # every token's expert ids, by side
+        eid, wts = route(logits, k, **kw)
+        routes.setdefault(side[0], []).append(eid.reshape(-1, k).cpu().sort(-1).values)
+        return eid, wts
+
+    def paged(where, tp):
+        return tt.init_paged_cache(c.num_layers, b, c.num_kv_heads, c.max_length, c.head_dim,
+                                   c.dtype, page_size=PAGE, device=where, tp=tp)
+
+    def compare(logs: dict, what: str, limit=None) -> dict:
+        ref = logs["cpu ep4"]
+        if limit is None:
+            limit = PARITY_TOL + PARITY_TOL * ref.abs()
+        errs = {}
+        for name, lg in logs.items():
+            if name == "cpu ep4":
+                continue
+            err = (lg - ref).abs()
+            errs[name] = err.max().item()
+            check(bool((err <= limit).all()), f"{what}: {name} differs from cpu ep4 by "
+                                              f"{errs[name]}")
+            check(torch.equal(lg.argmax(-1), ref.argmax(-1)),
+                  f"{what}: {name}'s greedy tokens differ from cpu ep4's")
+        return errs
+
+    def experts_equal(what: str) -> int:
+        ref = routes.pop("cpu ep4")
+        for name, got in routes.items():
+            check(len(got) == len(ref) and all(torch.equal(a, r) for a, r in zip(got, ref)),
+                  f"{what}: {name}'s top-8 experts differ from cpu ep4's")
+        routes.clear()
+        return len(ref)
+
+    sides = {"cpu ep4": (cpu4, cparams4, 4, "cpu"), "card ep4": (card4, params4, 4, dev),
+             "card tp1": (card1, params1, 1, dev)}
+    moe_mod.topk_route = recording_route
+    try:
+        start, logs = {}, {}
+        for name, (model, params, tp, where) in sides.items():
+            side[0] = name
+            lg, start[name] = model.prefill(params, paged(where, tp), ids.to(where))
+            logs[name] = lg[:, -1].cpu()
+        errs = compare(logs, "EP prefill")
+        calls = experts_equal("EP prefill")
+        emit({"phase": "parity_ep", "what": "prefill", "max_abs_err_vs_cpu_ep4": errs,
+              "tol": PARITY_TOL, "routing_calls": calls, "experts_equal": True})
+        for mode in ("psum", "fused"):
+            models = {name: tt.Qwen3(m.config, decode_mode=mode, **(
+                {"mesh": m.mesh} if m.tp > 1 else {"device": m.device}))
+                for name, (m, *_) in sides.items()}
+            caches = {name: clone_cache(torch, start[name]) for name in sides}
+            tok = logs["cpu ep4"].argmax(-1).to(torch.int32)
+            worst: dict = {}
+            for step in range(gen):
+                step_logs = {}
+                for name, (_, params, _, where) in sides.items():
+                    side[0] = name
+                    lg, caches[name] = models[name].decode(params, caches[name], tok.to(where))
+                    step_logs[name] = lg.cpu()
+                for name, e in compare(step_logs, f"EP {mode} step {step}").items():
+                    worst[name] = max(worst.get(name, 0.0), e)
+                tok = step_logs["cpu ep4"].argmax(-1).to(torch.int32)
+            calls = experts_equal(f"EP {mode} decode")
+            emit({"phase": "parity_ep", "mode": mode, "decode_steps": gen,
+                  "max_abs_err_vs_cpu_ep4": worst, "tol": PARITY_TOL, "tokens_equal": True,
+                  "routing_calls": calls, "experts_equal": True})
+        # the fp8 wire, card against CPU (and how far it sits from the bf16 wire)
+        c8 = dataclasses.replace(c, moe_fp8_wire=True)
+        logs8 = {}
+        for name, model in (("cpu ep4", tt.Qwen3(c8, mesh=cmesh)),
+                            ("card ep4", tt.Qwen3(c8, mesh=mesh))):
+            params, where = sides[name][1], sides[name][3]
+            side[0] = name
+            lg, _ = model.prefill(params, paged(where, 4), ids.to(where))
+            logs8[name] = lg[:, -1].cpu()
+        # The pack is bitwise on equal rows (ep_cases, ep_layer), but the two
+        # sides' f32 sums differ in the last bits before each pack, and a
+        # value at an e4m3 rounding boundary takes the neighbouring code: the
+        # logits are held to a share of the whole codec's effect (the fp8
+        # wire against the bf16 wire, on the CPU), which the bf16 wire's
+        # logits on the card must miss; the tokens and the first layer's
+        # experts (routed before any hop) exactly, the later layers'
+        # differing choices counted.
+        ref8 = logs8["cpu ep4"]
+        gap = (ref8 - logs["cpu ep4"]).abs().max().item()
+        limit8 = PARITY_TOL + FP8_GAP_SHARE * gap
+        errs = compare(logs8, "EP fp8 prefill", limit8)
+        control = (logs["card ep4"] - ref8).abs().max().item()
+        check(control > limit8, f"EP fp8 prefill: the bf16 wire's logits are within the fp8 "
+                                f"limit {limit8} ({control}): it cannot see the codec")
+        first = {name: got[0] for name, got in routes.items()}
+        check(torch.equal(first["card ep4"], first["cpu ep4"]),
+              "EP fp8 prefill: the first layer's top-8 experts differ card vs CPU")
+        later = sum(int((a != r).any(-1).sum()) for a, r in zip(routes["card ep4"][1:],
+                                                                routes["cpu ep4"][1:]))
+        routes.clear()
+        emit({"phase": "parity_ep", "what": "prefill, fp8 wire", "max_abs_err_vs_cpu_ep4": errs,
+              "tol": PARITY_TOL, "fp8_gap_share": FP8_GAP_SHARE, "limit": limit8,
+              "tokens_equal": True, "first_layer_experts_equal": True,
+              "later_tokens_with_other_experts": later, "fp8_vs_bf16_wire_max_abs": gap,
+              "control_bf16_wire_card_vs_fp8_cpu": control})
+    finally:
+        moe_mod.topk_route = route
+    emit({"phase": "parity_ep_done", "config": "Qwen3-30B-A3B width, 2 layers, f32, tp = 4 EP",
+          "batch": b, "prompt": s, "seconds": time.perf_counter() - t0})
+    del sides, params4, params1, cparams4, card4, card1, cpu4
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 KERNEL_CLASSES = (("attention", ("flash_fwd", "decode_split", "decode_combine",
                                  "fused_attn_decode")),
                   ("grouped_gemm", ("grouped_gemm",)),   # K5, before "gemm"
@@ -2869,7 +3669,8 @@ KERNEL_CLASSES = (("attention", ("flash_fwd", "decode_split", "decode_combine",
                   ("fused_ar", ("fused_ar_kernel",)),                       # K15
                   ("persistent", ("persistent_decode_kernel",)),            # K16
                   ("collective", ("all_gather_kernel", "reduce_scatter_kernel",
-                                  "all_reduce_kernel")),                    # K9-K11
+                                  "all_reduce_kernel", "a2a_push_kernel")),  # K9-K11, K17
+                  ("quant_pack", ("quant_pack_kernel",)),                   # K18
                   ("gemm", ("nvjet", "gemm", "cutlass", "sm90_xmma")))
 
 
@@ -2935,10 +3736,7 @@ SERVE_MODES = (
     ("paged+int8+fused", "paged", "fused", "int8", "fused_attn_decode_int8"),
     ("paged+persistent", "paged", "persistent", None, "persistent_decode"),
 )
-REQUESTS = 3
-# requests per mode where they differ from REQUESTS; a persistent step is one
-# K16 launch, not one a layer
-MODE_REQUESTS = {"paged+persistent": 2}
+REQUESTS = 2
 LAUNCHES_PER_STEP = {"persistent_decode": 1}
 
 
@@ -2965,7 +3763,7 @@ def phase_serve(tt, torch) -> tuple[dict, dict, dict]:
         if mode == "persistent":
             sync_check_step(torch, eng, f"tp = 1 {label}")
         tt.reset_launch_counts()
-        for req in range(MODE_REQUESTS.get(label, REQUESTS)):
+        for req in range(REQUESTS):
             ids = torch.randint(0, c.vocab, (BATCH, PROMPT), device=dev,
                                 generator=torch.Generator(device=dev).manual_seed(100 + req))
             before = tt.launch_counts()
@@ -3556,6 +4354,8 @@ def main() -> int:
         rows.update(phase_fused_tp(tt, torch))
         phase = "persistent_cases"
         phase_persistent_cases(tt, torch)
+        phase = "ep_cases"
+        phase_ep_cases(tt, torch)
         phase = "serve"
         t0 = time.perf_counter()
         launches, serve_forms, serve_rows = phase_serve(tt, torch)
@@ -3566,7 +4366,8 @@ def main() -> int:
         rows.update(tp_rows)
         phase = "serve_moe"
         t0 = time.perf_counter()
-        moe_launches, forms = phase_serve_moe(tt, torch)
+        moe_launches, forms, ep_rows = phase_serve_moe(tt, torch)
+        rows.update(ep_rows)
         emit({"phase": "serve_moe_done", "seconds": time.perf_counter() - t0})
         for name, n in [*moe_launches.items(), *local_launches.items(),
                         *coll_launches.items(), *tp_launches.items()]:
@@ -3583,6 +4384,8 @@ def main() -> int:
         emit({"phase": "parity_done", "seconds": time.perf_counter() - t0})
         phase = "parity_tp"
         phase_parity_tp(tt, torch)
+        phase = "parity_ep"
+        phase_parity_ep(tt, torch)
         phase = "report"
         kernels = []
         for name, row in rows.items():

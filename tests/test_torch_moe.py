@@ -247,12 +247,17 @@ def test_from_jax_params_moe_and_config(model):
 
 
 def test_moe_refuses_unserved():
-    with pytest.raises(NotImplementedError, match="EP slice"):
-        tt.Qwen3(dataclasses.replace(TCFG, moe_strategy="ep"), device="cpu")
-    with pytest.raises(NotImplementedError, match="fp8"):
-        tt.Qwen3(dataclasses.replace(TCFG, moe_fp8_wire=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tt.MoEMLP(num_experts=E, world_size=2)
+    # the EP strategy is served at any tp (tests/test_torch_ep.py); the TP
+    # strategy's collectives at tp > 1 are ROADMAP A7
+    m2 = tt.make_mesh({"tp": 2}, device="cpu")
+    with pytest.raises(NotImplementedError, match="A7"):
+        tt.Qwen3(TCFG, mesh=m2)
+    with pytest.raises(NotImplementedError, match="A7"):
+        tt.MoEMLP(num_experts=E, mesh=m2).forward_tp(None, torch.zeros((4, HIDDEN)))
+    with pytest.raises(ValueError, match="fp8_wire"):
+        tt.MoEMLP(num_experts=E, fp8_wire="sometimes")
+    with pytest.raises(ValueError, match="divide"):
+        tt.MoEMLP(num_experts=E, mesh=tt.make_mesh({"tp": 3}, device="cpu"))
     x, w = torch.zeros((4, 16)), torch.zeros((2, 16, 8))
     with pytest.raises(ValueError, match="splits"):
         tt.grouped_matmul(x, w, torch.tensor([4], dtype=torch.int32))

@@ -204,6 +204,12 @@ def test_port_import_leaves_jax_out():
         "import triton_distributed_tpu_torch.models.convert\n"
         "import triton_distributed_tpu_torch.ops.fused_decode\n"
         "import triton_distributed_tpu_torch.ops.persistent_decode\n"
+        "import triton_distributed_tpu_torch.comm.all_to_all\n"
+        "import triton_distributed_tpu_torch.comm.quantized\n"
+        "import triton_distributed_tpu_torch.lang.quant\n"
+        "import triton_distributed_tpu_torch.layers.moe\n"
+        "import triton_distributed_tpu_torch.layers.allgather_layer\n"
+        "import triton_distributed_tpu_torch.ops.moe_utils\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'triton_distributed_tpu'"
         " or m.startswith('triton_distributed_tpu.')]\n"

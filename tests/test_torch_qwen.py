@@ -126,8 +126,8 @@ def test_engine_refuses_unserved_modes():
     with pytest.raises(ValueError, match="kv_dtype"):
         tt.Engine.build(TCFG, device="cpu", kv_dtype="int8")   # contiguous
     with pytest.raises(NotImplementedError, match="moe_strategy"):
-        tt.Qwen3(dataclasses.replace(TCFG, num_experts=4, moe_strategy="ep"),
-                 device="cpu")
+        tt.Qwen3(dataclasses.replace(TCFG, num_experts=4, moe_intermediate=32),
+                 mesh=tt.make_mesh({"tp": 2}, device="cpu"))
     eng = tt.Engine.build(TCFG, device="cpu", batch=1,
                           generator=torch.Generator().manual_seed(3))
     out = eng.generate(torch.zeros((1, 4), dtype=torch.int32), 3)

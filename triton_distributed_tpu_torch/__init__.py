@@ -3,8 +3,8 @@
 
 The JAX package beside it stays the reference; this package imports neither
 JAX nor any module of it.  It serves Qwen3 decoders, dense (Qwen3-8B) and
-MoE (Qwen3-30B-A3B, TP strategy), on one NVIDIA Hopper GPU at tp = 1 (and
-dense at tp = n on co-located ranks, below):
+MoE (Qwen3-30B-A3B), on one NVIDIA Hopper GPU at tp = 1 (and at tp = n on
+co-located ranks, below):
 prefill, then decode on a contiguous or a paged KV cache, with
 full-precision or int8 pages, in ``decode_mode`` "psum" (the per-kernel
 chain), "fused" (one attention megakernel per layer on a paged cache) or
@@ -33,7 +33,12 @@ launch over every rank, on the signal pads and symmetric buffers of
 (``Engine.build(config, mesh=make_mesh({"tp": 4}))``): prefill on K12 and
 K13, decode in "psum", "ar" (K11), "gemm_ar" (K14), "fused" (K4 for every
 rank in one launch, the reductions on :func:`fused_linear_ar` and
-:func:`fused_mlp_ar`, K15) or "persistent" (K16).
+:func:`fused_mlp_ar`, K15) or "persistent" (K16).  Qwen3-MoE runs there
+under expert parallelism (``moe_strategy="ep"``): each prefill MLP through
+the EP all-to-all, :func:`ep_dispatch` and :func:`ep_combine` (K17), with
+``moe_fp8_wire`` on rows packed by :func:`pack_rows` (K18); each decode
+step's MLP on the replicated batch.  :class:`AllGatherLayer` gathers into
+two parity-slot workspaces (K9).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``, where
 the kernels' plain PyTorch versions run instead.  Without CUDA and without
@@ -41,12 +46,15 @@ that request they raise.
 """
 
 from . import comm
+from .comm.all_to_all import AllToAllConfig, ep_combine, ep_dispatch
 from .core.launches import launch_counts, launch_forms, reset_launch_counts
 from .core.mesh import (DP_AXIS, EP_AXIS, PP_AXIS, SP_AXIS, TP_AXIS, make_mesh,
                         shard, unshard)
 from .core.platform import card_identity, device_kind, init_seed, resolve_device
 from .core.symm import SymmetricBuffer, symm_buffer, symm_signal
 from .core.utils import assert_allclose, cdiv, clip_block, perf_func
+from .lang.quant import pack_rows, unpack_rows
+from .layers.allgather_layer import AllGatherLayer
 from .layers.moe import MoEMLP, MoEParams
 from .layers.norm import rms_norm
 from .models.config import QWEN3_8B, QWEN3_30B_A3B, ModelConfig
@@ -86,6 +94,8 @@ from .ops.rope import apply_rope, apply_rope_at, rope_freqs
 from .tune import LibraryBackend, fresh_tune_matmul, tuned_matmul
 
 __all__ = [
+    "AllGatherLayer", "AllToAllConfig", "ep_combine", "ep_dispatch", "pack_rows",
+    "unpack_rows",
     "DP_AXIS", "EP_AXIS", "PP_AXIS", "SP_AXIS", "SymmetricBuffer", "TP_AXIS",
     "comm", "make_mesh", "shard", "symm_buffer", "symm_signal", "unshard",
     "ag_gemm", "gemm_ar", "gemm_rs",

@@ -17,7 +17,7 @@ Port decisions:
   its tuner measure the methods; on co-located ranks that would measure
   device memory and crown the wrong method for NVLink, so the tuner comes
   with the host that runs one process per card.
-- ``wire_dtype`` other than "bf16" (the quantized wire, kernel B9) and a
+- ``wire_dtype`` other than "bf16" (the quantized wire, ROADMAP A5) and a
   tuple axis (the hierarchical gather) raise ``NotImplementedError``.
 - No backward: the JAX adjoint is the identity in global semantics and
   comes with the multi-card host.
@@ -102,33 +102,43 @@ _CODES = {AllGatherMethod.PUSH_1SHOT: 0, AllGatherMethod.RING_1D: 1,
           AllGatherMethod.RING_BIDIR: 2}
 
 
-def _setup(x: torch.Tensor, mesh: Mesh, axis: str):
+def _setup(x: torch.Tensor, mesh: Mesh, axis: str, out: torch.Tensor | None = None):
+    """(team, x contiguous, the output, a shard's elements); ``out`` (the
+    AllGather layer's workspace slot) must be the contiguous output of the
+    gather's shape, dtype and device, else a fresh tensor is made."""
     shard = stacked_shard(x, mesh, axis)
     team = Team.of(mesh, axis)
-    out = torch.empty((*mesh.sizes, team.size * shard[0], *shard[1:]), dtype=x.dtype,
-                      device=x.device)
+    shape = (*mesh.sizes, team.size * shard[0], *shard[1:])
+    if out is None:
+        out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    elif (tuple(out.shape) != shape or out.dtype != x.dtype or out.device != x.device
+          or not out.is_contiguous()):
+        raise ValueError(f"out {tuple(out.shape)} {out.dtype} on {out.device} is not the "
+                         f"contiguous {shape} {x.dtype} on {x.device} the gather writes")
     return team, x.contiguous(), out, math.prod(shard)
 
 
 def all_gather_ref(x: torch.Tensor, mesh: Mesh, axis: str = TP_AXIS,
-                   method: AllGatherMethod = AllGatherMethod.RING_BIDIR) -> torch.Tensor:
+                   method: AllGatherMethod = AllGatherMethod.RING_BIDIR, *,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of K9, on any device: ``method``'s schedule walked on
-    tensors, step by step (``comm/ring.py::walk``)."""
-    team, x, out, chunk_elems = _setup(x, mesh, axis)
+    tensors, step by step (``comm/ring.py::walk``), into ``out`` when given."""
+    team, x, out, chunk_elems = _setup(x, mesh, axis, out)
     if chunk_elems:
         walk_mesh(PROGRAMS[method], team, mesh, x, out, chunk_elems, {})
     return out
 
 
 def _all_gather(x: torch.Tensor, mesh: Mesh, axis: str, method: AllGatherMethod,
-                stall_rank: int) -> torch.Tensor:
-    """The gather with a concrete method: K9 for a CUDA tensor, the plain
-    version for a CPU one.  A ``stall_rank`` of 0 or more (tests of the
-    bounded waits only; the public entry passes -1) makes that team rank skip
-    the arrival credit of every put, so its peers' waits run out."""
+                stall_rank: int, out: torch.Tensor | None = None) -> torch.Tensor:
+    """The gather with a concrete method, into ``out`` when given: K9 for a
+    CUDA tensor, the plain version for a CPU one.  A ``stall_rank`` of 0 or
+    more (tests of the bounded waits only; the public entry passes -1) makes
+    that team rank skip the arrival credit of every put, so its peers' waits
+    run out."""
     if not x.is_cuda:
-        return all_gather_ref(x, mesh, axis, method)
-    team, x, out, chunk_elems = _setup(x, mesh, axis)
+        return all_gather_ref(x, mesh, axis, method, out=out)
+    team, x, out, chunk_elems = _setup(x, mesh, axis, out)
     if chunk_elems:
         launch("tdt_all_gather", "allgather", team, mesh, x, out, None, chunk_elems,
                _CODES[method], stall_rank)

@@ -22,8 +22,9 @@ def stacked_shard(x, mesh: Mesh, axis, wire_dtype: str = "bf16") -> tuple[int, .
     dims that are not the mesh's, or a device other than the mesh's kind."""
     if wire_dtype != "bf16":
         raise NotImplementedError(
-            f"wire_dtype={wire_dtype!r}: the quantized wire needs the pack "
-            f"kernel B9 (lang/quant.py:145), not ported yet; use 'bf16'")
+            f"wire_dtype={wire_dtype!r}: the quantized AllGather, ReduceScatter and "
+            f"AllReduce (JAX comm/quantized.py, ROADMAP A5) are not ported; only the EP "
+            f"all-to-all ships the rows that B9's port (K18) packs; use 'bf16'")
     if isinstance(axis, (tuple, list)):
         raise NotImplementedError(
             "a tuple axis (the hierarchical collectives) needs more than one "

@@ -154,6 +154,29 @@ def chunk_ar_phase(prog: list, team: Team, me: int, src: tuple[str, int], dst: s
     ag_ring_phase(prog, team, me, dst)
 
 
+def a2a_push_phase(prog: list, team: Team, me: int, send, expected, chunk_rows: int,
+                   order=None) -> None:
+    """The EP all-to-all's push (JAX ``all_to_all.py::_a2a_push_kernel``):
+    the hub barrier, then for each peer offset p of ``order`` (default
+    0..n-1; JAX ``AllToAllConfig.schedule``) the ``send[dst]`` rows for
+    dst = me + p in puts of ``chunk_rows``, put c landing in chunk c of
+    zone ``me`` on dst (entry ("zones", (me, c)); its source is entry
+    ("x", (dst, c))), each credited on dst's ``recv[me]`` (one's own zone
+    too: JAX counts that copy as well); then, for each source p in order,
+    one wait on ``recv[p]`` per chunk of the ``expected[p]`` rows it sends.
+    Dispatch and combine run it with the roles of ``send`` and
+    ``expected`` swapped."""
+    n = team.size
+    collective_prologue(prog, team, me)
+    for p in (order if order is not None else range(n)):
+        dst = (me + p) % n
+        for c in range(-(-send[dst] // chunk_rows)):
+            put(prog, "zones", (me, c), dst, [("x", (dst, c))], ("recv", me))
+    for p in range(n):
+        for _ in range(-(-expected[p] // chunk_rows)):
+            wait(prog, ("recv", p))
+
+
 def rs_ack_drain(prog: list, n: int) -> None:
     """Take the ACK credits still outstanding at the end of the ring: the
     in-loop waits covered sends 0..n-4; the last two sends' credits (one
@@ -194,7 +217,8 @@ def _apply(op, r: int, bufs: list[dict]) -> None:
 
 def walk(programs: list[list], bufs: list[dict[str, list[torch.Tensor]]] | None) -> None:
     """Run the programs of one team's ranks on tensors: ``bufs[r][name][i]``
-    is entry ``i`` (a chunk or a slot) of rank ``r``'s buffer ``name``
+    is entry ``i`` (a chunk or a slot; a list index or a dict key) of rank
+    ``r``'s buffer ``name``
     (``bufs[r]["b"][0]``: the rank's B operand of a :class:`Matmul`).
     ``bufs`` None walks the protocol alone: credits and waits, no data.
 

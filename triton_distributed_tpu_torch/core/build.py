@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # C entry points and their argument types: every pointer and the stream are
 # c_void_p (a bare Python int would be cut to 32 bits).
@@ -63,6 +64,9 @@ SIGNATURES = {
     "tdt_fused_ar_lanes": [_I, _I, _I, _I],
     "tdt_persistent_decode": [_P, _I, _I, _P],
     "tdt_persistent_lanes": [_I, _I, _I, _I],
+    # K17 takes a pointer to its A2aArgs (core/symm.py)
+    "tdt_all_to_all": [_P, _P],
+    "tdt_quant_pack": [_P, _P, _L, _I, _I, _I, _F, _P],
 }
 
 

@@ -32,6 +32,8 @@ KERNELS = (
     "fused_mlp_ar",                  # K15 swiglu, form (n, B, K, F / n, N)
     "fused_linear_ar",               # K15 linear, form (n, B, F / n, N)
     "persistent_decode",             # K16, form (n, layers, B, K)
+    "all_to_all",                    # K17, form (role, n, T or zone rows, row bytes)
+    "quant_pack",                    # K18, form (wire dtype, rows, H)
 )
 
 _counts = dict.fromkeys(KERNELS, 0)

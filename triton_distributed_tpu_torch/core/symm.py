@@ -142,6 +142,18 @@ class CollArgs(ctypes.Structure):
     ]
 
 
+class A2aArgs(ctypes.Structure):
+    """The EP all-to-all's launch arguments (csrc/all_to_all.cu A2aArgs):
+    the :class:`CollArgs` (x the source rows, out the landing zones), the
+    device int32 (mesh slots, n) counts, offsets and expected counts, the
+    row's bytes, the rows a put and a zone, and the peer offsets in
+    emission order."""
+
+    _fields_ = [("c", CollArgs), ("counts", ctypes.c_void_p), ("offs", ctypes.c_void_p),
+                ("expected", ctypes.c_void_p), ("row_bytes", ctypes.c_longlong),
+                ("chunk", ctypes.c_int), ("z", ctypes.c_int), ("order", ctypes.c_int * MAX_RANKS)]
+
+
 class GemmArgs(ctypes.Structure):
     """The overlapped GEMMs' launch arguments (csrc/overlap_gemm.cu
     GemmArgs): the ring's :class:`CollArgs`, the peer tables of the A and B

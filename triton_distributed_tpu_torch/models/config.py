@@ -32,8 +32,8 @@ class ModelConfig:
     top_k: int = 8
     moe_intermediate: int = 0      # 768; per-expert SwiGLU width
     norm_topk: bool = True         # renormalize routing weights over top-k
-    moe_strategy: str = "tp"       # "tp" (served at tp = 1) | "ep" (later slice)
-    moe_fp8_wire: bool | str = False  # the EP wire codec (later slice)
+    moe_strategy: str = "tp"       # "tp" (served at tp = 1) | "ep" (experts partitioned)
+    moe_fp8_wire: bool | str = False  # EP all-to-all e4m3 wire; "auto" off on co-located ranks
 
     @property
     def is_moe(self) -> bool:

@@ -7,7 +7,10 @@ JAX package is imported.  At tp = 1 both packages store ``wqkv`` as
 ``[q | k | v]``, ``gate_up`` as ``[gate | up]`` and the caches in the same
 layouts, so the tensors carry over unchanged.  MoE layers carry their
 router and expert weights across the same way: at tp = 1 the JAX ``w_up``
-is plain per-expert ``[gate | up]``.
+is plain per-expert ``[gate | up]``, and so it is under EP at any tp
+(``fuse_expert_gate_up(ep=True)``); JAX's ``P(axis, None, None)`` expert
+shards, gathered by ``np.asarray``, are the port's (E, ...) tensors as they
+are (rank r's experts their rows ``[r E/n, (r + 1) E/n)``).
 
 With ``mesh`` (tp = n co-located ranks) the JAX tree must have been built at
 tp = n: its ``wqkv`` and ``gate_up`` columns rank-blocked n ways, which the
@@ -62,8 +65,9 @@ def from_jax_params(params, config: ModelConfig, device=None, *,
     if len(params.layers) != config.num_layers:
         raise ValueError(f"{len(params.layers)} layers in params, config has "
                          f"{config.num_layers}")
-    if n > 1 and config.is_moe:
-        raise NotImplementedError("MoE at tp > 1 is not ported yet")
+    if n > 1 and config.is_moe and config.moe_strategy != "ep":
+        raise NotImplementedError("MoE under moe_strategy 'tp' at tp > 1 is not ported yet "
+                                  "(ROADMAP A7); moe_strategy 'ep' is")
 
     def t(a):
         return to_tensor(a, dev)

@@ -1,5 +1,6 @@
-"""Qwen3 decoder, dense or MoE at tp = 1, dense on a mesh of tp co-located
-ranks (counterpart of ``triton_distributed_tpu/models/qwen.py::Qwen3``).
+"""Qwen3 decoder, dense or MoE at tp = 1, dense or MoE under expert
+parallelism on a mesh of tp co-located ranks (counterpart of
+``triton_distributed_tpu/models/qwen.py::Qwen3``).
 
 At tp = 1 every collective of the JAX model falls back to a plain matrix
 product (``ops/ag_gemm.py:316``, ``ops/gemm_rs.py:268``, the decode
@@ -11,12 +12,17 @@ prefill; in each decode step the contiguous or paged decode kernel
 the attention megakernel that also projects, normalizes, rotates and
 appends (``ops.fused_decode``).  Both modes serve int8 page pools.
 A MoE config (Qwen3-MoE) swaps every layer's MLP for the routed experts of
-``layers.moe`` under the TP strategy at one rank: ``forward_tp`` in prefill,
-``forward_replicated`` in each decode step of either mode, their expert
-products on the grouped-GEMM kernel.
+``layers.moe``, their expert products on the grouped-GEMM kernel: under
+``moe_strategy="tp"`` at one rank ``forward_tp`` in prefill and
+``forward_replicated`` in each decode step; under ``"ep"``
+(``qwen.py:211-231``) ``forward_ep`` in prefill (the EP all-to-all, K17, and
+with ``moe_fp8_wire`` the wire pack, K18, around the experts) and
+``forward_replicated_ep`` in each decode step, at tp = 1 (JAX's one-rank
+shortcut) and at tp = n, the experts partitioned over the ranks (rank r's
+the rows ``[r E/n, (r + 1) E/n)`` of the tp = 1 tensors).
 
-With ``mesh`` (``core/mesh.py``, tp = n > 1 co-located ranks) the dense
-model runs the JAX package's tensor-parallel path, its weights rank-stacked
+With ``mesh`` (``core/mesh.py``, tp = n > 1 co-located ranks) the model
+runs the JAX package's tensor-parallel attention, its weights rank-stacked
 (``layers/tp_attn.py``, ``layers/tp_mlp.py``) and its replicated weights
 one copy:
 
@@ -24,7 +30,7 @@ one copy:
   n, K); each layer's qkv and gate_up through the AllGather-GEMM (K12), its
   o-projection and down through the GEMM-ReduceScatter (K13); the ranks'
   heads attend in one flash-attention launch, the rank folded into its
-  batch;
+  batch; a MoE layer's MLP runs ``forward_ep`` on the row-sharded stream;
 - decode: the activations replicated (one (B, K) copy), each rank's column
   products local, attention against the head-sharded cache on one decode
   kernel launch for all ranks, and the row-parallel reductions by
@@ -42,7 +48,10 @@ one copy:
   of the persistent kernel (K16) on a paged full-precision cache of a dense
   model (``_persistent_ok``), every other cache the "fused" chain, as JAX.
 
-MoE and int8 pages at tp > 1 raise.  At tp = 1 "ar" and "gemm_ar" reduce
+A MoE decode step runs ``forward_replicated_ep`` in every mode (the
+attention by mode); "persistent" runs the "fused" chain for MoE, as JAX's
+``_persistent_ok``.  MoE under ``moe_strategy="tp"`` and int8 pages at
+tp > 1 raise (ROADMAP A7).  At tp = 1 "ar" and "gemm_ar" reduce
 nothing and run as "psum", as in JAX; "persistent" on a paged cache runs
 K16 at one rank (the plain version, JAX's n = 1 reference step, on the
 CPU).
@@ -140,11 +149,8 @@ class Qwen3(nn.Module):
         super().__init__()
         if decode_mode not in DECODE_MODES:
             raise ValueError(f"decode_mode {decode_mode!r} not in {DECODE_MODES}")
-        if config.is_moe and config.moe_strategy != "tp":
-            raise NotImplementedError(
-                f"moe_strategy {config.moe_strategy!r} (experts partitioned "
-                "across ranks, all-to-all dispatch) belongs to the EP slice of "
-                "the port; 'tp' at one rank is served")
+        if config.moe_strategy not in ("tp", "ep"):
+            raise ValueError(f"moe_strategy {config.moe_strategy!r} not in ('tp', 'ep')")
         self.tp = 1 if mesh is None else mesh.shape[axis]
         if mesh is not None:
             if device is not None and resolve_device(device) != mesh.device:
@@ -152,10 +158,11 @@ class Qwen3(nn.Module):
             device = mesh.device
         if self.tp > 1:
             self._check_tp(config, mesh, decode_mode)
-        # every MoE layer's MLP (it refuses the fp8 wire itself)
+        # every MoE layer's MLP, over the mesh's ranks under EP
         self.moe = (MoEMLP(num_experts=config.num_experts, top_k=config.top_k,
                            swiglu=True, renormalize=config.norm_topk,
-                           fp8_wire=config.moe_fp8_wire)
+                           fp8_wire=config.moe_fp8_wire,
+                           mesh=mesh if self.tp > 1 else None, axis=axis)
                     if config.is_moe else None)
         self.config = config
         self.device = resolve_device(device)
@@ -167,15 +174,18 @@ class Qwen3(nn.Module):
 
     def _check_tp(self, c: ModelConfig, mesh: Mesh, decode_mode: str) -> None:
         n = self.tp
-        if c.is_moe:
+        if c.is_moe and c.moe_strategy != "ep":
             raise NotImplementedError(
-                "MoE at tp > 1 (the experts' AllGather and ReduceScatter around the "
-                "grouped GEMM) is not ported yet; MoE runs at tp = 1")
+                "MoE under moe_strategy 'tp' at tp > 1 (the experts' AllGather and "
+                "ReduceScatter around the grouped GEMM: ROADMAP A7) is not ported; "
+                "moe_strategy 'ep' serves MoE at tp > 1")
         if len(mesh.axes) != 1:
             raise NotImplementedError(
                 f"mesh {mesh.shape}: the model runs on a mesh of one axis, its tp axis")
-        for what, size in (("num_heads", c.num_heads), ("num_kv_heads", c.num_kv_heads),
-                           ("intermediate", c.intermediate)):
+        sizes = [("num_heads", c.num_heads), ("num_kv_heads", c.num_kv_heads)]
+        sizes.append(("num_experts", c.num_experts) if c.is_moe
+                     else ("intermediate", c.intermediate))
+        for what, size in sizes:
             if size % n:
                 raise ValueError(f"{what} = {size} does not divide among tp = {n} ranks")
 
@@ -185,7 +195,8 @@ class Qwen3(nn.Module):
              scale: float = 0.02) -> QwenParams:
         """Random N(0, ``scale``) weights and unit norms, drawn from
         ``generator`` (a generator on this model's device; seed 0 when
-        None).  At tp > 1 each layer is drawn as at tp = 1, then sharded."""
+        None).  At tp > 1 each layer is drawn as at tp = 1, then sharded
+        (:meth:`shard_layer`)."""
         c = self.config
         dev = self.device
         if generator is None:
@@ -196,22 +207,20 @@ class Qwen3(nn.Module):
                              c.head_dim, qk_norm=c.qk_norm, dtype=c.dtype,
                              scale=scale, device=dev)
             if c.is_moe:
-                mlp = self.moe.init(generator, c.hidden, c.moe_intermediate,
-                                    dtype=c.dtype, scale=scale, device=dev)
+                # the tp = 1 draw (the TP layout at one rank)
+                mlp = dataclasses.replace(self.moe, mesh=None).init(
+                    generator, c.hidden, c.moe_intermediate, dtype=c.dtype, scale=scale,
+                    device=dev)
             else:
                 mlp = init_mlp(generator, c.hidden, c.intermediate,
                                dtype=c.dtype, scale=scale, device=dev)
-            if self.tp > 1:
-                # the tp = 1 draw, then each rank's shard: the same weights at
-                # every tp from one seed
-                attn = shard_attn(attn, self.tp, c.num_heads, c.num_kv_heads, c.head_dim)
-                mlp = shard_mlp(mlp, self.tp)
-            layers.append(QwenLayerParams(
+            # then each rank's shard: the same weights at every tp from one seed
+            layers.append(self.shard_layer(QwenLayerParams(
                 ln1=torch.ones((c.hidden,), dtype=c.dtype, device=dev),
                 attn=attn,
                 ln2=torch.ones((c.hidden,), dtype=c.dtype, device=dev),
                 mlp=mlp,
-            ))
+            )))
         embed = torch.randn((c.vocab, c.hidden), generator=generator,
                             dtype=c.dtype, device=dev) * scale
         lm_head = torch.randn((c.hidden, c.vocab), generator=generator,
@@ -220,6 +229,27 @@ class Qwen3(nn.Module):
                           final_norm=torch.ones((c.hidden,), dtype=c.dtype,
                                                 device=dev),
                           lm_head=lm_head)
+
+    def shard_layer(self, lp: QwenLayerParams) -> QwenLayerParams:
+        """A layer's tp = 1 parameters in this model's layout: at tp > 1 the
+        attention rank-stacked (a copy) and the dense MLP's shards; a MoE
+        layer keeps its tensors (under EP rank r's experts are their rows
+        ``[r E/n, (r + 1) E/n)``; the TP strategy is served at tp = 1
+        only)."""
+        c, n = self.config, self.tp
+        mlp = lp.mlp
+        if n > 1 and not c.is_moe:
+            mlp = shard_mlp(mlp, n)
+        attn = lp.attn
+        if n > 1:
+            attn = shard_attn(attn, n, c.num_heads, c.num_kv_heads, c.head_dim)
+        return dataclasses.replace(lp, attn=attn, mlp=mlp)
+
+    def shard_params(self, params: QwenParams) -> QwenParams:
+        """tp = 1 parameters (``Qwen3(config).init``, or the TP-strategy
+        draw of a MoE config) in this model's layout (:meth:`shard_layer`);
+        the embedding, the norms and the lm_head stay the same tensors."""
+        return dataclasses.replace(params, layers=[self.shard_layer(lp) for lp in params.layers])
 
     # -- shared pieces ----------------------------------------------------
 
@@ -300,7 +330,7 @@ class Qwen3(nn.Module):
             out = flash_attention(q, k, v, causal=True)
             out = out.transpose(1, 2).reshape(n, b * s, self.heads * c.head_dim)
             x = x + gemm_rs(out, lp.attn.wo, mesh, self.axis)
-            x = x + tp_mlp.forward(lp.mlp, rms_norm(x, lp.ln2, c.rms_eps), mesh, self.axis)
+            x = x + self._mlp_forward(lp.mlp, rms_norm(x, lp.ln2, c.rms_eps))
         logits = self._finish(params, unshard(mesh, x, self.axis))
         return logits.reshape(b, s, c.vocab), with_length(cache, s)
 
@@ -378,17 +408,26 @@ class Qwen3(nn.Module):
         return batched_product(h, w, torch.float32).sum(0).to(h.dtype)
 
     def _mlp_forward(self, p, x: torch.Tensor) -> torch.Tensor:
-        """The prefill MLP (``qwen.py:211-221``): the dense SwiGLU, or the
-        routed experts of the TP strategy."""
-        if self.config.is_moe:
+        """The prefill MLP (``qwen.py:211-221``): the dense SwiGLU (at tp > 1
+        between K12 and K13), or the routed experts by ``moe_strategy``
+        (under EP on the row-sharded stream (n, B S / n, K))."""
+        c = self.config
+        if c.is_moe:
+            if c.moe_strategy == "ep":
+                return self.moe.forward_ep(p, x)
             return self.moe.forward_tp(p, x)
+        if self.tp > 1:
+            return tp_mlp.forward(p, x, self.mesh, self.axis)
         return mlp_forward(p, x)
 
     def _mlp_decode(self, p, x: torch.Tensor) -> torch.Tensor:
         """A decode step's MLP and its AllReduce (``qwen.py:223-231``,
-        ``:695-734``): the routed experts on the replicated batch in either
-        mode; else as :meth:`_row_parallel_reduce` dispatches."""
+        ``:695-734``): the routed experts on the replicated batch in every
+        mode, by ``moe_strategy``; else as :meth:`_row_parallel_reduce`
+        dispatches."""
         if self.config.is_moe:
+            if self.config.moe_strategy == "ep":
+                return self.moe.forward_replicated_ep(p, x)
             return self.moe.forward_replicated(p, x)
         if self.tp > 1:
             if self._k15_serves(p.down.shape[2]):

@@ -1,7 +1,8 @@
 """Flop and byte counts of a kernel call, and its roofline time on the card
 (counterpart of ``triton_distributed_tpu/obs/costs.py``; the ``matmul``
-calculator, the overlapped GEMMs', the decode megakernels' and ``sol_ms`` are
-ported, the others come with the kernels they describe).  Counts are per rank, as JAX's; a call on n
+calculator, the overlapped GEMMs', the decode megakernels', the EP
+all-to-all's, the wire pack's and ``sol_ms`` are ported, the others come
+with the kernels they describe).  Counts are per rank, as JAX's; a call on n
 co-located ranks does n times the work on one card."""
 
 from __future__ import annotations
@@ -125,6 +126,25 @@ def persistent_decode(layers: int, b: int, k_dim: int, h: int, hk: int, seq_kv: 
     oproj = fused_mlp_ar(b, h * d, h * d, k_dim, num_ranks, kv_dtype, swiglu=False)
     mlp = fused_mlp_ar(b, k_dim, f_loc, k_dim, num_ranks, kv_dtype, swiglu=True)
     return (att + oproj + mlp).scaled(layers)
+
+
+def all_to_all(rows: int, row_bytes: int) -> KernelCost:
+    """The EP all-to-all (K17) over all ranks: the ``rows`` real rows of
+    ``row_bytes`` each, read once from the source and written once into a
+    zone.  JAX's ``costs.all_to_all(n * z, ...)`` charges the zones'
+    capacity; this counts the rows the data moves (wire: every row, as
+    JAX's)."""
+    return KernelCost(flops=0, bytes_accessed=2 * rows * row_bytes, wire_bytes=rows * row_bytes)
+
+
+def quant_pack(rows: int, h: int, dtype) -> KernelCost:
+    """The wire pack (K18): the rows read once, the (H + 128)-byte messages
+    written once; an absmax, a division and a conversion an element."""
+    from ..lang import quant
+
+    return KernelCost(flops=3 * rows * h,
+                      bytes_accessed=rows * h * _itemsize(dtype)
+                      + rows * quant.packed_width(h, "fp8"))
 
 
 def sol_ms(cost: KernelCost, dtype=torch.bfloat16) -> float:

@@ -19,7 +19,7 @@ Port decisions:
 - ``bidir=None`` means the two-way ring for n >= 3, as in JAX (``:355``).
 - ``config`` must be None: K12 runs the one tile its dtype's kernel is
   built with; the tuner's wiring of tiles comes later.
-- ``wire_dtype`` other than "bf16" (the quantized wire, B9) and a tuple axis
+- ``wire_dtype`` other than "bf16" (the quantized wire, ROADMAP A5) and a tuple axis
   raise ``NotImplementedError``; n == 1 is a plain product.
 - bf16 -> bf16, bf16 -> f32 and f32 -> f32; K and n_loc multiples of 8.
 - No backward: the JAX VJP (GEMM-RS for dA, a gather for dB) comes with the

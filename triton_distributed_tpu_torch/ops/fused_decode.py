@@ -448,8 +448,9 @@ def _ar_operands(name: str, act, w, mesh: Mesh | None, axis: str, out_dtype, wir
     operands; returns n and the output dtype."""
     if wire_dtype != "bf16":
         raise NotImplementedError(
-            f"{name}: wire_dtype={wire_dtype!r}: the quantized wire needs the pack kernel "
-            "B9 (lang/quant.py:145), not ported yet; use 'bf16'")
+            f"{name}: wire_dtype={wire_dtype!r}: the quantized reductions (JAX "
+            "comm/quantized.py, ROADMAP A5) are not ported; only the EP all-to-all ships the "
+            "rows that B9's port (K18) packs; use 'bf16'")
     check_config(config)
     n = 1 if mesh is None else mesh.shape[axis]
     out_dtype = out_dtype or act.dtype
@@ -496,7 +497,7 @@ def fused_mlp_ar(x: torch.Tensor, gate_up: torch.Tensor, down: torch.Tensor,
     on the card also F / n, N / n, K multiples of 8 (K15's 16-byte rows),
     else it raises; B is free.  Without a mesh or at one
     rank (2-D or one-rank weights) the plain MLP, as JAX's n == 1.  A wire
-    other than "bf16" raises (the pack kernel B9 is not ported)."""
+    other than "bf16" raises (the quantized reductions are ROADMAP A5)."""
     n, out_dtype = _ar_operands("fused_mlp_ar", x, down, mesh, axis, out_dtype, wire_dtype,
                                 config, gate_up if mesh is not None and mesh.shape[axis] > 1
                                 else None)

@@ -9,14 +9,28 @@ copies with their routing weights.
 Everything runs on the input's device and nothing is read back to the host:
 the sorts are ``torch.argsort(stable=True)`` and the rows per expert are
 counted with ``scatter_add_`` into zeros (``torch.bincount`` on CUDA reads
-the largest id back to the host first).  The e4m3 aliases,
-``expert_block_permutation`` and ``global_presort_index`` (more than one
-rank) belong to the EP and multi-GPU slices of the port.
+the largest id back to the host first).  The e4m3 aliases of
+``lang/quant.py`` keep JAX's names (``moe_utils.py:31-42``).
+``expert_block_permutation`` and ``global_presort_index`` belong to the TP
+strategy at tp > 1 (ROADMAP A7).
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..lang import quant as _quant
+from ..lang.quant import E4M3_MAX, SCALE_EPS  # noqa: F401 (JAX's names)
+
+
+def quantize_e4m3(x: torch.Tensor, *, axis: int = -1):
+    """Per-row e4m3 quantization: ``lang.quant.quantize_rows(x, "fp8")``."""
+    return _quant.quantize_rows(x, "fp8", axis=axis)
+
+
+def dequantize(x8: torch.Tensor, scale: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """Inverse of :func:`quantize_e4m3` (``lang.quant.dequantize_rows``)."""
+    return _quant.dequantize_rows(x8, scale, dtype)
 
 
 def topk_route(logits: torch.Tensor, k: int, *, renormalize: bool = True):
