@@ -134,6 +134,31 @@ Phases, each printing JSON lines; any failure exits non-zero:
                K18 +96 with the fp8 wire), per step K3 or K4 + K15 +48 and K5
                +96, exact and by form; an EP prefill and step under the sync
                check on each wire; a profile per mode; peak memory.
+   aot_serving -- tutorial 14's path.  K19 (the overlap probe) against its
+               plain versions: fused, dma and mxu at m = n = 1000, k = bk and
+               3 bk, bf16 and f32, every built tile (fused and mxu within
+               K6's limit, dma within one output ulp and its sum's
+               reordering), and an mxu probe reading A's block (0, 1), which
+               must miss by FAULT_MARGIN; then the three modes at bench.py's
+               4096^3 bf16, timed interleaved (the path, counted), with
+               hidden_pct, K6 and torch.matmul beside them, and K12's
+               decomposition at tp = 4 (qkv, gate_up: K12 against K9 two-way
+               and K6 on the gathered rows).  Then Qwen3-8B on the contiguous
+               cache, full width and depth, batch 4, in psum and fused at
+               tp = 1 and psum, ar, gemm_ar and fused at tp = 4: eager serves
+               of a 1024- and a 700-token prompt, precompile([768, 1024])
+               (CUDA graphs), the model's prefill and decode replaced by
+               functions that raise, the launch counters frozen, replayed
+               serves (twice each) with tokens equal to eager; one replayed
+               step from a given cache state within PARITY_TOL of the eager
+               step, the prefill at 700 padded to 768 within PAD_PREFILL_TOL
+               of eager; replayed and eager serve statistics, a profile of
+               8 replayed steps, peak memory.  A second process
+               (``--aot-child``) serves the saved manifest through
+               load_precompiled, runs no nvcc and returns the parent's tokens;
+               manifests of another batch or config are refused by name.
+               Last, a calibration in a throwaway TDT_LINKCAL_CACHE flips a
+               1 MiB gather from the ring to the push.
 5. parity   -- full width at 2 layers in f32, batch 2, prompt 128, 8 new
                tokens: the port on the card (kernels) and on the CPU (plain
                versions) from the same weights give the same logits within
@@ -4300,9 +4325,440 @@ def phase_parity_tp(tt, torch) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# tutorial 14's path: the overlap probe (K19), bucketed serving as CUDA
+# graphs, link calibration
+
+PROBE_SOURCE = "triton_distributed_tpu_torch/csrc/overlap_probe.cu"
+PROBE_MAIN = 4096                 # bench.py's overlap shape, 4096^3 bf16
+PROBE_EDGE = (1000, 1000)         # m and n off every tile
+AOT_BUCKETS = [768, 1024]
+AOT_PROMPTS = (1024, 700)         # an exact fit, and 700 padded to 768
+# the replayed prefill at 700, padded to 768, against the eager prefill at
+# 700: the same kernels on the first 700 positions, but cuBLAS may choose
+# other tiles for 4 x 768 rows than for 4 x 700, which moves bf16 roundings
+# of the activations; through 36 layers that stays below 2**-4 on logits of
+# magnitude ~1-5 (the tokens are held equal besides)
+PAD_PREFILL_TOL = 2.0 ** -4
+AOT_MODES_TP1 = ("psum", "fused")
+AOT_MODES_TP4 = ("psum", "ar", "gemm_ar", "fused")
+
+
+def probe_limits(torch, mode: str, a, b, tile, want):
+    """Per-element limits of K19 against its plain version: fused and mxu
+    K6's (BF16_TOL + 2**-7 |plain| in bf16, F32_TOL in f32); dma one output
+    ulp at the plain value plus the reordering of its 2048-term f32 sum
+    (2048 x 2**-24 x the sum of the terms' magnitudes)."""
+    from triton_distributed_tpu_torch.tools import overlap as OV
+
+    if mode != "dma":
+        atol, rtol = k6_limits(torch, want.dtype)
+        return atol + rtol * want.float().abs()
+    mant = 7 if want.dtype == torch.bfloat16 else 23
+    w = want.float().abs().clamp_min(torch.finfo(want.dtype).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(w)) - mant)
+    mag = OV.dma_ref(a.abs(), b.abs(), tile).float()
+    return ulp + 2048 * 2.0 ** -24 * mag
+
+
+def phase_probe_cases(tt, torch) -> None:
+    """K19's three modes against their plain versions: m and n off the tile
+    (1000 x 1000), k = bk and 3 bk, bf16 and f32, every built tile; and a
+    control that must miss: an mxu probe reading A's block (0, 1)."""
+    from triton_distributed_tpu_torch.tools import overlap as OV
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 90)
+    results = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for tile in OV.BUILT_TILES[dtype]:
+            for k in (tile[2], 3 * tile[2]):
+                m, n = PROBE_EDGE
+                a, b = k6_operands(torch, gen, m, k, n, dtype)
+                fns = OV.overlap_kernels(m, n, k, bm=tile[0], bn=tile[1], bk=tile[2],
+                                         dtype=dtype)
+                for mode, fn in zip(OV.MODES, fns):
+                    got = fn(a, b)
+                    want = getattr(OV, f"{mode}_ref")(a, b, tile)
+                    limit = probe_limits(torch, mode, a, b, tile, want)
+                    share = ((got.float() - want.float()).abs() / limit).max().item()
+                    case = dict(dtype=str(dtype), tile=list(tile), m=m, n=n, k=k, mode=mode,
+                                max_abs_err=(got.float() - want.float()).abs().max().item(),
+                                worst_share_of_limit=share)
+                    if mode == "mxu" and k > tile[2]:
+                        shifted = torch.cat([a[:, tile[2]:], a[:, :tile[2]]], dim=1)
+                        wrong = OV.mxu_ref(shifted, b, tile)
+                        case["control_share_of_limit"] = (
+                            (got.float() - wrong.float()).abs() / limit).max().item()
+                    results.append(case)
+    torch.cuda.synchronize()
+    for case in results:
+        emit({"phase": "probe_case", **case})
+    bad = [c for c in results if not c["worst_share_of_limit"] <= 1.0]
+    check(not bad, f"{len(bad)} overlap probe cases disagree with their plain versions: {bad[:3]}")
+    controls = [c["control_share_of_limit"] for c in results if "control_share_of_limit" in c]
+    check(controls and min(controls) >= FAULT_MARGIN,
+          f"the mxu probe reading block (0, 1) is not told apart: {controls}")
+
+
+def interleaved_ms(torch, thunks: dict, rounds: int = 5, iters: int = 10) -> dict:
+    """Median over ``rounds`` of each thunk's CUDA-event median (perf_func),
+    the thunks timed in turns, the order reversed every other round."""
+    import statistics
+
+    from triton_distributed_tpu_torch.core.utils import perf_func
+
+    samples = {name: [] for name in thunks}
+    for r in range(rounds):
+        order = list(thunks.items())
+        for name, fn in (order[::-1] if r % 2 else order):
+            samples[name].append(perf_func(fn, iters=iters, warmup_iters=1)[1])
+    return {name: statistics.median(v) for name, v in samples.items()}
+
+
+def probe_main_rows(tt, torch) -> tuple[dict, dict]:
+    """K19 at bench.py's 4096^3 bf16 with its default tile: the three modes
+    timed interleaved (the path: counted), ``hidden_pct``, each beside its
+    bound, its plain version, K6 at its default tile and torch.matmul; then
+    the collective decomposition of bench.py's overlap_collective at tp = 4:
+    K12 (qkv, gate_up) against the two-way K9 and K6 on the gathered rows.
+    Returns the rows and the path's launches by form."""
+    from triton_distributed_tpu_torch import comm
+    from triton_distributed_tpu_torch.core.mesh import make_mesh
+    from triton_distributed_tpu_torch.core.utils import perf_func
+    from triton_distributed_tpu_torch.ops import ag_gemm as AG
+    from triton_distributed_tpu_torch.ops.matmul import matmul
+    from triton_distributed_tpu_torch.tools import overlap as OV
+
+    s = PROBE_MAIN
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 91)
+    a, b = k6_operands(torch, gen, s, s, s, torch.bfloat16)
+    tile = OV.DEFAULT_TILES[torch.bfloat16]
+    fns = dict(zip(OV.MODES, OV.overlap_kernels(s, s, s, dtype=torch.bfloat16)))
+    torch.cuda.synchronize()
+    tt.reset_launch_counts()
+    times = interleaved_ms(torch, {mode: (lambda f=f: f(a, b)) for mode, f in fns.items()})
+    torch.cuda.synchronize()
+    forms = {key: n for key, n in tt.launch_forms().items() if key[0] == "overlap_probe"}
+    pct = OV.hidden_pct(times["fused"], times["dma"], times["mxu"])
+    _, k6_ms = perf_func(lambda: matmul(a, b, bm=128, bn=128, bk=32), iters=10)
+    _, lib_ms = perf_func(lambda: torch.matmul(a, b), iters=10)
+    # each input read once and the output written once; the products' operations
+    # (dma runs none); the dma probe's own stream (A read n / bn times, B
+    # m / bm times) is printed beside it, not a bound of the function
+    flops, fn_bytes = 2 * s ** 3, nbytes(a, b) + s * s * 2
+    streamed = nbytes(a) * (s // tile[1]) + nbytes(b) * (s // tile[0]) + s * s * 2
+    bounds = {mode: bound(0 if mode == "dma" else flops, fn_bytes, H100_BF16_FLOPS)
+              for mode in fns}
+    rows = {}
+    for mode, fn in fns.items():
+        got = fn(a, b)
+        want = getattr(OV, f"{mode}_ref")(a, b, tile)
+        limit = probe_limits(torch, mode, a, b, tile, want)
+        share = ((got.float() - want.float()).abs() / limit).max().item()
+        check(share <= 1.0, f"overlap_probe[{mode}] at {s}^3: {share:.3g} of its limit")
+        _, plain_ms = perf_func(lambda m=mode: getattr(OV, f"{m}_ref")(a, b, tile), iters=3)
+        name = f"overlap_probe[{mode}]"
+        rows[name] = dict(
+            name=name, route="cuda", source=PROBE_SOURCE,
+            replaces="triton_distributed_tpu/tools/overlap.py:49",
+            max_abs_err=(got.float() - want.float()).abs().max().item(),
+            worst_share_of_limit=share, ms=times[mode], plain_ms=plain_ms,
+            bound_ms=bounds[mode][0], bound_by=bounds[mode][1],
+            library_ms=lib_ms if mode == "fused" else None,
+            library="torch.matmul" if mode == "fused" else None,
+            k6_ms=k6_ms, hidden_pct=pct, tile=list(tile),
+            streamed_ms=streamed / H100_BYTES_PER_S * 1e3 if mode == "dma" else None,
+            counter="overlap_probe", form=(mode, s, s, s), shape=f"{s}^3 bf16")
+        del got, want, limit
+    emit({"phase": "overlap_probe", "fused_ms": times["fused"], "dma_ms": times["dma"],
+          "mxu_ms": times["mxu"], "hidden_pct": pct, "k6_ms": k6_ms, "library_ms": lib_ms,
+          "tile": list(tile), "launches": {str(k): v for k, v in forms.items()}})
+    del a, b
+    # the collective decomposition (bench.py:2161-2200) at tp = 4
+    n = COLL_TP
+    mesh = make_mesh({"tp": n})
+    for name, _, m, k, cols, _ in OVERLAP_MAIN[:2]:
+        x = torch.randn((n, m // n, k), generator=gen, device="cuda").to(torch.bfloat16)
+        w = (torch.randn((n, k, cols // n), generator=gen, device="cuda") / k ** 0.5).to(torch.bfloat16)
+        gathered = comm.all_gather(x, mesh, method=comm.AllGatherMethod.RING_BIDIR)
+        t = interleaved_ms(torch, {
+            "fused": lambda: AG.ag_gemm(x, w, mesh),
+            "comm": lambda: comm.all_gather(x, mesh, method=comm.AllGatherMethod.RING_BIDIR),
+            "gemm": lambda: [matmul(gathered[r], w[r], bm=128, bn=128, bk=32)
+                             for r in range(n)]})
+        emit({"phase": "overlap_collective", "name": name, "tp": n, "m": m, "k": k,
+              "n_cols": cols, "fused_ms": t["fused"], "comm_ms": t["comm"],
+              "gemm_ms": t["gemm"], "hidden_pct": OV.hidden_pct(t["fused"], t["comm"], t["gemm"])})
+        del x, w, gathered
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, forms
+
+
+def poison(eng) -> None:
+    """Replace the model's prefill and decode with functions that raise (JAX
+    ``tests/test_engine_aot.py::_poison_jit_paths``): a replayed step must
+    not run them."""
+    def boom(*a, **k):
+        raise AssertionError("an eager model step ran after precompile")
+
+    eng.model.prefill = boom
+    eng.model.decode = boom
+
+
+def unpoison(eng) -> None:
+    del eng.model.prefill, eng.model.decode
+
+
+def replayed_profile(torch, eng, tok, steps: int = 8) -> dict:
+    """Host wall time of ``steps`` replayed decode steps (ended by a
+    synchronize), and the device kernel time of the same steps from a
+    torch.profiler trace; None where the trace shows no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng.decode_step(tok)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.decode_step(tok)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            eng.decode_step(tok)
+        torch.cuda.synchronize()
+    ks = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernel = sum(e.time_range.elapsed_us() for e in ks) / 1e3 / steps if ks else None
+    return {"wall_ms": wall, "device_kernel_ms": kernel,
+            "idle_share": None if kernel is None else 1.0 - kernel / wall,
+            "kernel_launches": len(ks) / steps}
+
+
+def aot_serve_mode(tt, torch, model, params, label: str, save_dir=None) -> dict:
+    """One engine and mode of the bucketed path: eager serve of both
+    prompts, precompile, the eager steps poisoned and the counters frozen,
+    then replayed serves (twice each), tokens equal; one replayed decode step
+    from a given cache state within PARITY_TOL of the eager step, the padded
+    prefill within PAD_PREFILL_TOL of the eager one; a profile of replayed
+    steps.  Returns what the child and the report need."""
+    dev = model.device
+    fit, pad = AOT_PROMPTS
+    eng = tt.Engine(model, params, batch=BATCH, cache_layout="contiguous")
+    prompts = {L: torch.randint(0, model.config.vocab, (BATCH, L), device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(300 + L))
+               for L in AOT_PROMPTS}
+    out = {"label": label, "eager": {}, "replayed": {}}
+    eager_tokens, eager_logits = {}, {}
+    for L, ids in prompts.items():
+        eager_tokens[L], out["eager"][L] = eng.serve(ids, GEN)
+        eager_logits[L] = eng.prefill(ids).clone()
+    # a cache state: the exact-fit prompt and one step, then the eager step from it
+    tok = eager_tokens[fit][:, 0].contiguous()
+    eng.prefill(prompts[fit])
+    eng.decode_step(tok)
+    state = clone_cache(torch, eng.cache)
+    eager_step = eng.decode_step(tok).clone()
+    t0 = time.perf_counter()
+    try:
+        manifest = eng.precompile(AOT_BUCKETS, save_dir=save_dir)
+    except NotImplementedError as e:
+        emit({"phase": "aot_capture", "label": label, "captured": False, "error": str(e),
+              "capture_s": time.perf_counter() - t0})
+        if model.tp == 1:
+            raise
+        check(model.decode_mode in str(e), f"{label}: the refusal does not name the mode")
+        out["refused"] = str(e)
+        return out
+    capture_s = time.perf_counter() - t0
+    poison(eng)
+    before = tt.launch_counts()
+    replayed_tokens = {}
+    for rep in range(2):
+        for L, ids in prompts.items():
+            replayed_tokens[L], stats = eng.serve(ids, GEN)
+            out["replayed"].setdefault(L, []).append(stats)
+    torch.cuda.synchronize()
+    after = tt.launch_counts()
+    at_rest = pads_at_rest()   # the replayed barriers and rings drain their flags
+    for k in ("k", "v", "kv_len"):
+        getattr(eng.cache, k).copy_(getattr(state, k))
+    replay_step = eng.decode_step(tok)
+    step_diff = (replay_step - eager_step).abs().max().item()
+    pad_diff = (eng.prefill(prompts[pad]) - eager_logits[pad]).abs().max().item()
+    fit_diff = (eng.prefill(prompts[fit]) - eager_logits[fit]).abs().max().item()
+    prof = replayed_profile(torch, eng, tok)
+    same = {L: bool(torch.equal(replayed_tokens[L], eager_tokens[L])) for L in prompts}
+    emit({"phase": "aot_serving", "label": label, "captured": True, "capture_s": capture_s,
+          "buckets": manifest["buckets"], "tokens_equal": same,
+          "launches_unchanged": before == after, "pads_at_rest": at_rest,
+          "decode_step_max_diff": step_diff,
+          "prefill_padded_max_diff": pad_diff, "prefill_exact_fit_max_diff": fit_diff,
+          "eager": out["eager"], "replayed": out["replayed"], "replayed_profile": prof,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    check(all(same.values()), f"{label}: replayed tokens differ from eager ones: {same}")
+    check(before == after, f"{label}: a kernel wrapper ran during replay")
+    check(at_rest, f"{label}: a signal pad is not at rest after the replays")
+    check(step_diff <= PARITY_TOL, f"{label}: replayed step {step_diff} from the eager one")
+    check(pad_diff <= PAD_PREFILL_TOL, f"{label}: padded prefill {pad_diff} from eager")
+    unpoison(eng)
+    out.update(tokens=replayed_tokens, prompts=prompts, engine=eng)
+    return out
+
+
+def aot_child(save_dir: str) -> int:
+    """Run in a second process by phase_aot_serving: an engine of the same
+    seed serves the parent's manifest through ``load_precompiled``, with no
+    nvcc run (the library is on disk) and the eager steps poisoned; writes
+    its tokens beside the manifest."""
+    import torch
+
+    import triton_distributed_tpu_torch as tt
+    from triton_distributed_tpu_torch.core import build
+
+    _, log = build.build()
+    c = dataclasses.replace(tt.QWEN3_8B, max_length=MAX_LEN)
+    dev = torch.device("cuda")
+    params = tt.Qwen3(c, device=dev).init(torch.Generator(device=dev).manual_seed(SEED))
+    eng = tt.Engine(tt.Qwen3(c, device=dev), params, batch=BATCH)
+    t0 = time.perf_counter()
+    manifest = eng.load_precompiled(save_dir)
+    load_s = time.perf_counter() - t0
+    poison(eng)
+    prompts = torch.load(Path(save_dir) / "prompts.pt")
+    tokens = {L: eng.generate(ids.to(dev), GEN).cpu() for L, ids in prompts.items()}
+    torch.save(tokens, Path(save_dir) / "child_tokens.pt")
+    emit({"phase": "aot_child", "nvcc_ran": bool(log), "buckets": manifest["buckets"],
+          "load_precompiled_s": load_s})
+    return 0
+
+
+def manifest_refusals(tt, torch, model, params, save_dir: Path) -> None:
+    """A manifest of another batch, or of another config, raises naming the
+    field, before anything is captured."""
+    good = json.loads((save_dir / "aot_manifest.json").read_text())
+    cases = (("batch", dict(good, batch=BATCH + 1), "batch"),
+             ("config", dict(good, arch={**good["arch"], "model_config": {
+                 **good["arch"]["model_config"], "num_layers": 35}}), "num_layers"))
+    for what, manifest, field in cases:
+        bad = save_dir / f"bad_{what}"
+        bad.mkdir(exist_ok=True)
+        (bad / "aot_manifest.json").write_text(json.dumps(manifest))
+        eng = tt.Engine(model, params, batch=BATCH)
+        try:
+            eng.load_precompiled(str(bad))
+            raise PhaseError(f"a manifest of another {what} was accepted")
+        except ValueError as e:
+            emit({"phase": "aot_manifest_refused", "what": what, "error": str(e)})
+            check(field in str(e), f"the refusal of another {what} does not name {field}")
+        del eng
+
+
+def phase_calibration(tt, torch) -> None:
+    """Tutorial 14's part 2 with a throwaway TDT_LINKCAL_CACHE: a measured
+    10 us hop moves a 1 MiB shard's gather from the ring to the push."""
+    from triton_distributed_tpu_torch.comm import allgather as AGm
+    from triton_distributed_tpu_torch.tools import calibrate as cal
+
+    path = Path(__file__).resolve().parent / "build" / "linkcal_smoke.json"
+    path.unlink(missing_ok=True)
+    old = os.environ.get("TDT_LINKCAL_CACHE")
+    os.environ["TDT_LINKCAL_CACHE"] = str(path)
+    cal.invalidate_cache()
+    try:
+        probe = 1 << 20
+        cold = AGm.choose_method(probe, 8)
+        cal.save_calibration(cal.LinkCalibration(ici_gbps=186.0, ici_hop_us=10.0,
+                                                 device_kind="smoke", n_devices=8))
+        warm = AGm.choose_method(probe, 8)
+        emit({"phase": "calibration", "cold": cold.name, "calibrated": warm.name,
+              "push_bytes_threshold": cal.push_bytes_threshold()})
+        check(cold == AGm.AllGatherMethod.RING_BIDIR and warm == AGm.AllGatherMethod.PUSH_1SHOT,
+              f"choose_method did not flip for 1 MiB: {cold} -> {warm}")
+    finally:
+        path.unlink(missing_ok=True)
+        if old is None:
+            os.environ.pop("TDT_LINKCAL_CACHE", None)
+        else:
+            os.environ["TDT_LINKCAL_CACHE"] = old
+        cal.invalidate_cache()
+
+
+def phase_aot_serving(tt, torch) -> tuple[dict, dict, dict]:
+    """Tutorial 14 on the card: K19's cases and main rows, bucketed serving
+    of Qwen3-8B (full width and depth, batch 4, the contiguous cache) as
+    CUDA graphs at tp = 1 and tp = 4, a second process serving the saved
+    manifest, and the calibration's method flip.  Returns K19's rows, the
+    path's launches and their forms."""
+    import shutil
+    import subprocess
+
+    t0 = time.perf_counter()
+    phase_probe_cases(tt, torch)
+    rows, forms = probe_main_rows(tt, torch)
+    launches = {"overlap_probe": sum(forms.values())}
+    emit({"phase": "aot_probe_done", "seconds": time.perf_counter() - t0})
+    c = dataclasses.replace(tt.QWEN3_8B, max_length=MAX_LEN)
+    dev = torch.device("cuda")
+    save_dir = Path(__file__).resolve().parent / "build" / "aot_smoke"
+    shutil.rmtree(save_dir, ignore_errors=True)
+    t1 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = tt.Qwen3(c, device=dev).init(torch.Generator(device=dev).manual_seed(SEED))
+    for mode in AOT_MODES_TP1:
+        model = tt.Qwen3(c, device=dev, decode_mode=mode)
+        res = aot_serve_mode(tt, torch, model, params, f"tp1 {mode}",
+                             save_dir=str(save_dir) if mode == "psum" else None)
+        if mode == "psum":
+            torch.save({L: ids.cpu() for L, ids in res["prompts"].items()},
+                       save_dir / "prompts.pt")
+            parent_tokens = {L: t.cpu() for L, t in res["tokens"].items()}
+            manifest_refusals(tt, torch, model, params, save_dir)
+        del res
+        gc.collect()
+    emit({"phase": "aot_tp1_done", "seconds": time.perf_counter() - t1,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    t2 = time.perf_counter()
+    child = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--aot-child",
+                            str(save_dir)], capture_output=True, text=True, timeout=300)
+    lines = [ln for ln in child.stdout.splitlines() if '"aot_child"' in ln]
+    emit({"phase": "aot_second_process", "rc": child.returncode,
+          "seconds": time.perf_counter() - t2, "report": json.loads(lines[-1]) if lines else None})
+    check(child.returncode == 0 and lines, f"the second process failed:\n{child.stderr[-3000:]}")
+    check(not json.loads(lines[-1])["nvcc_ran"], "the second process ran nvcc")
+    got = torch.load(save_dir / "child_tokens.pt")
+    check(all(torch.equal(got[L], parent_tokens[L]) for L in parent_tokens),
+          "the second process served other tokens than the parent")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = tt.make_mesh({"tp": COLL_TP})
+    params = tt.Qwen3(c, mesh=mesh).init(torch.Generator(device=mesh.device).manual_seed(SEED))
+    refused = {}
+    for mode in AOT_MODES_TP4:
+        res = aot_serve_mode(tt, torch, tt.Qwen3(c, mesh=mesh, decode_mode=mode), params,
+                             f"tp4 {mode}")
+        if "refused" in res:
+            refused[mode] = res["refused"]
+        del res
+        gc.collect()
+    emit({"phase": "aot_tp4_done", "seconds": time.perf_counter() - t3, "refused": refused,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_calibration(tt, torch)
+    shutil.rmtree(save_dir, ignore_errors=True)
+    emit({"phase": "aot_serving_done", "seconds": time.perf_counter() - t0})
+    return rows, launches, forms
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--stalled-rank-child"]:
         return stalled_rank_child(sys.argv[2])
+    if sys.argv[1:2] == ["--aot-child"]:
+        return aot_child(sys.argv[2])
     here = Path(__file__).resolve().parent
     if not (here / "triton_distributed_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py: triton_distributed_tpu_torch/ not found beside the "
@@ -4364,16 +4820,20 @@ def main() -> int:
         phase = "serve_tp"
         tp_launches, tp_forms, tp_rows = phase_serve_tp(tt, torch)
         rows.update(tp_rows)
+        phase = "aot_serving"
+        aot_rows, aot_launches, aot_forms = phase_aot_serving(tt, torch)
+        rows.update(aot_rows)
         phase = "serve_moe"
         t0 = time.perf_counter()
         moe_launches, forms, ep_rows = phase_serve_moe(tt, torch)
         rows.update(ep_rows)
         emit({"phase": "serve_moe_done", "seconds": time.perf_counter() - t0})
         for name, n in [*moe_launches.items(), *local_launches.items(),
-                        *coll_launches.items(), *tp_launches.items()]:
+                        *coll_launches.items(), *tp_launches.items(), *aot_launches.items()]:
             launches[name] += n
         forms.update(local_forms)
-        for key, n in [*coll_forms.items(), *tp_forms.items(), *serve_forms.items()]:
+        for key, n in [*coll_forms.items(), *tp_forms.items(), *serve_forms.items(),
+                       *aot_forms.items()]:
             forms[key] = forms.get(key, 0) + n
         for name, n in launches.items():
             check(n > 0, f"{name} was not launched on the main path")
@@ -4397,7 +4857,7 @@ def main() -> int:
                 "name", "route", "source", "replaces")} | {
                 "launches": n, **{k: row[k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "library", "chain_ms") if k in row}})
+                    "library_ms", "library", "chain_ms", "k6_ms", "hidden_pct") if k in row}})
         emit({"kernels": kernels})
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",

@@ -210,6 +210,9 @@ def test_port_import_leaves_jax_out():
         "import triton_distributed_tpu_torch.layers.moe\n"
         "import triton_distributed_tpu_torch.layers.allgather_layer\n"
         "import triton_distributed_tpu_torch.ops.moe_utils\n"
+        "import triton_distributed_tpu_torch.tools.aot\n"
+        "import triton_distributed_tpu_torch.tools.overlap\n"
+        "import triton_distributed_tpu_torch.tools.calibrate\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'triton_distributed_tpu'"
         " or m.startswith('triton_distributed_tpu.')]\n"
@@ -243,3 +246,14 @@ def test_entry_points_refuse_missing_cuda(monkeypatch):
     x = torch.ones(8, 8)
     assert tt.fresh_tune_matmul(x, x) == tt.LibraryBackend()
     assert torch.equal(tt.matmul(x, x, bm=64, bn=64, bk=16), x @ x)
+    # the overlap probe and graph capture: CUDA unless the caller asks for
+    # the CPU, where precompile records the buckets and serves eagerly
+    from triton_distributed_tpu_torch.tools import aot, overlap
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        overlap.overlap_kernels(256, 256, 256)
+    assert len(overlap.overlap_kernels(256, 256, 256, device="cpu")) == 3
+    with pytest.raises(RuntimeError, match="CUDA"):
+        aot.Captured(lambda t: t, [x], None, None)
+    eng = tt.Engine.build(cfg, device="cpu")
+    assert eng.precompile([8])["buckets"] == [8]

@@ -67,6 +67,7 @@ SIGNATURES = {
     # K17 takes a pointer to its A2aArgs (core/symm.py)
     "tdt_all_to_all": [_P, _P],
     "tdt_quant_pack": [_P, _P, _L, _I, _I, _I, _F, _P],
+    "tdt_overlap_probe": [_P, _P, _P, *[_I] * 8, _P],
 }
 
 

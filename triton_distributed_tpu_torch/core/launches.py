@@ -34,6 +34,7 @@ KERNELS = (
     "persistent_decode",             # K16, form (n, layers, B, K)
     "all_to_all",                    # K17, form (role, n, T or zone rows, row bytes)
     "quant_pack",                    # K18, form (wire dtype, rows, H)
+    "overlap_probe",                 # K19, form (mode, m, n, k)
 )
 
 _counts = dict.fromkeys(KERNELS, 0)

@@ -17,7 +17,10 @@ between calls.  Landing slots (the ReduceScatter ring's receive slots, the
 one-shot AllReduce's per-source slots, the GEMM-RS and GEMM-AR chunk
 products) are views of one grow-only buffer per (team, family, dtype), as
 large as the largest call so far, so a server's varying row counts hold no
-more than that; outputs are fresh tensors per call.  Pads and slots are kept per CUDA stream as well, so collectives on
+more than that; outputs are fresh tensors per call.  A buffer may not grow
+while a CUDA graph is being captured (a graph captured earlier would address
+the freed one); a captured step keeps every pad and buffer alive
+(:func:`live_buffers`, ``tools/aot.py``).  Pads and slots are kept per CUDA stream as well, so collectives on
 two streams never share them.
 """
 
@@ -108,9 +111,20 @@ def landing(mesh: Mesh, axis: str, family: str, local_shape, dtype) -> Symmetric
     need = math.prod(local_shape)
     key = (*_team_key(mesh, axis), family, dtype)
     if key not in _landing or _landing[key].shape[1] < need:
+        if mesh.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            # a graph captured before would address the buffer this frees
+            raise RuntimeError(
+                f"landing buffer {family} grows to {need} elements during a CUDA graph "
+                "capture: run the step on the capture stream first (tools/aot.py)")
         _landing[key] = torch.empty((mesh.size, need), dtype=dtype, device=mesh.device)
     data = _landing[key][:, :need].unflatten(1, local_shape).unflatten(0, mesh.sizes)
     return SymmetricBuffer(data, mesh, axis, local_shape)
+
+
+def live_buffers() -> list[torch.Tensor]:
+    """Every pad and landing buffer made so far: what a CUDA graph holds on
+    to, so that a buffer its launches address outlives a later growth."""
+    return [p.data for p in _pads.values()] + list(_landing.values())
 
 
 def signal_pads() -> dict[tuple, SymmetricBuffer]:

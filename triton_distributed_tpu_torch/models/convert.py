@@ -98,7 +98,7 @@ def from_jax_params(params, config: ModelConfig, device=None, *,
 def from_jax_cache(cache, device=None, *, mesh: Mesh | None = None,
                    axis: str = TP_AXIS) -> KVCache | PagedKVCache:
     """The port's cache holding the same state as the JAX ``cache``: a
-    contiguous ``KVCache`` (its ``kv_len`` becomes a host int) or a
+    contiguous ``KVCache`` (its ``kv_len`` a 0-d int32 tensor on ``device``) or a
     ``PagedKVCache``, int8 pools and their scales included.  With ``mesh``
     (tp = n), the JAX cache's heads are cut n ways and rank-folded
     (``models/kv_cache.py``)."""
@@ -107,7 +107,7 @@ def from_jax_cache(cache, device=None, *, mesh: Mesh | None = None,
     if n > 1:
         k, v = (fold_heads(to_tensor(a, dev), n) for a in (cache.k, cache.v))
         if not hasattr(cache, "block_table"):
-            return KVCache(k=k, v=v, kv_len=int(np.asarray(cache.kv_len)))
+            return KVCache(k=k, v=v, kv_len=to_tensor(cache.kv_len, dev))
         if getattr(cache, "k_scale", None) is not None:
             raise NotImplementedError("int8 pages at tp > 1 are not ported yet")
         table = to_tensor(cache.block_table, dev).to(torch.int32)
@@ -122,4 +122,4 @@ def from_jax_cache(cache, device=None, *, mesh: Mesh | None = None,
             k_scale=to_tensor(getattr(cache, "k_scale", None), dev),
             v_scale=to_tensor(getattr(cache, "v_scale", None), dev))
     return KVCache(k=to_tensor(cache.k, dev), v=to_tensor(cache.v, dev),
-                   kv_len=int(np.asarray(cache.kv_len)))
+                   kv_len=to_tensor(cache.kv_len, dev))

@@ -1,21 +1,27 @@
 """Inference engine: prefill, then token-by-token decode, with a timed
-``serve`` (counterpart of ``triton_distributed_tpu/models/engine.py``).
+``serve`` and bucketed precompiled serving (counterpart of
+``triton_distributed_tpu/models/engine.py``).
 
 The JAX engine jits each step with the cache donated; PyTorch runs eagerly
-and the cache is updated in place, so a step here is a plain call.  Capturing
-the decode step in a CUDA graph, the observability spans, the flight
-recorder, request deadlines, AOT prompt buckets and ``scheduler()`` belong to
-later slices of the port.
+and the cache is updated in place, so a step here is a plain call.
+:meth:`Engine.precompile` is the counterpart of JAX's bucketed AOT serving
+(``engine.py:398-494``): on the card it captures one prefill per prompt
+bucket and the decode step as CUDA graphs (``tools/aot.py``), which then
+serve without running the model's Python; the graphs read the contiguous
+cache's length on the device.  The observability spans, the flight
+recorder, request deadlines and ``scheduler()`` belong to later slices of
+the port.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 
 import torch
 
-from ..core.mesh import Mesh
+from ..core.mesh import TP_AXIS, Mesh
 from .config import ModelConfig
 from .kv_cache import init_cache, init_paged_cache, reset
 from ..ops.persistent_decode import stack_decode_params
@@ -42,6 +48,52 @@ def sample_token(logits: torch.Tensor, generator: torch.Generator | None = None,
     return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
 
 
+def arch_fingerprint(config: ModelConfig, mesh: Mesh | None, axis: str = TP_AXIS) -> dict:
+    """JSON-safe identity of (model architecture, mesh topology), as JAX's
+    (``engine.py:57-76``): every ModelConfig field (the dtype by its name,
+    ``"bfloat16"``), the mesh's axis sizes (``{axis: 1}`` without a mesh)
+    and the tp axis.  Saved in the manifest and compared at load."""
+    cfg = {}
+    for f in dataclasses.fields(config):
+        v = getattr(config, f.name)
+        cfg[f.name] = str(v).removeprefix("torch.") if f.name == "dtype" else v
+    sizes = {axis: 1} if mesh is None else {str(a): int(n) for a, n in mesh.shape.items()}
+    return {"model_config": cfg, "mesh": sizes, "axis": str(axis)}
+
+
+def check_arch(manifest: dict, have: dict) -> None:
+    """Raise ValueError naming every differing fingerprint field
+    (``engine.py:79-97``).  A manifest without ``arch`` passes: the coarse
+    batch/vocab/max_length checks still apply to it."""
+    want = manifest.get("arch")
+    if want is None or want == have:
+        return
+    diffs = []
+    w_cfg, h_cfg = want.get("model_config", {}), have.get("model_config", {})
+    for k in sorted(set(w_cfg) | set(h_cfg)):
+        if w_cfg.get(k) != h_cfg.get(k):
+            diffs.append(f"model.{k}: bundle={w_cfg.get(k)!r} engine={h_cfg.get(k)!r}")
+    for k in ("mesh", "axis"):
+        if want.get(k) != have.get(k):
+            diffs.append(f"{k}: bundle={want.get(k)!r} engine={have.get(k)!r}")
+    raise ValueError(
+        "AOT bundle was compiled for a different model architecture / mesh "
+        "topology: " + "; ".join(diffs or ["<unstructured fingerprint>"]))
+
+
+@dataclasses.dataclass
+class _Precompiled:
+    """The state :meth:`Engine.precompile` leaves: the buckets, and on the
+    card the graphs (prefill per bucket, the decode step), the parameters
+    they read and their memory pool.  On the CPU the graphs are None and the
+    dispatch runs the padded steps eagerly."""
+
+    buckets: list[int]
+    params: object
+    prefill: dict | None = None
+    decode: object = None
+
+
 @dataclasses.dataclass
 class Engine:
     """Owns the model, its parameters and the KV cache.
@@ -64,6 +116,7 @@ class Engine:
 
     def __post_init__(self):
         self._stacked = None
+        self._aot: _Precompiled | None = None
         c = self.model.config
         dev, tp = self.model.device, self.model.tp
         if self.cache_layout == "paged":
@@ -120,6 +173,8 @@ class Engine:
         m = self.model
         self.model = Qwen3(m.config, device=m.device, decode_mode=mode,
                            mesh=m.mesh, axis=m.axis)
+        # the graphs hold the old mode's launches: precompile again
+        self._aot = None
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -141,15 +196,151 @@ class Engine:
         if plen > self.model.config.max_length:
             raise ValueError(f"prompt length {plen} exceeds max_length="
                              f"{self.model.config.max_length}")
+        input_ids = input_ids.to(self.device)
+        bucket = self._bucket(plen)
+        if bucket is not None:
+            return self._prefill_bucket(input_ids, bucket)
         reset(self.cache)
-        logits, self.cache = self.model.prefill(self.params, self.cache,
-                                                input_ids.to(self.device))
+        logits, self.cache = self.model.prefill(self.params, self.cache, input_ids)
         return logits[:, -1]
 
     def decode_step(self, tokens: torch.Tensor) -> torch.Tensor:
-        logits, self.cache = self.model.decode(self.params, self.cache,
-                                               tokens.to(self.device), stacked=self.stacked())
+        tokens = tokens.to(self.device)
+        if self._aot is not None and self._aot.decode is not None:
+            self._check_aot_params()
+            return self._aot.decode(tokens.to(torch.int32)).clone()
+        logits, self.cache = self.model.decode(self.params, self.cache, tokens,
+                                               stacked=self.stacked())
         return logits
+
+    # -- bucketed precompiled serving ---------------------------------------
+
+    _MANIFEST = "aot_manifest.json"
+
+    def _bucket(self, plen: int) -> int | None:
+        """The smallest precompiled bucket >= ``plen``; None without buckets
+        or past the largest (that prompt runs the eager path, as JAX's falls
+        through to jit)."""
+        if self._aot is None:
+            return None
+        return min((b for b in self._aot.buckets if b >= plen), default=None)
+
+    def _check_aot_params(self) -> None:
+        if self.params is not self._aot.params:
+            raise RuntimeError("the engine's parameters were replaced after precompile: "
+                               "the graphs read the old ones; call precompile again")
+
+    def _padded_prefill(self, ids: torch.Tensor, true_len: torch.Tensor) -> torch.Tensor:
+        """The bucket step: prefill of the right-padded ``ids`` with the
+        cache length set to ``true_len`` (a device scalar), and the logits at
+        ``true_len - 1`` gathered on the device: (B, V) f32."""
+        logits, _ = self.model.prefill(self.params, self.cache, ids, true_len)
+        return logits.index_select(1, (true_len - 1).reshape(1).long())[:, 0]
+
+    def _prefill_bucket(self, input_ids: torch.Tensor, bucket: int) -> torch.Tensor:
+        b, plen = input_ids.shape
+        ids = torch.nn.functional.pad(input_ids.to(torch.int32), (0, bucket - plen))
+        true_len = torch.full((), plen, dtype=torch.int32, device=self.device)
+        graphs = self._aot.prefill
+        if graphs is None:   # the caller's CPU engine: the padded step, eagerly
+            return self._padded_prefill(ids, true_len)
+        self._check_aot_params()
+        return graphs[bucket](ids, true_len).clone()
+
+    def _manifest(self) -> dict:
+        c = self.model.config
+        return {"buckets": list(self._aot.buckets), "batch": self.batch,
+                "max_length": c.max_length, "vocab": c.vocab,
+                "decode_mode": self.model.decode_mode, "cache_layout": self.cache_layout,
+                "arch": arch_fingerprint(c, self.model.mesh, self.model.axis)}
+
+    def precompile(self, prompt_buckets, save_dir: str | None = None) -> dict:
+        """Capture prefill for each prompt-length bucket and the decode step
+        as CUDA graphs (JAX ``engine.py:398-463`` compiles them ahead of
+        time); with ``save_dir`` write the manifest there.  Returns the
+        manifest.
+
+        A prompt is then right-padded to the smallest bucket >= its length
+        and replayed with its true length as a device scalar (the cache
+        length is set to it, the logits at ``true_len - 1`` gathered on the
+        device), so one graph is exact for every length it covers; a longer
+        prompt runs the eager path.  The contiguous layout only, as JAX's;
+        dense models only.  On an engine the caller put on the CPU the
+        buckets are recorded and the padded steps run eagerly.  On CUDA a
+        capture that fails raises ``NotImplementedError`` naming the mode
+        and the error; nothing is served eagerly in its place."""
+        if self.cache_layout != "contiguous":
+            raise ValueError("bucketed AOT serving supports the contiguous cache layout")
+        c = self.model.config
+        if c.is_moe:
+            raise NotImplementedError("precompile of a MoE model is not ported yet (ROADMAP A8)")
+        buckets = sorted(set(int(x) for x in prompt_buckets))
+        if not buckets or buckets[0] < 1 or buckets[-1] > c.max_length:
+            raise ValueError(f"buckets must be within [1, max_length={c.max_length}]; "
+                             f"got {buckets}")
+        self._aot = None
+        self._aot = self._capture(buckets)
+        manifest = self._manifest()
+        if save_dir is not None:
+            from ..tools import aot
+
+            os.makedirs(save_dir, exist_ok=True)
+            aot.save(manifest, os.path.join(save_dir, self._MANIFEST))
+        return manifest
+
+    def load_precompiled(self, save_dir: str) -> dict:
+        """Serve the buckets of a manifest :meth:`precompile` saved (JAX
+        ``engine.py:465-494``), in another process: the fields and the
+        architecture are checked first (a mismatch raises ValueError naming
+        the field), then the graphs are captured, on kernels already built.
+        Returns the manifest."""
+        from ..tools import aot
+
+        manifest = aot.load(os.path.join(save_dir, self._MANIFEST))
+        c = self.model.config
+        mine = {"batch": self.batch, "max_length": c.max_length, "vocab": c.vocab,
+                "decode_mode": self.model.decode_mode, "cache_layout": self.cache_layout}
+        for field, have in mine.items():
+            want = manifest.get(field)
+            if want != have:
+                raise ValueError(f"AOT bundle was compiled for {field}={want!r}; this "
+                                 f"engine has {field}={have!r}")
+        check_arch(manifest, arch_fingerprint(c, self.model.mesh, self.model.axis))
+        self.precompile(manifest["buckets"])
+        return manifest
+
+    def _capture(self, buckets: list[int]) -> _Precompiled:
+        """The graphs of ``buckets`` and of the decode step, on one capture
+        stream and one memory pool, the largest bucket first: a step's
+        warm-up then never grows a buffer that a graph captured before it
+        addresses (and each graph holds the ones it does)."""
+        pre = _Precompiled(buckets=buckets, params=self.params)
+        if self.device.type != "cuda":
+            return pre
+        from ..tools import aot
+
+        b, dev = self.batch, self.device
+        stream, pool = torch.cuda.Stream(dev), torch.cuda.graph_pool_handle()
+        what = "prefill"
+        try:
+            pre.prefill = {}
+            for L in sorted(buckets, reverse=True):
+                what = f"prefill bucket {L}"
+                pre.prefill[L] = aot.Captured(
+                    self._padded_prefill,
+                    [torch.zeros((b, L), dtype=torch.int32, device=dev),
+                     torch.full((), L, dtype=torch.int32, device=dev)], pool, stream)
+            what = "the decode step"
+            pre.decode = aot.Captured(
+                lambda t: self.model.decode(self.params, self.cache, t)[0],
+                [torch.zeros((b,), dtype=torch.int32, device=dev)], pool, stream)
+        except RuntimeError as e:
+            raise NotImplementedError(
+                f"CUDA-graph capture of {what} in decode_mode {self.model.decode_mode!r} at "
+                f"tp = {self.model.tp} failed: {e}") from e
+        finally:
+            reset(self.cache)
+        return pre
 
     def decode_multi(self, tokens: torch.Tensor, steps: int) -> torch.Tensor:
         """``steps`` greedy steps with the argmax fed back on the device

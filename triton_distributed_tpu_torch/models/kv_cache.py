@@ -4,7 +4,10 @@ Counterpart of ``triton_distributed_tpu/models/kv_cache.py`` at tp = 1, with
 the same two layouts:
 
 - :class:`KVCache`: contiguous (L, B, Hkv, max_len, D) blocks and one shared
-  length ``kv_len`` (every sequence the same age).
+  length ``kv_len`` (every sequence the same age), a 0-d int32 tensor on the
+  cache's device as JAX's ``()`` int32 array is.  It is written in place and
+  never read back to the host, so a CUDA graph that captures a step reads
+  the length of each replay (``tools/aot.py``).
 - :class:`PagedKVCache`: a physical page pool (L, P, Hkv, page_size, D), a
   per-sequence ``block_table`` (B, max_pages) int32 and ragged ``seq_lens``
   (B,) int32.  Decode reads it through the block-table kernels
@@ -64,11 +67,18 @@ class PagePoolExhausted(RuntimeError):
 @dataclasses.dataclass
 class KVCache:
     """k/v: (L, B, Hkv, max_len, D); kv_len: valid positions, shared by all
-    layers and sequences (a host int: it never needs a device read)."""
+    layers and sequences, a 0-d int32 tensor on k's device.  The length
+    given here (an int, a tensor, or None for 0) is copied, so two caches
+    never share one (``dataclasses.replace`` included); the writes below
+    update it in place."""
 
     k: torch.Tensor
     v: torch.Tensor
-    kv_len: int = 0
+    kv_len: torch.Tensor | None = None
+
+    def __post_init__(self):
+        n = 0 if self.kv_len is None else self.kv_len
+        self.kv_len = torch.as_tensor(n, dtype=torch.int32).to(self.k.device).reshape(()).clone()
 
 
 @dataclasses.dataclass
@@ -357,8 +367,11 @@ def append_token(cache, layer: int, k_tok: torch.Tensor,
         cache.k[layer][pages, :, offs] = k_tok.to(cache.k.dtype)
         cache.v[layer][pages, :, offs] = v_tok.to(cache.v.dtype)
     else:
-        cache.k[layer, :, :, cache.kv_len] = k_tok
-        cache.v[layer, :, :, cache.kv_len] = v_tok
+        # a 0-d tensor index would be read back to the host: index_copy_
+        # takes the position as a (1,) device index
+        pos = cache.kv_len.reshape(1).long()
+        cache.k[layer].index_copy_(2, pos, k_tok.to(cache.k.dtype).unsqueeze(2))
+        cache.v[layer].index_copy_(2, pos, v_tok.to(cache.v.dtype).unsqueeze(2))
     return cache
 
 
@@ -382,23 +395,24 @@ def append_paged(cache: PagedKVCache, layer: int, k_tok: torch.Tensor,
 
 
 def advance(cache, steps: int):
+    """Add ``steps`` to the length(s), in place."""
     if isinstance(cache, PagedKVCache):
         cache.seq_lens += steps
     else:
-        cache.kv_len += int(steps)
+        cache.kv_len += steps
     return cache
 
 
 def with_length(cache, length):
-    """Set the valid length(s).  For a paged cache a scalar broadcasts to
-    every sequence and a (B,) tensor sets ragged lengths."""
-    if isinstance(cache, PagedKVCache):
-        if isinstance(length, torch.Tensor):
-            cache.seq_lens.copy_(length.to(torch.int32).expand_as(cache.seq_lens))
-        else:
-            cache.seq_lens.fill_(int(length))
+    """Set the valid length(s), in place.  ``length`` is an int or a tensor
+    (a device scalar included: nothing is read back to the host).  For a
+    paged cache a scalar broadcasts to every sequence and a (B,) tensor sets
+    ragged lengths."""
+    lens = cache.seq_lens if isinstance(cache, PagedKVCache) else cache.kv_len
+    if isinstance(length, torch.Tensor):
+        lens.copy_(length.to(torch.int32).expand_as(lens))
     else:
-        cache.kv_len = int(length)
+        lens.fill_(int(length))
     return cache
 
 

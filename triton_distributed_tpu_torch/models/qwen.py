@@ -276,12 +276,18 @@ class Qwen3(nn.Module):
     # -- prefill ----------------------------------------------------------
 
     @torch.no_grad()
-    def prefill(self, params: QwenParams, cache, input_ids: torch.Tensor):
+    def prefill(self, params: QwenParams, cache, input_ids: torch.Tensor,
+                true_len: torch.Tensor | int | None = None):
         """Forward all prompt tokens and fill the cache.  ``input_ids``:
         (B, S).  Returns (f32 logits (B, S, V), cache) with the cache length
-        set to S."""
+        set to S, or to ``true_len`` (``qwen.py:311-350``): the real prompt
+        length when ``input_ids`` is right-padded to a bucket
+        (``Engine.precompile``), an int or a device scalar.  Attention is
+        causal, so the pads change no logit before ``true_len``, and the
+        length masks the K/V they wrote: the next decode step overwrites
+        position ``true_len``."""
         if self.tp > 1:
-            return self._prefill_tp(params, cache, input_ids)
+            return self._prefill_tp(params, cache, input_ids, true_len)
         c = self.config
         b, s = input_ids.shape
         x = params.embed[input_ids.reshape(-1).to(self.device)]
@@ -302,9 +308,9 @@ class Qwen3(nn.Module):
             x = x + torch.matmul(out, lp.attn.wo)
             x = x + self._mlp_forward(lp.mlp, rms_norm(x, lp.ln2, c.rms_eps))
         logits = self._finish(params, x)
-        return logits.reshape(b, s, c.vocab), with_length(cache, s)
+        return logits.reshape(b, s, c.vocab), with_length(cache, s if true_len is None else true_len)
 
-    def _prefill_tp(self, params: QwenParams, cache, input_ids: torch.Tensor):
+    def _prefill_tp(self, params: QwenParams, cache, input_ids: torch.Tensor, true_len=None):
         """Prefill at tp = n (``qwen.py:273-309, 322-351``): the B S rows
         row-sharded over the ranks; per layer AG-GEMM (qkv), the ranks'
         qk-norm, RoPE and flash attention in one launch over the rank-folded
@@ -332,7 +338,7 @@ class Qwen3(nn.Module):
             x = x + gemm_rs(out, lp.attn.wo, mesh, self.axis)
             x = x + self._mlp_forward(lp.mlp, rms_norm(x, lp.ln2, c.rms_eps))
         logits = self._finish(params, unshard(mesh, x, self.axis))
-        return logits.reshape(b, s, c.vocab), with_length(cache, s)
+        return logits.reshape(b, s, c.vocab), with_length(cache, s if true_len is None else true_len)
 
     # -- decode -----------------------------------------------------------
 
@@ -462,9 +468,8 @@ class Qwen3(nn.Module):
                 # per-sequence ragged positions (qwen.py:558)
                 pos = cache.seq_lens.to(torch.float32)[:, None, None]   # (B, 1, 1)
             else:
-                # one shared position (qwen.py:481)
-                pos = torch.full((1,), cache.kv_len, dtype=torch.float32,
-                                 device=self.device)
+                # one shared position (qwen.py:481), read on the device
+                pos = cache.kv_len.to(torch.float32).reshape(1)
             cos, sin = rope_freqs(pos, c.head_dim, theta=c.rope_theta)
         x = params.embed[tokens.to(self.device)]
         for li, lp in enumerate(params.layers):
