@@ -61,23 +61,30 @@ Phases, each printing JSON lines; any failure exits non-zero:
                ranks' bytes, the NVLink time four cards would take (not
                measured), the plain version and one PyTorch call.
    overlap  -- K12-K14 (AllGather-GEMM both rings, GEMM-ReduceScatter,
-               GEMM-AllReduce) on co-located ranks: n 2, 3, 4; f32, bf16 and
-               bf16 -> f32; a rank's product of 1, 37 and 130 rows by K 136-1032
-               by N 136-264, off the tile on every edge; each call bitwise
-               equal to its chain (K9 then K6, K6 then K10, K6 then K11's
-               two-shot), within a stated limit of its plain version (the
-               schedule walked with PyTorch ops; overlap_limit charges each
-               rounding at the size of the value rounded), shown to reject a
-               result with one rank's partial left out or one chunk taken from
-               another rank by FAULT_MARGIN limits; the gathered A bitwise,
-               every pad at rest; interleaved repeats.  A child
-               process runs a K12 in which one rank never credits its puts: it
-               must fail by name, as the gather's does.  Then the main rows at
-               Qwen3-8B tp = 4 (prefill qkv, gate_up, o, down at 4 x 1024 rows;
-               decode o and down at 4 rows), timed beside the bound
-               (obs/costs.py's operations over all ranks, the function's
-               bytes), the plain version, the chain and one torch.matmul of
-               the whole unsharded product.
+               GEMM-AllReduce in its ring and its one-shot form) on co-located
+               ranks: n 2, 3, 4; f32, bf16 and bf16 -> f32; a rank's product
+               of 1, 37 and 130 rows by K 136-1032 by N 136-264, off the tile
+               on every edge; each call bitwise equal to its chain (K9 then
+               K6, K6 then K10, K6 then K11's two-shot; K14's one-shot: the
+               slot-order f32 sum of its own rounded partials), within a
+               stated limit of its plain version (the schedule walked with
+               PyTorch ops; overlap_limit charges each rounding at the size of
+               the value rounded), shown to reject a result with one rank's
+               partial left out, one chunk taken from another rank (the
+               rings) or one slot added twice (the one-shot) by FAULT_MARGIN
+               limits; the gathered A bitwise, every pad at rest; interleaved
+               repeats.  A child process runs a K12 in which one rank never
+               credits its puts: it must fail by name, as the gather's does.
+               Then the main rows at Qwen3-8B tp = 4 (prefill qkv, gate_up, o,
+               down at 4 x 1024 rows; decode o and down at 4 rows, K14's
+               one-shot, its ring form timed in turns beside it), timed beside
+               the bound (obs/costs.py's operations over all ranks, the
+               function's bytes), the plain version, the chain and one
+               torch.matmul of the whole unsharded product.  K15 (phase
+               fused_tp, after overlap) likewise: both bodies in both forms at
+               the edges, then the main rows (the one-shot, the ring timed in
+               turns beside it); a stalled-rank child runs K15's one-shot,
+               whose waits are at device scope: it must fail by name too.
 4. serve    -- Qwen3-8B at full width and depth with seeded random weights,
                batch 4, max_length 2048: two requests of 1024 prompt tokens and 64
                new tokens in five modes (contiguous, paged, paged + fused,
@@ -1548,9 +1555,11 @@ def phase_collective_cases(tt, torch) -> None:
 
 def stalled_rank_child(kernel: str) -> int:
     """Run in a child process by phase_wait_bound: a two-rank gather (K9's
-    one-way ring), AG-GEMM (K12's), K16 step or EP dispatch (K17) in which
-    rank 1 never credits its puts, so a wait runs out and the launch fails.  Exits non-zero
-    through the uncaught error, which names the rank and the flag."""
+    one-way ring), AG-GEMM (K12's), K16 step, EP dispatch (K17) or K15's
+    one-shot o-projection (its device-scope waits) in which rank 1 never
+    credits its puts, so a wait runs out and the launch fails.  Exits
+    non-zero through the uncaught error, which names the rank and the
+    flag."""
     import torch
 
     from triton_distributed_tpu_torch.comm import AllGatherMethod
@@ -1581,6 +1590,13 @@ def stalled_rank_child(kernel: str) -> int:
     elif kernel == "ag_gemm":
         w = torch.ones(2, 64, 64, device="cuda")
         _ag_gemm(x, w, mesh, "tp", torch.float32, bidir=False, stall_rank=1)
+    elif kernel == "fused_ar":
+        from triton_distributed_tpu_torch.comm.allreduce import AllReduceMethod
+        from triton_distributed_tpu_torch.ops.fused_decode import _launch_ar
+
+        w = torch.ones(2, 64, 64, device="cuda")
+        _launch_ar(False, x, None, w, mesh, "tp", torch.float32, AllReduceMethod.ONE_SHOT,
+                   stall_rank=1)
     else:
         _all_gather(x, mesh, "tp", AllGatherMethod.RING_1D, stall_rank=1)
     try:
@@ -1593,7 +1609,7 @@ def stalled_rank_child(kernel: str) -> int:
     return 0
 
 
-STALL_KERNELS = ("all_gather", "ag_gemm", "persistent_decode", "all_to_all")
+STALL_KERNELS = ("all_gather", "ag_gemm", "persistent_decode", "all_to_all", "fused_ar")
 # the (rank, flag) a stalled child must name: K16's rank 1 credits none of
 # its ring puts, so rank 0 waits on its first ReduceScatter arrival, or rank
 # 1, past its own ReduceScatter, on its first AllGather arrival, whichever
@@ -1601,13 +1617,15 @@ STALL_KERNELS = ("all_gather", "ag_gemm", "persistent_decode", "all_to_all")
 STALL_NAMES = {"all_gather": (("rank 0 ", "recv[1]"),), "ag_gemm": (("rank 0 ", "recv[1]"),),
                "persistent_decode": (("rank 0 ", "rs_recv[0]"), ("rank 1 ", "recv[0]")),
                # K17: rank 1 credits none of its puts, its own zone's included
-               "all_to_all": (("rank 0 ", "recv[1]"), ("rank 1 ", "recv[1]"))}
+               "all_to_all": (("rank 0 ", "recv[1]"), ("rank 1 ", "recv[1]")),
+               # K15's one-shot: rank 0 waits on rank 1's push
+               "fused_ar": (("rank 0 ", "recv[1]"),)}
 
 
 def phase_wait_bound(torch, kernels=STALL_KERNELS) -> None:
     """A wait cannot hang the run: each child's stalled launch (K9's gather,
-    K12's AG-GEMM, K16) must fail by name (STALL_NAMES) within the bounded
-    wait, and this process's context carries on."""
+    K12's AG-GEMM, K16, K17, K15's one-shot) must fail by name (STALL_NAMES)
+    within the bounded wait, and this process's context carries on."""
     import subprocess
 
     for kernel in kernels:
@@ -1856,11 +1874,26 @@ def overlap_share(torch, got, want, limit) -> float:
     return float((err / limit.clamp_min(1e-30)).max()) if err.numel() else 0.0
 
 
+def rotating(calls):
+    """A thunk that runs ``calls`` in turn, one a call (the same kernel on
+    weight copies that together exceed the L2, for a cold-weight time)."""
+    turn = [0]
+
+    def thunk():
+        turn[0] = (turn[0] + 1) % len(calls)
+        return calls[turn[0]]()
+
+    return thunk
+
+
 def overlap_calls(torch, mesh, a, b, a_rs, b_rs, out_dtype) -> list:
     """(label, kernel thunk, plain thunk, chain thunk, limit, faults) of
     every overlapped GEMM on these operands: K12 both rings (C and the
-    gathered A), K13 and K14.  The chains: K9 then K6 per rank; K6 per rank
-    then K10; K6 per rank then K11's two-shot."""
+    gathered A), K13 and K14 in both forms, each forced through the private
+    entry.  The chains: K9 then K6 per rank; K6 per rank then K10; K6 per
+    rank then K11's two-shot (K14's ring); for K14's one-shot, the
+    slot-order f32 sum of the kernel's own rounded partials (its product
+    entries, read back), so "bitwise to its chain" holds its exchange."""
     from triton_distributed_tpu_torch import comm
     from triton_distributed_tpu_torch.ops import ag_gemm as AG
     from triton_distributed_tpu_torch.ops import gemm_ar as AR
@@ -1890,11 +1923,17 @@ def overlap_calls(torch, mesh, a, b, a_rs, b_rs, out_dtype) -> list:
                   lambda: RS.gemm_rs_ref(a_rs, b_rs, mesh, out_dtype=out_dtype),
                   lambda: comm.reduce_scatter(k6(a_rs, b_rs), mesh),
                   *rs_check(torch, a_rs, b_rs, out_dtype, replicated=False)))
-    calls.append(("gemm_ar/ring", lambda: AR.gemm_ar(a_rs, b_rs, mesh, out_dtype=out_dtype),
-                  lambda: AR.gemm_ar_ref(a_rs, b_rs, mesh, out_dtype=out_dtype),
-                  lambda: comm.all_reduce(k6(a_rs, b_rs), mesh,
-                                          method=comm.AllReduceMethod.TWO_SHOT),
+    ring, one = comm.AllReduceMethod.TWO_SHOT, comm.AllReduceMethod.ONE_SHOT
+    calls.append(("gemm_ar/ring", lambda: AR._gemm_ar(a_rs, b_rs, mesh, "tp", out_dtype, ring),
+                  lambda: AR.gemm_ar_ref(a_rs, b_rs, mesh, out_dtype=out_dtype, method=ring),
+                  lambda: comm.all_reduce(k6(a_rs, b_rs), mesh, method=ring),
                   *rs_check(torch, a_rs, b_rs, out_dtype, replicated=True)))
+    m, cols = a_rs.shape[-2], b_rs.shape[-1]
+    calls.append(("gemm_ar/one_shot", lambda: AR._gemm_ar(a_rs, b_rs, mesh, "tp", out_dtype, one),
+                  lambda: AR.gemm_ar_ref(a_rs, b_rs, mesh, out_dtype=out_dtype, method=one),
+                  lambda: slot_sum(torch, own_partials(torch, mesh, m, cols, out_dtype),
+                                   out_dtype).expand(n, -1, -1),
+                  *oneshot_check(torch, a_rs.float(), b_rs.float(), out_dtype, mesh)))
     return calls
 
 
@@ -1990,18 +2029,25 @@ OVERLAP_MAIN = (
 
 
 def overlap_form(kind: str, n: int, m: int, k: int, cols: int) -> tuple:
-    """The launch counter's form of a main row (ops/*.py count())."""
+    """The launch counter's form of a main row (ops/*.py count()): K14's at
+    decode is the one-shot."""
     if kind == "ag_gemm":
         return ("bidir", n, (m // n, k), (k, cols // n))
-    return ("ring", n, (m, k // n), (k // n, cols))
+    return ("one_shot" if kind == "gemm_ar" else "ring", n, (m, k // n), (k // n, cols))
 
 
 def overlap_main_rows(tt, torch) -> dict:
     """K12-K14 at the Qwen3-8B tp = 4 shapes, bf16: each against its chain
-    (bitwise) and its plain version (within the limit), timed beside its
-    bound (obs/costs.py's operations over all ranks, the function's bytes),
-    its plain version, its chain and one torch.matmul of the whole unsharded
-    product (the work the ranks do together)."""
+    (bitwise; K14, whose decode rows run the one-shot form, within the
+    limit of its chain and bitwise the slot-order sum of its own partials,
+    with its planted faults) and its plain version (within the limit),
+    timed beside its bound (obs/costs.py's operations over all ranks, the
+    function's bytes), its plain version, its chain and one torch.matmul of
+    the whole unsharded product (the work the ranks do together).  K14's
+    ring form is forced through the private entry at the same shapes, held
+    bitwise to its chain and within its limit, and timed in turns with the
+    one-shot (``ring_ms``); at the o-projection, whose weights fit in the
+    L2, both are also timed cycling through four weight copies."""
     from triton_distributed_tpu_torch import comm
     from triton_distributed_tpu_torch.core.mesh import make_mesh
     from triton_distributed_tpu_torch.core.utils import perf_func
@@ -2012,6 +2058,7 @@ def overlap_main_rows(tt, torch) -> dict:
     from triton_distributed_tpu_torch.ops.matmul import matmul
 
     n, bf = COLL_TP, torch.bfloat16
+    one, ring = comm.AllReduceMethod.ONE_SHOT, comm.AllReduceMethod.TWO_SHOT
     mesh = make_mesh({"tp": n})
     gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
     rows = {}
@@ -2042,35 +2089,84 @@ def overlap_main_rows(tt, torch) -> dict:
             plain = lambda a=a, b=b, ref=ref: ref(a, b, mesh)
             if kind == "gemm_rs":
                 chain = lambda a=a, b=b: comm.reduce_scatter(k6(a, b), mesh)
+                limit, _ = rs_check(torch, a, b, bf, replicated=False)
             else:
-                chain = lambda a=a, b=b: comm.all_reduce(
-                    k6(a, b), mesh, method=comm.AllReduceMethod.TWO_SHOT)
+                # the chain the "ar" path runs: K6 per rank, then K11 by its
+                # size rule (the one-shot here)
+                chain = lambda a=a, b=b: comm.all_reduce(k6(a, b), mesh)
+                limit, faults = oneshot_check(torch, a.float(), b.float(), bf, mesh)
             whole = (a.permute(1, 0, 2).reshape(m, k), b.reshape(k, cols))
-            limit, _ = rs_check(torch, a, b, bf, replicated=kind == "gemm_ar")
-            cost = getattr(costs, kind)(m // n, k // n, cols, n, bf)
+            cost = getattr(costs, kind)(m // n, k // n, cols, n, bf,
+                                        **({"one_shot": True} if kind == "gemm_ar" else {}))
             out_rows = m // n if kind == "gemm_rs" else m
             fn_bytes = nbytes(a, b) + n * out_rows * cols * 2
-        got, want, link = kern(), plain(), chain()
+        extra = {}
+        got, want = kern(), plain()
         torch.cuda.synchronize()
-        check(torch.equal(got, link), f"{name}: the kernel differs from its chain")
+        if kind == "gemm_ar":
+            check(AR._method(a, b, mesh, "tp", bf, comm.AllReduceMethod.AUTO) == one,
+                  f"{name}: the size rule did not pick the one-shot at decode")
+            check_own_reduction(torch, mesh, got, bf, name)
+            bad = {key: overlap_share(torch, t, want, limit) for key, t in faults(got).items()}
+            for key, v in bad.items():
+                check(v >= FAULT_MARGIN, f"{name}: the planted fault {key} is only {v:.3g} "
+                                         "of the limit from the plain version")
+            link = chain()
+            extra.update(reduction_bitwise=True, faulty_share_of_limit=bad,
+                         worst_share_vs_chain=overlap_share(torch, got, link, limit))
+            check(extra["worst_share_vs_chain"] <= 1.0, f"{name}: beyond its limit of its chain")
+            # the ring form, forced: bitwise its chain (K6 then K11's two-shot),
+            # within its limit of its plain version
+            ring_kern = lambda a=a, b=b: AR._gemm_ar(a, b, mesh, "tp", bf, ring)  # noqa: E731
+            got_r, want_r = ring_kern(), AR.gemm_ar_ref(a, b, mesh, method=ring)
+            link_r = comm.all_reduce(k6(a, b), mesh, method=ring)
+            torch.cuda.synchronize()
+            check(torch.equal(got_r, link_r), f"{name}: the ring form differs from its chain")
+            r_limit, _ = rs_check(torch, a, b, bf, replicated=True)
+            extra["ring_worst_share_of_limit"] = overlap_share(torch, got_r, want_r, r_limit)
+            check(extra["ring_worst_share_of_limit"] <= 1.0,
+                  f"{name}: the ring form is beyond its limit of its plain version")
+            del got_r, want_r, link_r, r_limit
+        else:
+            link = chain()
+            torch.cuda.synchronize()
+            check(torch.equal(got, link), f"{name}: the kernel differs from its chain")
         share = overlap_share(torch, got, want, limit)
         check(share <= 1.0, f"{name}: {share:.3g} of its limit from its plain version")
+        check(pads_at_rest(), f"{name}: a signal pad is not at rest after the call")
         err = (got.float() - want.float()).abs().max().item()
         del got, want, link, limit
-        _, ms = perf_func(kern, iters=20)
+        if kind == "gemm_ar":
+            # the one-shot and the ring in turns: one-shot, ring, ring, one-shot
+            t = [perf_func(fn, iters=20)[1] for fn in (kern, ring_kern, ring_kern, kern)]
+            ms = (t[0] + t[3]) / 2
+            extra.update(ring_ms=(t[1] + t[2]) / 2, ms_runs=[t[0], t[3]],
+                         ring_ms_runs=[t[1], t[2]])
+            if b.numel() * 2 < 50e6:   # the ranks' weights fit in the L2: also cold
+                bs = [b] + [b.clone() for _ in range(3)]
+                cold = (rotating([lambda w=w, a=a: AR.gemm_ar(a, w, mesh) for w in bs]),
+                        rotating([lambda w=w, a=a: AR._gemm_ar(a, w, mesh, "tp", bf, ring)
+                                  for w in bs]))
+                t = [perf_func(fn, iters=20)[1] for fn in (cold[0], cold[1], cold[1], cold[0])]
+                extra.update(ms_rotating_weights=(t[0] + t[3]) / 2,
+                             ring_ms_rotating_weights=(t[1] + t[2]) / 2)
+                del bs, cold
+        else:
+            _, ms = perf_func(kern, iters=20)
         _, plain_ms = perf_func(plain, iters=3)
         _, chain_ms = perf_func(chain, iters=20)
         _, lib_ms = perf_func(lambda w=whole: torch.matmul(*w), iters=20)
         flops = n * cost.flops
         bound_ms, bound_by = bound(flops, fn_bytes, H100_BF16_FLOPS)
         rows[name] = dict(
-            name=name, route="cuda", source=OVERLAP_SOURCE, replaces=replaces,
-            max_abs_err=err, worst_share_of_limit=share, ms=ms, plain_ms=plain_ms,
+            name=name, route="cuda", source=(FUSED_AR_SOURCE if kind == "gemm_ar"
+                                             else OVERLAP_SOURCE), replaces=replaces,
+            max_abs_err=err, worst_share_of_limit=share, ms=ms, **extra, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
             library="torch.matmul of the whole unsharded product", chain_ms=chain_ms,
             chain={"ag_gemm": "K9 two-way ring then K6 per rank",
                    "gemm_rs": "K6 per rank then K10",
-                   "gemm_ar": "K6 per rank then K11 two-shot"}[kind],
+                   "gemm_ar": "K6 per rank then K11 (one-shot)"}[kind],
             flops=flops, function_bytes=fn_bytes, shape=f"n={n} M={m} K={k} N={cols} bf16",
             counter=kind, form=overlap_form(kind, n, m, k, cols))
         del a, b, whole
@@ -2196,49 +2292,117 @@ def ring_check(torch, a, wf, out_dtype):
     return limit, faults
 
 
-def k15_check(torch, form: str, act, w, out_dtype, gate_up=None, chain_act=None, mesh=None):
+def own_partials(torch, mesh, m: int, cols: int, out_dtype):
+    """The rounded partials (n, M, N) that the last one-shot launch of K15
+    (K14's one-shot form included) on ``mesh`` pushed: its product entries,
+    which the call leaves as it wrote them."""
+    from triton_distributed_tpu_torch.core import symm
+
+    n = mesh.shape["tp"]
+    return symm.landing(mesh, "tp", "fused_ar_mm", (1, m * cols), out_dtype).data.reshape(
+        n, m, cols)
+
+
+def slot_sum(torch, parts, out_dtype, twice=None):
+    """K11's one-shot fold of the partials (n, M, N): their f32 sum in slot
+    order, rounded once to out_dtype.  ``twice``: that slot added a second
+    time (a planted fault)."""
+    acc = parts[0].float()
+    for i in range(1, parts.shape[0]):
+        acc = acc + parts[i].float()
+        if i == twice:
+            acc = acc + parts[i].float()
+    return acc.to(out_dtype)
+
+
+def check_own_reduction(torch, mesh, got, out_dtype, what: str) -> None:
+    """The one-shot form's result (each rank's copy, rank-stacked, or the
+    (M, N) one) bitwise the slot-order f32 sum of the kernel's own rounded
+    partials."""
+    m, cols = got.shape[-2:]
+    want = slot_sum(torch, own_partials(torch, mesh, m, cols, out_dtype), out_dtype)
+    check(got.dtype == out_dtype and torch.equal(got, want.expand_as(got)),
+          f"{what}: the one-shot's result is not the slot-order sum of its own partials")
+
+
+def oneshot_check(torch, a, wf, out_dtype, mesh):
+    """(limit, faults) of the one-shot form on activations a (n, M, F) and
+    weights wf (n, F, N), f32: overlap_limit over the plain version's
+    roundings (each rank's partial product, then the slot-order sum once;
+    no hop between).  The faults: rank 0's partial left out, and slot 1
+    added twice to the kernel's own partials."""
+    f, m, cols = wf.shape[1], a.shape[-2], wf.shape[-1]
+    parts = torch.matmul(a, wf)                                    # (n, M, N)
+    values = parts.abs().sum(0) + parts.sum(0).abs()
+    limit = overlap_limit(torch, torch.matmul(a.abs(), wf.abs()).sum(0), f, values, out_dtype)
+
+    def faults(got):
+        own = own_partials(torch, mesh, m, cols, out_dtype)
+        return {"partial_left_out": got.float() - parts[0],
+                "slot_added_twice": slot_sum(torch, own, out_dtype, twice=1)}
+
+    return limit, faults
+
+
+def reduction_check(torch, a, wf, out_dtype, mesh, one_shot: bool):
+    """(limit, faults) of K15's reduction in its one-shot or ring form."""
+    if one_shot:
+        return oneshot_check(torch, a, wf, out_dtype, mesh)
+    return ring_check(torch, a, wf, out_dtype)
+
+
+def k15_check(torch, form: str, act, w, out_dtype, gate_up=None, chain_act=None, mesh=None,
+              one_shot: bool = True):
     """(limit, chain_limit, judge) of K15 per element of the (B, N) result.
     ``form`` "linear": act (n, B, F) h, w (n, F, N); "swiglu": act the (B,
     K) x, gate_up (n, K, 2F), w the down (n, F, N), ``chain_act`` the
     chain's own activations (the psum path rounds g, u, silu(g) and the
-    product in x's dtype).  The limit against the plain version is the
-    ring's (ring_check); the swiglu form adds the stated act limit
-    (act_bound) carried through |down| and the ring's roundings, and, against
-    the chain, |the plain act - the chain's| carried the same way: no term
+    product in x's dtype).  ``one_shot``: the one-shot form, else the ring.
+    The limit against the plain version is the form's (oneshot_check or
+    ring_check); the swiglu form adds the stated act limit (act_bound)
+    carried through |down| and the reduction's roundings, and, against the
+    chain, |the plain act - the chain's| carried the same way: no term
     reads the kernel.  ``judge(got, want)``, called right after a kernel
     call, returns (shares, faults): shares of a limit that must stay within
-    1, and each planted fault's share, which must reach FAULT_MARGIN.
-    linear: the ring's faults against the plain version.  swiglu: the
-    kernel's activations (read back, ``kernel_act``) against the plain ones
-    within the stated act limit, with two planted prologue faults (silu
-    left out; gate and up swapped); and the kernel's result against the
-    plain ring walked on the kernel's own activations within the ring's
-    limit on them, with the ring's faults."""
+    1, and each planted fault's share, which must reach FAULT_MARGIN.  The
+    one-shot's result must also be bitwise the slot-order sum of its own
+    partials (check_own_reduction).  linear: the form's faults against the
+    plain version.  swiglu: the kernel's activations (read back,
+    ``kernel_act``) against the plain ones within the stated act limit,
+    with two planted prologue faults (silu left out; gate and up swapped);
+    and the kernel's result against the form's plain walk on the kernel's
+    own activations within the form's limit on them, with its faults."""
+    from triton_distributed_tpu_torch.comm.allreduce import AllReduceMethod
     from triton_distributed_tpu_torch.ops import fused_decode as FD
 
     n, f = w.shape[0], w.shape[1]
     wf = w.float()
+    method = AllReduceMethod.ONE_SHOT if one_shot else AllReduceMethod.TWO_SHOT
     if form != "swiglu":
-        limit, faults = ring_check(torch, act.float(), wf, out_dtype)
+        limit, faults = reduction_check(torch, act.float(), wf, out_dtype, mesh, one_shot)
 
         def judge_linear(got, want):
+            if one_shot:
+                check_own_reduction(torch, mesh, got, out_dtype, "K15 linear")
             return {}, {k: overlap_share(torch, bad, want, limit) for k, bad in faults(got).items()}
 
         return limit, limit, judge_linear
     a, g, up, da = act_bound(torch, act, gate_up, f, out_dtype)
-    ring_limit, _ = ring_check(torch, a, wf, out_dtype)
-    carry = 1 + 2 * rounding_unit(torch, out_dtype) * (n + 1)   # the product and n hops
-    limit = ring_limit + carry * torch.matmul(da, wf.abs()).sum(0)
+    red_limit, _ = reduction_check(torch, a, wf, out_dtype, mesh, one_shot)
+    carry = 1 + 2 * rounding_unit(torch, out_dtype) * (n + 1)   # the product and n sums
+    limit = red_limit + carry * torch.matmul(da, wf.abs()).sum(0)
     chain_limit = limit + carry * torch.matmul((a - chain_act.float()).abs(), wf.abs()).sum(0)
 
     def judge_swiglu(got, want):
         import torch.nn.functional as F
 
+        if one_shot:
+            check_own_reduction(torch, mesh, got, out_dtype, "K15 swiglu")
         ak = kernel_act(torch, mesh, a.shape[1], f, out_dtype)
-        walked = FD.fused_linear_ar_ref(ak.to(out_dtype), w, mesh, out_dtype=out_dtype)
-        k_limit, k_faults = ring_check(torch, ak, wf, out_dtype)
+        walked = FD._walk_ar(False, ak.to(out_dtype), None, w, mesh, "tp", out_dtype, method)
+        k_limit, k_faults = reduction_check(torch, ak, wf, out_dtype, mesh, one_shot)
         shares = {"act": overlap_share(torch, ak, a, da),
-                  "ring_on_kernel_act": overlap_share(torch, got, walked, k_limit)}
+                  "walk_on_kernel_act": overlap_share(torch, got, walked, k_limit)}
         faults = {"silu_left_out": overlap_share(torch, (g * up).to(out_dtype), a, da),
                   "gate_up_swapped": overlap_share(torch, (F.silu(up) * g).to(out_dtype), a, da)}
         faults.update({k: overlap_share(torch, bad, walked, k_limit)
@@ -2250,13 +2414,22 @@ def k15_check(torch, form: str, act, w, out_dtype, gate_up=None, chain_act=None,
 
 def k15_calls(torch, mesh, x, gate_up, down, h, w, out_dtype) -> list:
     """(label, kernel thunk, plain thunk, chain thunk, limit, chain limit,
-    judge) of K15's two forms.  Chains: swiglu, the psum path (each rank's
-    gate/up product and SwiGLU, the f32 partials of the down product
-    summed); linear, the ar path (each rank's product, then K11)."""
+    judge) of K15's two bodies in each reduction form: the one-shot through
+    the public entries (their choice at these sizes, checked), the ring
+    forced through the private launcher (``_launch_ar``).  Chains: swiglu,
+    the psum path (each rank's gate/up product and SwiGLU, the f32 partials
+    of the down product summed); linear, the ar path (each rank's product,
+    then K11)."""
     from triton_distributed_tpu_torch import comm
+    from triton_distributed_tpu_torch.comm.allreduce import AllReduceMethod
     from triton_distributed_tpu_torch.layers import tp_mlp
     from triton_distributed_tpu_torch.ops import fused_decode as FD
     from triton_distributed_tpu_torch.ops.matmul import batched_product
+
+    one, ring = AllReduceMethod.ONE_SHOT, AllReduceMethod.TWO_SHOT
+    nbytes = x.shape[0] * w.shape[-1] * out_dtype.itemsize
+    check(FD.ar_method(nbytes, mesh.shape["tp"]) == one,
+          f"K15 at B={x.shape[0]} N={w.shape[-1]}: the size rule did not pick the one-shot")
 
     def chain_act():
         a = tp_mlp.act_combine(tp_mlp.replicated_column_gemm(x, gate_up))
@@ -2269,14 +2442,24 @@ def k15_calls(torch, mesh, x, gate_up, down, h, w, out_dtype) -> list:
     def ar_chain():
         return comm.all_reduce(batched_product(h, w, out_dtype), mesh)[0]
 
-    return [("fused_mlp_ar/swiglu", lambda: FD.fused_mlp_ar(x, gate_up, down, mesh,
-                                                            out_dtype=out_dtype),
-             lambda: FD.fused_mlp_ar_ref(x, gate_up, down, mesh, out_dtype=out_dtype),
+    return [("fused_mlp_ar/swiglu/one_shot",
+             lambda: FD.fused_mlp_ar(x, gate_up, down, mesh, out_dtype=out_dtype),
+             lambda: FD.fused_mlp_ar_ref(x, gate_up, down, mesh, out_dtype=out_dtype, method=one),
              psum_chain, *k15_check(torch, "swiglu", x, down, out_dtype, gate_up,
-                                    chain_act(), mesh)),
-            ("fused_linear_ar/linear", lambda: FD.fused_linear_ar(h, w, mesh, out_dtype=out_dtype),
-             lambda: FD.fused_linear_ar_ref(h, w, mesh, out_dtype=out_dtype), ar_chain,
-             *k15_check(torch, "linear", h, w, out_dtype))]
+                                    chain_act(), mesh, one_shot=True)),
+            ("fused_linear_ar/linear/one_shot",
+             lambda: FD.fused_linear_ar(h, w, mesh, out_dtype=out_dtype),
+             lambda: FD.fused_linear_ar_ref(h, w, mesh, out_dtype=out_dtype, method=one),
+             ar_chain, *k15_check(torch, "linear", h, w, out_dtype, mesh=mesh, one_shot=True)),
+            ("fused_mlp_ar/swiglu/ring",
+             lambda: FD._launch_ar(True, x, gate_up, down, mesh, "tp", out_dtype, ring),
+             lambda: FD.fused_mlp_ar_ref(x, gate_up, down, mesh, out_dtype=out_dtype, method=ring),
+             psum_chain, *k15_check(torch, "swiglu", x, down, out_dtype, gate_up,
+                                    chain_act(), mesh, one_shot=False)),
+            ("fused_linear_ar/linear/ring",
+             lambda: FD._launch_ar(False, h, None, w, mesh, "tp", out_dtype, ring),
+             lambda: FD.fused_linear_ar_ref(h, w, mesh, out_dtype=out_dtype, method=ring),
+             ar_chain, *k15_check(torch, "linear", h, w, out_dtype, mesh=mesh, one_shot=False))]
 
 
 def judge_k15(torch, label: str, got, want, limit, judge, what: str) -> tuple[dict, dict]:
@@ -2365,13 +2548,15 @@ def folded_k4_case(torch, n: int, dtype) -> dict:
 
 
 def phase_fused_tp_cases(tt, torch) -> None:
-    """K15 at its edges and the rank-folded K4: both forms at n 2,
-    3, 4; f32, bf16 and bf16 -> f32; B 1, 3, 4, 5; K, F / n and N / n off the
-    64 tile; each call within its stated limit of its plain version (the
-    schedule walked with PyTorch ops) and of its chain, each planted fault
-    FAULT_MARGIN limits away, every pad at rest; three interleaved repeats
-    bitwise; widths off 16-byte rows refused; then K4 rank-folded at n 2 and
-    4 against n tp = 1 launches."""
+    """K15 at its edges and the rank-folded K4: both bodies in both
+    reduction forms (the one-shot and the ring) at n 2, 3, 4; f32, bf16 and
+    bf16 -> f32; B 1, 3, 4, 5; K, F / n and N / n off the 64 tile; each call
+    within its stated limit of its plain version (the form's schedule walked
+    with PyTorch ops) and of its chain, the one-shot's result bitwise the
+    slot-order sum of its own partials, each planted fault FAULT_MARGIN
+    limits away, every pad at rest; three interleaved repeats bitwise;
+    widths off 16-byte rows refused; then K4 rank-folded at n 2 and 4
+    against n tp = 1 launches."""
     from triton_distributed_tpu_torch.core.mesh import make_mesh
 
     t0 = time.perf_counter()
@@ -2392,6 +2577,7 @@ def phase_fused_tp_cases(tt, torch) -> None:
                             d_[key] = op(d_.get(key, v), v)
                 emit({"phase": "fused_tp_case", "kernel": "K15", "n": n, "dtype": f"{dt}->{odt}",
                       "rows": list(FUSED_AR_ROWS), "k_f_cn": [k, f, cn],
+                      "one_shot_reduction_bitwise": True,
                       "worst_share_of_limit": worst, "worst_share_vs_chain": worst_chain,
                       "faulty_share_of_limit": least, "pads_at_rest": True})
     mesh = make_mesh({"tp": 4})
@@ -2433,6 +2619,7 @@ def fused_tp_main_rows(tt, torch) -> dict:
     attention of the psum step (each rank's qkv product, qk-norm, RoPE, the
     append, K3 over the folded batch)."""
     from triton_distributed_tpu_torch import comm
+    from triton_distributed_tpu_torch.comm.allreduce import AllReduceMethod
     from triton_distributed_tpu_torch.core.mesh import make_mesh
     from triton_distributed_tpu_torch.core.utils import perf_func
     from triton_distributed_tpu_torch.layers import tp_mlp
@@ -2456,24 +2643,43 @@ def fused_tp_main_rows(tt, torch) -> dict:
     x, gu, dn = rnd(b, k), rnd(n, k, 2 * f, scale=k ** -0.5), rnd(n, f, hid, scale=(n * f) ** -0.5)
     h, wo = rnd(n, b, c.num_heads * c.head_dim // n), rnd(n, c.num_heads * c.head_dim // n, hid,
                                                            scale=(c.num_heads * c.head_dim) ** -0.5)
-    for name, form, kern, plain, chains, checks, cost, fn_bytes, lib in (
+    one, ring = AllReduceMethod.ONE_SHOT, AllReduceMethod.TWO_SHOT
+    # the o-projection's four weights (33.6 MB) fit in the 50 MB L2: also
+    # timed cycling through four copies (134 MB), as a step's layers find them
+    wos = [wo] + [wo.clone() for _ in range(3)]
+    for name, form, kern, plain, ring_kern, ring_plain, chains, checks, ring_checks, cost, \
+            fn_bytes, lib, cold in (
             ("fused_mlp_ar[swiglu]", "swiglu", lambda: FD.fused_mlp_ar(x, gu, dn, mesh),
              lambda: FD.fused_mlp_ar_ref(x, gu, dn, mesh),
+             lambda: FD._launch_ar(True, x, gu, dn, mesh, "tp", bf, ring),
+             lambda: FD.fused_mlp_ar_ref(x, gu, dn, mesh, method=ring),
              {"psum": lambda: batched_product(tp_mlp.act_combine(torch.matmul(x, gu)), dn,
                                               torch.float32).sum(0).to(bf),
               "ar": lambda: comm.all_reduce(torch.matmul(tp_mlp.act_combine(torch.matmul(x, gu)),
                                                          dn), mesh)[0]},
              k15_check(torch, "swiglu", x, dn, bf, gu,
-                       tp_mlp.act_combine(torch.matmul(x, gu)), mesh),
-             costs.fused_mlp_ar(b, k, f, hid, n, bf), nbytes(x, gu, dn) + b * hid * 2, None),
+                       tp_mlp.act_combine(torch.matmul(x, gu)), mesh, one_shot=True),
+             k15_check(torch, "swiglu", x, dn, bf, gu,
+                       tp_mlp.act_combine(torch.matmul(x, gu)), mesh, one_shot=False),
+             costs.fused_mlp_ar(b, k, f, hid, n, bf, one_shot=True),
+             nbytes(x, gu, dn) + b * hid * 2, None, None),
             ("fused_linear_ar[o]", "linear", lambda: FD.fused_linear_ar(h, wo, mesh),
              lambda: FD.fused_linear_ar_ref(h, wo, mesh),
+             lambda: FD._launch_ar(False, h, None, wo, mesh, "tp", bf, ring),
+             lambda: FD.fused_linear_ar_ref(h, wo, mesh, method=ring),
              {"ar": lambda: comm.all_reduce(torch.matmul(h, wo), mesh)[0],
               "psum": lambda: batched_product(h, wo, torch.float32).sum(0).to(bf)},
-             k15_check(torch, "linear", h, wo, bf),
-             costs.fused_mlp_ar(b, h.shape[-1], h.shape[-1], hid, n, bf, swiglu=False),
+             k15_check(torch, "linear", h, wo, bf, mesh=mesh, one_shot=True),
+             k15_check(torch, "linear", h, wo, bf, mesh=mesh, one_shot=False),
+             costs.fused_mlp_ar(b, h.shape[-1], h.shape[-1], hid, n, bf, swiglu=False,
+                                one_shot=True),
              nbytes(h, wo) + b * hid * 2,
-             (h.permute(1, 0, 2).reshape(b, -1), wo.reshape(-1, hid)))):
+             (h.permute(1, 0, 2).reshape(b, -1), wo.reshape(-1, hid)),
+             (rotating([lambda w=w: FD.fused_linear_ar(h, w, mesh) for w in wos]),
+              rotating([lambda w=w: FD._launch_ar(False, h, None, w, mesh, "tp", bf, ring)
+                        for w in wos])))):
+        check(FD.ar_method(b * hid * 2, n) == one,
+              f"{name}: the size rule did not pick the one-shot at decode")
         limit, chain_limit, judge = checks
         got = kern()
         want = plain()
@@ -2483,7 +2689,17 @@ def fused_tp_main_rows(tt, torch) -> dict:
         chain_share = {key: overlap_share(torch, got, fn(), chain_limit)
                        for key, fn in chains.items()}
         err = (got.float() - want.float()).abs().max().item()
-        _, ms = perf_func(kern, iters=20)
+        r_limit, _, r_judge = ring_checks
+        got_r, want_r = ring_kern(), ring_plain()
+        torch.cuda.synchronize()
+        ring_shares, ring_faults = judge_k15(torch, name + "/ring", got_r, want_r, r_limit, r_judge,
+                                             "main row, the ring form")
+        del got, want, got_r, want_r
+        # the one-shot and the ring in turns: one-shot, ring, ring, one-shot
+        t = [perf_func(fn, iters=20)[1] for fn in (kern, ring_kern, ring_kern, kern)]
+        ms, ring_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        cold_t = ([perf_func(fn, iters=20)[1] for fn in (cold[0], cold[1], cold[1], cold[0])]
+                  if cold else None)
         _, plain_ms = perf_func(plain, iters=3)
         chain_ms = {key: perf_func(fn, iters=20)[1] for key, fn in chains.items()}
         lib_ms = perf_func(lambda w=lib: torch.matmul(*w), iters=20)[1] if lib else None
@@ -2492,16 +2708,22 @@ def fused_tp_main_rows(tt, torch) -> dict:
         rows[name] = dict(
             name=name, route="cuda", source=FUSED_AR_SOURCE,
             replaces="triton_distributed_tpu/ops/fused_decode.py:507", max_abs_err=err,
-            worst_share_of_limit=share, worst_share_vs_chains=chain_share,
-            shares_of_limits=shares, faulty_share_of_limit=faults, ms=ms,
+            reduction="one_shot", worst_share_of_limit=share, worst_share_vs_chains=chain_share,
+            shares_of_limits=shares, faulty_share_of_limit=faults, reduction_bitwise=True,
+            ms=ms, ms_runs=[t[0], t[3]], ring_ms=ring_ms, ring_ms_runs=[t[1], t[2]],
+            ring_shares_of_limits=ring_shares, ring_faulty_share_of_limit=ring_faults,
+            **({"ms_rotating_weights": (cold_t[0] + cold_t[3]) / 2,
+                "ring_ms_rotating_weights": (cold_t[1] + cold_t[2]) / 2} if cold_t else {}),
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
             library="torch.matmul of the whole unsharded product" if lib else None,
             chain_ms=chain_ms[first], chain=f"the {first} path",
             chains_ms=chain_ms, flops=n * cost.flops, function_bytes=fn_bytes,
             shape=f"n={n} B={b} " + (f"K={k} F/n={f} N={hid}" if form == "swiglu"
                                      else f"F/n={h.shape[-1]} N={hid}") + " bf16",
-            counter="fused_mlp_ar" if form == "swiglu" else "fused_linear_ar")
-    del x, gu, dn, h, wo
+            counter="fused_mlp_ar" if form == "swiglu" else "fused_linear_ar",
+            form=(("one_shot", n, b, k, f, hid) if form == "swiglu"
+                  else ("one_shot", n, b, h.shape[-1], hid)))
+    del x, gu, dn, h, wo, wos
     # K4 rank-folded at the attention shapes of one layer
     hq, hk, d = c.num_heads // n, c.num_kv_heads // n, c.head_dim
     x = rnd(b, k)
@@ -4857,7 +5079,8 @@ def main() -> int:
                 "name", "route", "source", "replaces")} | {
                 "launches": n, **{k: row[k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "library", "chain_ms", "k6_ms", "hidden_pct") if k in row}})
+                    "library_ms", "library", "chain_ms", "k6_ms", "hidden_pct", "ring_ms")
+                    if k in row}})
         emit({"kernels": kernels})
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",

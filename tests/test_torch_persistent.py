@@ -50,6 +50,7 @@ from triton_distributed_tpu.ops.rope import apply_rope_at as jax_rope_at
 from triton_distributed_tpu.resilience import fallbacks
 
 import triton_distributed_tpu_torch as tt
+from triton_distributed_tpu_torch.comm.allreduce import AllReduceMethod, one_shot_program
 from triton_distributed_tpu_torch.comm.ring import walk
 from triton_distributed_tpu_torch.lang.primitives import (Matmul, Notify, Put, Reduce, Swiglu,
                                                           Team, Wait)
@@ -173,6 +174,42 @@ def test_fused_ar_schedules_equal_jax_recorder(n):
         assert sorted(x[0] for x in order) == list(range(n))
 
 
+@pytest.mark.parametrize("n", (2, 3, 4))
+def test_fused_ar_oneshot_schedule_is_k11_one_shot(n):
+    """K15's one-shot form (both bodies; K14's at decode sizes is the
+    linear one): [the SwiGLU prologue,] one product of the whole partial
+    into the product entry, then exactly ``comm/allreduce.py::
+    one_shot_program``'s events (held to JAX's ``_ar_one_shot_kernel``
+    recorder case by ``tests/test_torch_comm.py``): the push of that entry,
+    its credits and waits and the slot-order f32 sum; the walk of every
+    rank's program balances every credit."""
+    team = _team(n)
+    for swiglu in (True, False):
+        for rank in range(n):
+            prog = FD.oneshot_program(team, rank, swiglu)
+            products = [op for op in prog if isinstance(op, (Matmul, Swiglu))]
+            assert products[-1] == Matmul(("x", 0), ("act" if swiglu else "a", 0), ("w", 0))
+            assert len(products) == (4 if swiglu else 1)
+            assert prog[len(products):] == one_shot_program(team, rank)
+        walk([FD.oneshot_program(team, r, swiglu) for r in range(n)], None)
+
+
+@pytest.mark.parametrize("lanes", (1, 33, 132, 528))
+def test_oneshot_plans_fit_the_staged_rows(lanes):
+    """The one-shot form's product plans (``max_k_chunk=GEMV_STAGE_ROWS``,
+    the rows of A a work item stages in shared memory, which
+    ``csrc/fused_ar.cu`` checks): every K slice at most that many rows and
+    a multiple of the 64-row granule, the slices covering K once; no fewer
+    slices than the uncapped plan (the ring's and K16's, unchanged)."""
+    for b, kd, cols in ((4, 1024, 4096), (4, 3072, 4096), (4, 4096, 6144), (1, 64, 8),
+                        (5, 1032, 264), (3, 200, 48)):
+        p = FD.gemv_plan(b, kd, cols, lanes, FD.GEMV_STAGE_ROWS)
+        assert p.k_chunk <= FD.GEMV_STAGE_ROWS and p.k_chunk % 64 == 0
+        assert (p.n_kslice - 1) * p.k_chunk < kd <= p.n_kslice * p.k_chunk
+        assert (p.B, p.Kd, p.cols) == (b, kd, cols)
+        assert p.n_kslice >= FD.gemv_plan(b, kd, cols, lanes).n_kslice
+
+
 @pytest.mark.parametrize("n", (2, 4))
 def test_persistent_schedule_equals_jax_recorder(n):
     """The whole persistent launch (two layers, four chained instances, the
@@ -200,7 +237,7 @@ def test_persistent_schedule_equals_jax_recorder(n):
 # the ops' plain versions vs the XLA references
 
 
-def _k15_limit(act, w, n, act_delta=None):
+def _k15_limit(act, w, n, act_delta=None, hops=True):
     """Per element of the (B, N) result, the bf16 limit of the port's K15
     plain version against the XLA reference (f64 numpy), for activations
     ``act`` (n, B, F) and weights ``w`` (n, F, N): each chunk product
@@ -210,7 +247,8 @@ def _k15_limit(act, w, n, act_delta=None):
     (``comm/ring.py::chunk_ar_phase``).  The swiglu form passes
     ``act_delta``, |the port's activation - JAX's| (each side's own
     roundings of g, u and SwiGLU), which moves the result by at most
-    ``act_delta`` @ |down|."""
+    ``act_delta`` @ |down|.  ``hops`` False: the one-shot form (each
+    partial rounded, then the f32 sum of the n of them once)."""
     u = 2.0 ** -8
     f = w.shape[1]
     act, w = act.astype(np.float64), w.astype(np.float64)
@@ -218,7 +256,7 @@ def _k15_limit(act, w, n, act_delta=None):
     s = (np.abs(act) @ np.abs(w)).sum(0)
     values = np.abs(parts).sum(0) + np.abs(parts.sum(0))
     cn = parts.shape[-1] // n
-    for c in range(n):
+    for c in range(n if hops else 0):
         cols = slice(c * cn, (c + 1) * cn)
         acc = parts[(c + 1) % n][:, cols]
         for i in range(2, n + 1):
@@ -246,14 +284,19 @@ def _acts(x, gu_t, n, jdt):
     return port, np.stack(jax_acts)
 
 
-@pytest.mark.parametrize("n", (2, 3, 4))
-def test_fused_ar_ops_match_xla(n):
+@pytest.mark.parametrize("n, method", [
+    *[pytest.param(n, None, id=str(n)) for n in (2, 3, 4)],
+    *[pytest.param(n, m, id=f"{n}-{FD.FORM_NAMES[m]}") for n in (2, 3, 4)
+      for m in (AllReduceMethod.ONE_SHOT, AllReduceMethod.TWO_SHOT)]])
+def test_fused_ar_ops_match_xla(n, method):
     """fused_mlp_ar and fused_linear_ar (plain versions, CPU tensors) on
     rank-stacked operands against xla_fused_mlp_ar and xla_gemm_ar for
     B = 1, 3, 4: f32 within 1e-5; bf16 within :func:`_k15_limit` (the
     per-rounding bound of ``tests/test_torch_tp.py::_ring_limits`` over
     column chunks), which a result with rank 0's partial left out fails 10x
-    at its worst element."""
+    at its worst element.  ``method`` None: the public entries (the one-shot
+    at these sizes); else the given form forced through the plain walk
+    (``_walk_ar``), held to its own limit (the ring's hops, or none)."""
     rng = np.random.default_rng(40 + n)
     jm = jax_mesh({"tp": n}, devices=jax.devices()[:n])
     tm = tt.make_mesh({"tp": n}, device="cpu")
@@ -272,21 +315,26 @@ def test_fused_ar_ops_match_xla(n):
                 if swiglu:
                     want = _np(fallbacks.xla_fused_mlp_ar(jnp.asarray(x, dt), jnp.asarray(gu, dt),
                                                           jnp.asarray(dn, dt), jm, "tp"))
-                    got = tt.fused_mlp_ar(_t(x, tdt), gu_t, dn_t, tm)
+                    got = (tt.fused_mlp_ar(_t(x, tdt), gu_t, dn_t, tm) if method is None else
+                           FD._walk_ar(True, _t(x, tdt), gu_t, dn_t, tm, "tp", tdt, method))
                 else:
                     want = _np(fallbacks.xla_gemm_ar(jnp.asarray(h, dt), jnp.asarray(dn, dt), jm,
                                                      "tp"))
-                    got = tt.fused_linear_ar(h_t, dn_t, tm)
+                    got = (tt.fused_linear_ar(h_t, dn_t, tm) if method is None else
+                           FD._walk_ar(False, h_t, None, dn_t, tm, "tp", tdt, method))
                 assert got.shape == (b, cols) and got.dtype == tdt
                 got = got.float().numpy()
                 if tdt == torch.float32:
                     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
                     continue
+                hops = method != AllReduceMethod.ONE_SHOT
                 if swiglu:
                     act, act_j = _acts(x, gu_t, n, dt)
-                    lim, part0 = _k15_limit(act, dn_t.float().numpy(), n, np.abs(act - act_j))
+                    lim, part0 = _k15_limit(act, dn_t.float().numpy(), n, np.abs(act - act_j),
+                                            hops)
                 else:
-                    lim, part0 = _k15_limit(h_t.float().numpy(), dn_t.float().numpy(), n)
+                    lim, part0 = _k15_limit(h_t.float().numpy(), dn_t.float().numpy(), n,
+                                            hops=hops)
                 assert np.all(np.abs(got - want) <= lim), np.max(np.abs(got - want) / lim)
                 assert np.max(np.abs(got - part0 - want) / lim) >= 10
 
@@ -367,6 +415,38 @@ def test_reference_step_matches_jax(jax_tp, n):
         np.testing.assert_allclose(got.numpy(), _np(jx), atol=1e-5, rtol=1e-5)
         np.testing.assert_allclose(glob.k.numpy(), _np(jk), atol=1e-5, rtol=1e-5)
         np.testing.assert_allclose(glob.v.numpy(), _np(jv), atol=1e-5, rtol=1e-5)
+
+
+def test_reference_step_walks_the_ring(jax_tp, monkeypatch):
+    """K16 chains K15's ring instances at every size, so its plain version
+    walks the ring form of both of its reductions each layer, though the
+    size rule picks the one-shot for these partials: the one-shot walk is
+    never reached."""
+    from triton_distributed_tpu_torch.ops import fused_decode
+
+    rng = np.random.default_rng(64)
+    tmesh = tt.make_mesh({"tp": N}, device="cpu")
+    assert FD.ar_method(BATCH * JCFG.hidden * 4, N) == AllReduceMethod.ONE_SHOT
+    forms = []
+    real = fused_decode._walk_ring
+
+    def ring(*a, **k):
+        forms.append("ring")
+        return real(*a, **k)
+
+    def oneshot(*a, **k):
+        raise AssertionError("K16's plain version walked the one-shot form")
+
+    monkeypatch.setattr(fused_decode, "_walk_ring", ring)
+    monkeypatch.setattr(fused_decode, "walk_oneshot", oneshot)
+    jcache = _random_paged(rng, jax_mesh({"tp": N}, devices=jax.devices()[:N]), JCFG.num_layers)
+    cache = tt.from_jax_cache(jcache, "cpu", mesh=tmesh)
+    sp = PD.stack_decode_params(tt.from_jax_params(jax_tp["params"], TCFG, "cpu", mesh=tmesh))
+    x = _t(rng.standard_normal((BATCH, JCFG.hidden)).astype(np.float32))
+    PD.reference_decode_step(x, sp, cache.k, cache.v, cache.block_table, cache.seq_lens, tmesh,
+                             rope_theta=JCFG.rope_theta, rms_eps=JCFG.rms_eps,
+                             qk_eps=JCFG.rms_eps)
+    assert forms == ["ring"] * (2 * JCFG.num_layers)
 
 
 # ---------------------------------------------------------------------------

@@ -54,6 +54,7 @@ from triton_distributed_tpu.ops.swizzle import ring_chunk_order as jax_ring_chun
 from triton_distributed_tpu.resilience import fallbacks
 
 import triton_distributed_tpu_torch as tt
+from triton_distributed_tpu_torch.comm.allreduce import AllReduceMethod
 from triton_distributed_tpu_torch.layers.tp_mlp import stack_columns, stack_rows
 from triton_distributed_tpu_torch.lang.primitives import (Matmul, Notify, Put, Reduce, Team,
                                                           Wait)
@@ -199,7 +200,7 @@ def _operands(rng, n, m, k, cols):
     return a, b
 
 
-def _ring_limits(a, b, n):
+def _ring_limits(a, b, n, hops=True):
     """(limit, rank 0's partial) of the port's GEMM-RS/AR against the XLA
     reference, per element of the (M, N) sum, for f32 operands a (M, K), b
     (K, N) holding bf16 values.  Both sides sum each partial's length-K/n
@@ -209,14 +210,16 @@ def _ring_limits(a, b, n):
     partial sum after each ring hop to bf16, the XLA reference its total
     once: 2**-8 of each value rounded (the factor 1 + 2**-5 holds the
     second order).  The ring is ``comm/ring.py::rs_ring_phase``'s: chunk c's
-    sum starts at rank c + 1 and travels right."""
+    sum starts at rank c + 1 and travels right.  ``hops`` False: GEMM-AR's
+    one-shot form, which rounds each partial and then the f32 sum of the n
+    of them once, with no hop between."""
     m, k = a.shape
     kl, ml = k // n, m // n
     parts = np.stack([a[:, r * kl:(r + 1) * kl] @ b[r * kl:(r + 1) * kl] for r in range(n)])
     s = sum(np.abs(a[:, r * kl:(r + 1) * kl]) @ np.abs(b[r * kl:(r + 1) * kl])
             for r in range(n))
     values = np.abs(parts).sum(0) + np.abs(parts.sum(0))
-    for c in range(n):
+    for c in range(n if hops else 0):
         rows = slice(c * ml, (c + 1) * ml)
         acc = parts[(c + 1) % n, rows]
         for i in range(2, n + 1):
@@ -225,8 +228,11 @@ def _ring_limits(a, b, n):
     return 2 * (kl + n) * 2.0 ** -24 * s + 2.0 ** -8 * (1 + 2.0 ** -5) * values, parts[0]
 
 
-@pytest.mark.parametrize("n", (2, 3, 4))
-def test_overlap_ops_match_xla(n):
+@pytest.mark.parametrize("n, method", [
+    *[pytest.param(n, None, id=str(n)) for n in (2, 3, 4)],
+    *[pytest.param(n, m, id=f"{n}-{AR.FORM_NAMES[m]}") for n in (2, 3, 4)
+      for m in (AllReduceMethod.ONE_SHOT, AllReduceMethod.TWO_SHOT)]])
+def test_overlap_ops_match_xla(n, method):
     """ag_gemm (both rings, and the gathered A), gemm_rs and gemm_ar on CPU
     tensors, through shard/unshard, against xla_ag_gemm / xla_gemm_rs /
     xla_gemm_ar on the same inputs.  f32 within 1e-5.  bf16 within the
@@ -234,7 +240,10 @@ def test_overlap_ops_match_xla(n):
     2 K 2**-24 |A| @ |B| + 2**-7 (1 + 2**-5) |C| (one product, rounded on
     both sides), for GEMM-RS/AR :func:`_ring_limits`.  A result with rank
     0's partial left out must fail that limit by 10x at its worst
-    element."""
+    element.  ``method`` None: gemm_ar as a caller gets it (the one-shot at
+    these sizes); else the given form forced through the private entry
+    (``ops/gemm_ar.py::_gemm_ar``), held to its own limit (the ring's hops,
+    or none), with the planted fault for gemm_ar too."""
     rng = np.random.default_rng(30 + n)
     jm, tm = _meshes(n)
     m, k, cols = 8 * n, 16 * n, 8 * n
@@ -272,10 +281,16 @@ def test_overlap_ops_match_xla(n):
         if tdt == torch.bfloat16:
             assert np.max(np.abs(out.float().numpy() - part0 - want) / lim) >= 10
         want = _np(fallbacks.xla_gemm_ar(jnp.asarray(a, dt), jnp.asarray(b, dt), jm, "tp"))
-        out = tt.gemm_ar(a_t, b_t, tm)
-        assert out.shape == (n, m, cols)
+        if method is None:
+            out = tt.gemm_ar(a_t, b_t, tm)
+        else:
+            out = AR._gemm_ar(a_t, b_t, tm, "tp", tdt, method)
+            lim, _ = _ring_limits(a, b, n, hops=method == AllReduceMethod.TWO_SHOT)
+        assert out.shape == (n, m, cols) and out.dtype == tdt
         for r in range(n):
             close(out[r], want, lim)
+            if method is not None and tdt == torch.bfloat16:
+                assert np.max(np.abs(out[r].float().numpy() - part0 - want) / lim) >= 10
 
 
 def test_overlap_ops_refuse_and_degenerate():

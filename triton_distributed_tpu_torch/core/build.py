@@ -61,7 +61,7 @@ SIGNATURES = {
     "tdt_gemm_ar": [_P, _P],
     # K15 and K16 take a pointer to their FusedArArgs / PersistentArgs
     "tdt_fused_ar": [_P, _I, _P],
-    "tdt_fused_ar_lanes": [_I, _I, _I, _I],
+    "tdt_fused_ar_lanes": [_I, _I, _I, _I, _I],
     "tdt_persistent_decode": [_P, _I, _I, _P],
     "tdt_persistent_lanes": [_I, _I, _I, _I],
     # K17 takes a pointer to its A2aArgs (core/symm.py)

@@ -5,7 +5,10 @@ and nowhere else (a CPU tensor, which takes the plain version, counts
 nothing), so a caller can show that a run went through the kernels: reset,
 run, read.  A wrapper whose kernel serves several products of a path also
 names the product's form (its shape), which is counted beside the total,
-so the launches of each form are read from the counter as well.
+so the launches of each form are read from the counter as well.  K14's and
+K15's forms start with their reduction, "one_shot" or "ring"
+(``ops/fused_decode.py::FORM_NAMES``): a K14 one-shot launch runs K15's
+linear kernel but counts as K14.
 """
 
 from __future__ import annotations
@@ -28,9 +31,9 @@ KERNELS = (
     "all_reduce",                    # K11, form (method, n, shard shape)
     "ag_gemm",                       # K12, form (ring, n, A shard, B shard)
     "gemm_rs",                       # K13, form ("ring", n, A shard, B shard)
-    "gemm_ar",                       # K14, form ("ring", n, A shard, B shard)
-    "fused_mlp_ar",                  # K15 swiglu, form (n, B, K, F / n, N)
-    "fused_linear_ar",               # K15 linear, form (n, B, F / n, N)
+    "gemm_ar",                       # K14, form (reduction, n, A shard, B shard)
+    "fused_mlp_ar",                  # K15 swiglu, form (reduction, n, B, K, F / n, N)
+    "fused_linear_ar",               # K15 linear, form (reduction, n, B, F / n, N)
     "persistent_decode",             # K16, form (n, layers, B, K)
     "all_to_all",                    # K17, form (role, n, T or zone rows, row bytes)
     "quant_pack",                    # K18, form (wire dtype, rows, H)

@@ -23,6 +23,12 @@
 //                   credits more than one at a time);
 //   wait(f, v)      an acquire spin until f >= v, then f -= v, so every count
 //                   is back at zero when the protocol's drains are done.
+// These two, the put's fence and the barriers built on them take the
+// memory scope as a template argument: system (kSys) unless a kernel asks
+// for device scope (kGpu), which is enough where every rank is a block of
+// the one launch on this card, as in K14's and K15's one-shot exchange.  On
+// an H100 a system-scope release costs microseconds a notify (a hub barrier
+// of four ranks took 11-19 us at system scope, ~3 us at device scope).
 // A wait is bounded: after kWaitNs of %globaltimer it records (rank, flag,
 // value seen, value wanted) in mapped host memory and traps, which fails the
 // launch; a protocol bug fails the run by name instead of hanging it.
@@ -79,14 +85,25 @@ __device__ __forceinline__ unsigned long long globaltimer() {
   return t;
 }
 
+// The memory scope of a protocol's flags and fences.
+enum Scope { kSys, kGpu };
+
+template <Scope S = kSys>
 __device__ __forceinline__ int ld_acquire(const int* p) {
   int v;
-  asm volatile("ld.acquire.sys.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  if constexpr (S == kSys)
+    asm volatile("ld.acquire.sys.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  else
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
   return v;
 }
 
+template <Scope S = kSys>
 __device__ __forceinline__ void red_release_add(int* p, int v) {
-  asm volatile("red.release.sys.global.add.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+  if constexpr (S == kSys)
+    asm volatile("red.release.sys.global.add.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+  else
+    asm volatile("red.release.gpu.global.add.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
 // One rank's view of the launch: who it is, and its lane's slice of a chunk.
@@ -141,50 +158,59 @@ static __device__ __noinline__ void timed_out(const Rank& c, int id, int seen, i
 
 // Credit rank r's flag `id` (this lane's row) by one, once every thread of
 // the block is done with what the credit announces.
+template <Scope S = kSys>
 __device__ __forceinline__ void notify(const Rank& c, int r, int id) {
   __syncthreads();
-  if (threadIdx.x == 0) red_release_add(c.flag(r, id), 1);
+  if (threadIdx.x == 0) red_release_add<S>(c.flag(r, id), 1);
 }
 
 // Wait until one's own flag `id` reaches v, then take v off it.
+template <Scope S = kSys>
 __device__ __forceinline__ void wait(const Rank& c, int id, int v = 1) {
   if (threadIdx.x == 0) {
     int* f = c.flag(c.me, id);
-    int seen = ld_acquire(f);
+    int seen = ld_acquire<S>(f);
     if (seen < v) {
       const unsigned long long t0 = globaltimer();
-      while ((seen = ld_acquire(f)) < v) {
+      while ((seen = ld_acquire<S>(f)) < v) {
         if (globaltimer() - t0 > kWaitNs) timed_out(c, id, seen, v);
         __nanosleep(32);
       }
     }
-    atomicSub_system(f, v);
+    if constexpr (S == kSys) atomicSub_system(f, v);
+    else atomicSub(f, v);
   }
   __syncthreads();
 }
 
 // The arrival credit of a put (skipped by stall_rank, in the tests of the
 // bounded waits).
+template <Scope S = kSys>
 __device__ __forceinline__ void credit(const Rank& c, int r, int id) {
-  if (c.me != c.a.stall_rank) notify(c, r, id);
+  if (c.me != c.a.stall_rank) notify<S>(c, r, id);
 }
 
-// After a put's stores: every thread's done, then a system-scope fence.
+// After a put's stores: every thread's done, then a fence at the scope.
+template <Scope S = kSys>
 __device__ __forceinline__ void put_fence() {
   __syncthreads();
-  if (threadIdx.x == 0) __threadfence_system();
+  if (threadIdx.x == 0) {
+    if constexpr (S == kSys) __threadfence_system();
+    else __threadfence();
+  }
 }
 
 // Hub barrier over the team (lane by lane): arrivals only at rank 0,
 // releases only at the others, so rounds cannot mix.
+template <Scope S = kSys>
 __device__ __forceinline__ void barrier_all(const Rank& c) {
   if (c.n() == 1) return;
   if (c.me != 0) {
-    notify(c, 0, kBarrier);
-    wait(c, kBarrier, 1);
+    notify<S>(c, 0, kBarrier);
+    wait<S>(c, kBarrier, 1);
   } else {
-    wait(c, kBarrier, c.n() - 1);
-    for (int i = 1; i < c.n(); ++i) notify(c, i, kBarrier);
+    wait<S>(c, kBarrier, c.n() - 1);
+    for (int i = 1; i < c.n(); ++i) notify<S>(c, i, kBarrier);
   }
 }
 
@@ -195,9 +221,10 @@ __device__ __forceinline__ void barrier_neighbors(const Rank& c) {
   wait(c, kBarrier, 2);
 }
 
+template <Scope S = kSys>
 __device__ __forceinline__ void collective_prologue(const Rank& c, bool neighbors_only) {
   if (neighbors_only) barrier_neighbors(c);
-  else barrier_all(c);
+  else barrier_all<S>(c);
 }
 
 // A rank-wide barrier that a launch may pass any number of times (K12-K14's

@@ -1,5 +1,7 @@
-// The decode-shaped product and the column-chunked GEMM + AllReduce ring
-// instance, shared by K15 (fused_ar.cu) and K16 (persistent_decode.cu).
+// The decode-shaped product and the two AllReduce(A @ W) instances built on
+// it: the one-shot form (K15 and K14 at decode sizes, fused_ar.cu) and the
+// column-chunked ring (K15 above the one-shot threshold, and K16,
+// persistent_decode.cu).
 //
 // The product.  At decode a product has B <= a few rows and a weight of
 // megabytes: it is bound by the weight's bytes, which every SM should
@@ -10,7 +12,16 @@
 // slice.  The slices are then summed in a fixed order and rounded once
 // (finalize_range), so the result does not depend on the lanes' timing.
 // No padding rows: a B = 4 product is 4 rows, not a 128-row tensor-core tile
-// with 124 rows of padding (K14's tile at decode).
+// with 124 rows of padding (K14's ring tile).
+//
+// The one-shot instance (oneshot_instance): the whole (B, N) product in one
+// pass over the weight by every lane of the rank, one rank-wide barrier,
+// each lane's slice of the partial summed and rounded once, then K11's
+// one-shot exchange of that slice (collectives.cu all_reduce_kernel<..., 0>:
+// push into slot `me` of every rank, n - 1 arrivals, the n slots summed in
+// slot order in f32 and rounded once).  One hop of latency; what the JAX
+// package's _ar_one_shot_kernel does after a product, chosen by the same
+// size rule (comm/allreduce.py choose_method).
 //
 // The ring instance (ChunkProduct + ar_instance): AllReduce(A @ W) over
 // OUTPUT column chunks, JAX comm/ring.py gemm_rs_chunk_phase then
@@ -33,6 +44,9 @@ namespace far {
 
 constexpr int kTileCols = 64;  // output columns of a product work item
 constexpr int kRowGranule = 64;
+// K rows of A a staged work item holds in shared memory (the one-shot
+// form's plans cut K no coarser; ops/fused_decode.py GEMV_STAGE_ROWS)
+constexpr int kStageRows = 512;
 
 // One product's plan (the host sizes it, ops/fused_decode.py::gemv_plan):
 // B rows, depth Kd, `cols` output columns, the K rows cut into n_kslice
@@ -49,7 +63,11 @@ __device__ __forceinline__ int gemv_items(const Gemv& g) {
 // ldw): its tile's columns and its K slice, every row of A, as f32 partial
 // sums into part[(ks * B + b) * cols + c].  cols is a multiple of 16 /
 // sizeof(TW) (a lane's load is whole or outside), W 16-byte aligned.
-template <typename TA, typename TW>
+// STAGE (the one-shot form; k_chunk <= kStageRows): the item's K rows of
+// A's rows are first copied into shared memory, one L2 read each, so the
+// weight loop reads A there; otherwise each product term reads its A value
+// through L2 (ld.global.cg), one round trip per unrolled weight row.
+template <typename TA, typename TW, bool STAGE = false>
 __device__ void gemv_item(const TA* A, int lda, const TW* W, long long ldw, const Gemv& g,
                           int item, float* part) {
   constexpr int E = 16 / sizeof(TW);     // weight columns per 16-byte load
@@ -65,7 +83,21 @@ __device__ void gemv_item(const TA* A, int lda, const TW* W, long long ldw, cons
   const int col = c0 + sub * E;
   const bool live = col < g.cols;
   const int k0 = ks * g.k_chunk, k1 = min(g.Kd, k0 + g.k_chunk);
+  float* s_a = nullptr;  // STAGE: A's PB rows of this slice, [bb][k - k0]
+  if constexpr (STAGE) {
+    __shared__ float s_stage[PB * kStageRows];
+    s_a = s_stage;
+  }
   for (int b0 = 0; b0 < g.B; b0 += PB) {
+    if constexpr (STAGE) {
+      const int rows = k1 - k0;
+      for (int i = tid; i < PB * rows; i += kThreads) {
+        const int bb = i / rows, kk = i % rows;
+        s_a[bb * kStageRows + kk] =
+            b0 + bb < g.B ? ldcg_f32(A + static_cast<long long>(b0 + bb) * lda + k0 + kk) : 0.f;
+      }
+      __syncthreads();
+    }
     float acc[PB][E];
 #pragma unroll
     for (int bb = 0; bb < PB; ++bb)
@@ -89,7 +121,9 @@ __device__ void gemv_item(const TA* A, int lda, const TW* W, long long ldw, cons
 #pragma unroll
           for (int bb = 0; bb < PB; ++bb) {
             if (b0 + bb < g.B) {
-              const float xv = ldcg_f32(A + static_cast<long long>(b0 + bb) * lda + k);
+              float xv;
+              if constexpr (STAGE) xv = s_a[bb * kStageRows + k - k0];
+              else xv = ldcg_f32(A + static_cast<long long>(b0 + bb) * lda + k);
 #pragma unroll
               for (int e = 0; e < E; ++e) acc[bb][e] = fmaf(xv, wf[e], acc[bb][e]);
             }
@@ -125,11 +159,12 @@ __device__ void gemv_item(const TA* A, int lda, const TW* W, long long ldw, cons
 
 // This lane's items of a product (items are dealt to the rank's lanes in
 // turn).
-template <typename TA, typename TW>
+template <typename TA, typename TW, bool STAGE = false>
 __device__ __forceinline__ void gemv_lane(const TA* A, int lda, const TW* W, long long ldw,
                                           const Gemv& g, float* part) {
   const int items = gemv_items(g);
-  for (int it = blockIdx.x; it < items; it += gridDim.x) gemv_item<TA, TW>(A, lda, W, ldw, g, it, part);
+  for (int it = blockIdx.x; it < items; it += gridDim.x)
+    gemv_item<TA, TW, STAGE>(A, lda, W, ldw, g, it, part);
 }
 
 // dst[e] = the K slices' partials of element e summed in slice order and
@@ -143,6 +178,33 @@ __device__ __forceinline__ void finalize_range(const float* part, const Gemv& g,
     for (int ks = 0; ks < g.n_kslice; ++ks) s += __ldcg(part + ks * plane + e);
     dst[e] = from_f32<OT>(s);
   }
+}
+
+// One AllReduce(A @ W) instance in the one-shot form, n >= 2 ranks: every
+// lane takes its items of the whole (B, g.cols) product (A staged, so
+// g.k_chunk <= kStageRows), the lanes meet at
+// one rank-wide barrier, each lane sums and rounds its slice of the partial
+// into product entry 0 of c.a.x, then runs K11's one-shot on that slice
+// (collectives.cu all_reduce_kernel<OT, OT, true, 0>): a push into slot `me`
+// of every rank's landing (c.a.land, n slots of one partial) and the n
+// slots summed in slot order into entry 0 of c.a.out, rank me's copy of the
+// result.  c.a.chunk_elems = B g.cols, a multiple of 16 bytes of OT.  The
+// push takes every credit it gives (its barrier and the n - 1 arrivals).
+template <typename TA, typename TW, typename OT>
+__device__ void oneshot_instance(const dl::Rank& c, const TA* A, int lda, const TW* W,
+                                 long long ldw, const Gemv& g, float* part, int& gen) {
+  constexpr int G = dl::Elems<OT, true>::G;
+  gemv_lane<TA, TW, true>(A, lda, W, ldw, g, part);
+  dl::rank_sync(c, gen);
+  long long lo, hi;  // this lane's slice, in 16-byte units of OT
+  c.slice(G, dl::quantum<true>(), lo, hi);
+  finalize_range<OT>(part, g, c.at<OT>(c.a.x, c.me, 0), lo * G, hi * G);
+  __syncthreads();  // the slice is read back in 16-byte units by other threads
+  // every rank is a block of this launch on this card: device-scope flags
+  dl::push_phase<OT, uint4, dl::kGpu>(c, c.a.land, lo, hi);
+  const OT* src[dl::kMaxRanks];
+  for (int i = 0; i < c.n(); ++i) src[i] = c.at<OT>(c.a.land, c.me, i);
+  dl::sum_units<OT, OT, true>(c.at<OT>(c.a.out, c.me, 0), src, c.n(), lo, hi);
 }
 
 // [lo, hi) elements of this lane's ring slice of a (B, cn) chunk of OT (the
@@ -183,7 +245,7 @@ struct ChunkProduct {
   }
 };
 
-// One AllReduce(A @ W) instance over output column chunks (JAX
+// One AllReduce(A @ W) ring instance over output column chunks (JAX
 // persistent_decode.py _chained_ar): ring ReduceScatter of the chunk
 // products (each hop's add in f32, rounded once to OT), then the AllGather
 // ring of the reduced chunks into c.a.out (chunk-major, n (B, cn) chunks).

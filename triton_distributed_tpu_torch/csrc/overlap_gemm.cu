@@ -47,9 +47,13 @@
 // Bound on the H100: operations at the prefill shapes (Qwen3-8B, tp = 4,
 // 4 x 1024 rows: 400-1500 flops a byte), bytes at the decode shapes
 // (4 rows: the weights dominate).  This first form does not reach either:
-// it runs K6's mma.sync main loop (no wgmma, no TMA), joins the lanes once
-// a chunk, and K14 at decode multiplies 128-row tiles of which one row is
-// real, reading its weight panel once per chunk.
+// it runs K6's mma.sync main loop (no wgmma, no TMA) and joins the lanes
+// once a chunk.  K14 here is the ring form, for partials above the one-shot
+// threshold (comm/allreduce.py choose_method): a row chunk of a decode
+// batch is a 128-row tile with one real row, and each chunk reads the whole
+// weight panel.  At decode sizes ops/gemm_ar.py launches K15's one-shot
+// linear form instead (fused_ar.cu: one pass over the weight, one barrier,
+// one hop).
 #include <type_traits>
 
 #include "gemm_tile.cuh"

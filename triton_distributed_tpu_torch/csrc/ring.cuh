@@ -114,8 +114,8 @@ __device__ __forceinline__ void sum_units(OT* dst, const T* const* src, int ns,
 // x into entry `me` of `dst` on itself, the team barrier, the same units into
 // entry `me` of `dst` on every peer (one read, n - 1 writes), their arrival
 // credits, then the n - 1 arrivals of the peers' entries.  x and dst are
-// indexed as E, moved in units U over [lo, hi).
-template <typename E, typename U>
+// indexed as E, moved in units U over [lo, hi); flags and fences at scope S.
+template <typename E, typename U, Scope S = kSys>
 __device__ void push_phase(const Rank& c, const Peers& dst, long long lo, long long hi) {
   const int n = c.n();
   const U* mine = reinterpret_cast<const U*>(c.at<E>(c.a.x, c.me, 0));
@@ -123,11 +123,11 @@ __device__ void push_phase(const Rank& c, const Peers& dst, long long lo, long l
   for (int off = 0; off < n; ++off)
     d[off] = reinterpret_cast<U*>(c.at<E>(dst, (c.me + off) % n, c.me));
   copy_units<U>(d, 1, mine, lo, hi);  // a put to oneself, which nobody waits for
-  collective_prologue(c, false);
+  collective_prologue<S>(c, false);
   copy_units<U>(d + 1, n - 1, mine, lo, hi);
-  put_fence();
-  for (int off = 1; off < n; ++off) credit(c, (c.me + off) % n, kRecv + c.me);
-  for (int off = 1; off < n; ++off) wait(c, kRecv + (c.me + n - off) % n);
+  put_fence<S>();
+  for (int off = 1; off < n; ++off) credit<S>(c, (c.me + off) % n, kRecv + c.me);
+  for (int off = 1; off < n; ++off) wait<S>(c, kRecv + (c.me + n - off) % n);
 }
 
 // One-way AllGather ring over out-chunks of OT already at their final

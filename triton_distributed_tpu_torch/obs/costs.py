@@ -1,8 +1,8 @@
 """Flop and byte counts of a kernel call, and its roofline time on the card
 (counterpart of ``triton_distributed_tpu/obs/costs.py``; the ``matmul``
-calculator, the overlapped GEMMs', the decode megakernels', the EP
-all-to-all's, the wire pack's and ``sol_ms`` are ported, the others come
-with the kernels they describe).  Counts are per rank, as JAX's; a call on n
+calculator, the overlapped GEMMs' (K14's one-shot form too), the decode
+megakernels', the EP all-to-all's, the wire pack's and ``sol_ms`` are
+ported, the others come with the kernels they describe).  Counts are per rank, as JAX's; a call on n
 co-located ranks does n times the work on one card."""
 
 from __future__ import annotations
@@ -64,12 +64,31 @@ def gemm_rs(m_loc: int, k_loc: int, n_dim: int, num_ranks: int, dtype,
                       wire_bytes=wire)
 
 
+def one_shot_reduce(m: int, n_dim: int, num_ranks: int, out_dtype) -> KernelCost:
+    """The one-shot exchange per rank after a product (K14's and K15's
+    one-shot forms, K11's one-shot body): the rounded (m, n_dim) partial
+    written once and read once, sent into a slot on each of the n - 1
+    peers, the n slots read and summed, the result written."""
+    n, ob = num_ranks, _itemsize(out_dtype)
+    elems = m * n_dim
+    wire = (n - 1) * elems * ob
+    return KernelCost(flops=(n - 1) * elems,
+                      bytes_accessed=2 * elems * ob + 2 * wire + n * elems * ob + elems * ob,
+                      wire_bytes=wire)
+
+
 def gemm_ar(m_loc: int, k_loc: int, n_dim: int, num_ranks: int, dtype,
-            out_dtype=None) -> KernelCost:
-    """GEMM-AllReduce per rank: the GEMM-RS phase plus the AllGather ring
-    that returns every reduced chunk to every rank (JAX ``costs.gemm_ar``)."""
+            out_dtype=None, *, one_shot: bool = False) -> KernelCost:
+    """GEMM-AllReduce per rank.  The ring form: the GEMM-RS phase plus the
+    AllGather ring that returns every reduced chunk to every rank (JAX
+    ``costs.gemm_ar``).  The one-shot form (``one_shot``): the whole
+    (n m_loc, n_dim) product, then :func:`one_shot_reduce`."""
     n = num_ranks
     ob = _itemsize(out_dtype or dtype)
+    if one_shot:
+        mm = matmul(n * m_loc, n_dim, k_loc, dtype, out_dtype)
+        red = one_shot_reduce(n * m_loc, n_dim, n, out_dtype or dtype)
+        return KernelCost(mm.flops, mm.bytes_accessed - ob * n * m_loc * n_dim, 0.0) + red
     rs = gemm_rs(m_loc, k_loc, n_dim, n, dtype, out_dtype)
     ag_wire = (n - 1) * m_loc * n_dim * ob
     return KernelCost(flops=rs.flops,
@@ -100,22 +119,27 @@ def fused_attn_decode(b: int, k_dim: int, h: int, hk: int, seq_kv: int, d: int,
 
 
 def fused_mlp_ar(b: int, k_in: int, k_loc: int, n_dim: int, num_ranks: int, dtype,
-                 out_dtype=None, *, swiglu: bool = True) -> KernelCost:
+                 out_dtype=None, *, swiglu: bool = True, one_shot: bool = False) -> KernelCost:
     """K15 per rank: [the gate/up product and SwiGLU when ``swiglu``] and
-    the down (or o-proj) chunk products, the travelling partials' adds, and
-    2 (n - 1) / n of the (B, n_dim) output on the ring's two phases (JAX
-    ``costs.fused_mlp_ar``)."""
+    the down (or o-proj) product, then the reduction.  The ring form: the
+    chunk products, the travelling partials' adds, and 2 (n - 1) / n of the
+    (B, n_dim) output on the ring's two phases (JAX ``costs.fused_mlp_ar``).
+    The one-shot form (``one_shot``): the whole product, then
+    :func:`one_shot_reduce`."""
     n = num_ranks
     ob = _itemsize(out_dtype or dtype)
     dn = matmul(b, n_dim, k_loc, dtype, out_dtype)
-    flops = dn.flops + (n - 1) * b * (n_dim // max(n, 1))
-    nbytes = dn.bytes_accessed
+    pre = KernelCost(0.0, 0.0)
     if swiglu:
         up = matmul(b, 2 * k_loc, k_in, dtype, out_dtype)
-        flops += up.flops + 3 * b * k_loc
-        nbytes += up.bytes_accessed + 3 * b * k_loc * ob
+        pre = KernelCost(up.flops + 3 * b * k_loc, up.bytes_accessed + 3 * b * k_loc * ob)
+    if one_shot:
+        return (pre + KernelCost(dn.flops, dn.bytes_accessed - ob * b * n_dim)
+                + one_shot_reduce(b, n_dim, n, out_dtype or dtype))
+    flops = dn.flops + (n - 1) * b * (n_dim // max(n, 1))
     wire = 2 * (n - 1) * b * (n_dim // max(n, 1)) * ob
-    return KernelCost(flops=flops, bytes_accessed=nbytes + 2 * wire, wire_bytes=wire)
+    return pre + KernelCost(flops=flops, bytes_accessed=dn.bytes_accessed + 2 * wire,
+                            wire_bytes=wire)
 
 
 def persistent_decode(layers: int, b: int, k_dim: int, h: int, hk: int, seq_kv: int,

@@ -11,14 +11,20 @@
   :func:`fused_attn_decode_ref` (per rank); the wrapper takes it only for
   CPU tensors.
 - :func:`fused_mlp_ar` / :func:`fused_linear_ar`: the MLP (gate/up product,
-  SwiGLU, down projection) and the o-projection chained into the
-  column-chunked GEMM + two-shot AllReduce ring, on rank-stacked operands:
-  one cooperative launch of ``csrc/fused_ar.cu`` (K15) over every rank,
-  which replaces the Pallas ``_fused_mlp_ar_kernel`` (``:507``).  Their
-  plain versions walk the same schedule (:func:`ar_program`, on
-  ``comm/ring.py::chunk_ar_phase``).  Without a mesh, or at one rank, the
-  JAX functions are plain products (``:756-762``, ``:851-853``), and so are
-  these.
+  SwiGLU, down projection) and the o-projection followed by the AllReduce
+  of the ranks' partials, on rank-stacked operands: one cooperative launch
+  of ``csrc/fused_ar.cu`` (K15) over every rank, which replaces the Pallas
+  ``_fused_mlp_ar_kernel`` (``:507``).  The reduction's form follows K11's
+  size rule (``comm/allreduce.py::choose_method`` on the (B, N) partial's
+  bytes, :func:`ar_method`): at decode sizes the one-shot form (the whole
+  product in one pass over the weight, then the push into every rank's
+  slot and the slot-order f32 sum, :func:`oneshot_program`), above the
+  threshold JAX's column-chunked GEMM + two-shot AllReduce ring
+  (:func:`ar_program`, on ``comm/ring.py::chunk_ar_phase``).  Their plain
+  versions walk the chosen schedule.  K14 (``ops/gemm_ar.py``) launches the
+  one-shot linear form at decode sizes.  Without a mesh, or at one rank,
+  the JAX functions are plain products (``:756-762``, ``:851-853``), and so
+  are these.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import functools
 import torch
 
 from ..comm import ring
+from ..comm.allreduce import _CODES, AllReduceMethod, choose_method, one_shot_program
 from ..comm.launch import GEMM_DTYPES, check_config, walk_teams
 from ..core import build, symm
 from ..core.launches import count
@@ -303,23 +310,50 @@ def fused_attn_decode(x: torch.Tensor, wqkv: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# K15: the MLP and the o-projection chained into the AllReduce ring
+# K15: the MLP and the o-projection followed by the AllReduce
+
+
+def ar_method(nbytes: int, n: int,
+              method: AllReduceMethod = AllReduceMethod.AUTO) -> AllReduceMethod:
+    """The reduction form of K15 (and of K14 at decode sizes) for partials
+    of ``nbytes`` per rank: ``method`` unless AUTO, else K11's size rule
+    (:func:`comm.allreduce.choose_method`).  ONE_SHOT is the one-shot form,
+    TWO_SHOT the ring."""
+    return choose_method(nbytes, n) if method == AllReduceMethod.AUTO else method
+
+
+# the launch counters' name of each form
+FORM_NAMES = {AllReduceMethod.ONE_SHOT: "one_shot", AllReduceMethod.TWO_SHOT: "ring"}
+
+
+def _swiglu_prologue(src: tuple[str, int]) -> list:
+    """x times the gate and the up columns, then SwiGLU into ("act", 0)."""
+    return [Matmul(("g", 0), src, ("wg", 0)), Matmul(("u", 0), src, ("wu", 0)),
+            Swiglu(("act", 0), ("g", 0), ("u", 0))]
 
 
 def ar_program(team: Team, me: int, swiglu: bool) -> list:
-    """JAX ``_fused_mlp_ar_kernel``'s schedule (``fused_decode.py:507-580``):
-    with ``swiglu`` the prologue (x times the gate and the up columns,
-    SwiGLU) before the entry barrier; then one column-chunked AllReduce
-    instance over the activations and the weight's column chunks, and the
-    ACK drain."""
-    prog = []
-    if swiglu:
-        prog += [Matmul(("g", 0), ("x", 0), ("wg", 0)), Matmul(("u", 0), ("x", 0), ("wu", 0)),
-                 Swiglu(("act", 0), ("g", 0), ("u", 0))]
+    """The ring form: JAX ``_fused_mlp_ar_kernel``'s schedule
+    (``fused_decode.py:507-580``): with ``swiglu`` the prologue (x times the
+    gate and the up columns, SwiGLU) before the entry barrier; then one
+    column-chunked AllReduce instance over the activations and the weight's
+    column chunks, and the ACK drain."""
+    prog = _swiglu_prologue(("x", 0)) if swiglu else []
     dl.collective_prologue(prog, team, me, neighbors_only=True)
     ring.chunk_ar_phase(prog, team, me, ("act" if swiglu else "x", 0), "out", armed=False)
     ring.rs_ack_drain(prog, team.size)
     return prog
+
+
+def oneshot_program(team: Team, me: int, swiglu: bool) -> list:
+    """The one-shot form: [the prologue,] the whole product of the
+    activations ("a", or "act" after SwiGLU) and the weight ("w", 0) into
+    product entry ("x", 0), rounded once, then K11's one-shot schedule on it
+    (:func:`comm.allreduce.one_shot_program`: the push into slot ``me`` of
+    every rank, the slot-order f32 sum into ("out", 0))."""
+    prog = _swiglu_prologue(("a", 0)) if swiglu else []
+    prog.append(Matmul(("x", 0), ("act" if swiglu else "a", 0), ("w", 0)))
+    return prog + one_shot_program(team, me)
 
 
 def _swiglu_program(team: Team, me: int) -> list:
@@ -330,11 +364,19 @@ def _linear_program(team: Team, me: int) -> list:
     return ar_program(team, me, False)
 
 
+def _oneshot_swiglu_program(team: Team, me: int) -> list:
+    return oneshot_program(team, me, True)
+
+
+def _oneshot_linear_program(team: Team, me: int) -> list:
+    return oneshot_program(team, me, False)
+
+
 def _ar_buffers(x, w, out, n: int, out_dtype, gate_up=None):
-    """``bufs_of`` of the plain walk: the activations (one copy, or rank
-    r's), the weight's column chunks, the gate/up blocks and SwiGLU entries
-    (swiglu), fresh product entries and receive slots, every rank's reduced
-    chunks (``out`` (n, n, B, cn))."""
+    """``bufs_of`` of the ring's plain walk: the activations (one copy, or
+    rank r's), the weight's column chunks, the gate/up blocks and SwiGLU
+    entries (swiglu), fresh product entries and receive slots, every rank's
+    reduced chunks (``out`` (n, n, B, cn))."""
     b, cn = out.shape[-2], out.shape[-1]
     f = w.shape[-2]
 
@@ -351,13 +393,36 @@ def _ar_buffers(x, w, out, n: int, out_dtype, gate_up=None):
     return bufs_of
 
 
+def _oneshot_buffers(x, w, out, mesh: Mesh, n: int, out_dtype, gate_up=None):
+    """``bufs_of`` of the one-shot's plain walk, per mesh slot: the
+    activations (one copy, or the slot's), its weight, the gate/up blocks
+    and SwiGLU entries (swiglu), a fresh product entry and n receive slots,
+    and the slot's copy of the result (``out`` (*mesh.sizes, B, N))."""
+    b, cols = out.shape[-2], out.shape[-1]
+    f = w.shape[-2]
+    ws, outs = w.reshape(mesh.size, f, cols), out.reshape(mesh.size, b, cols)
+    xs = x if gate_up is not None else x.reshape(mesh.size, b, f)
+    gus = gate_up.reshape(mesh.size, *gate_up.shape[-2:]) if gate_up is not None else None
+
+    def bufs_of(s):
+        new = functools.partial(torch.empty, dtype=out_dtype, device=w.device)
+        bufs = {"a": [xs if gate_up is not None else xs[s]], "w": [ws[s]], "out": [outs[s]],
+                "x": [new((b, cols))], "slots": list(new((n, b, cols)))}
+        if gate_up is not None:
+            bufs.update(wg=[gus[s][:, :f]], wu=[gus[s][:, f:]],
+                        g=[new((b, f))], u=[new((b, f))], act=[new((b, f))])
+        return bufs
+
+    return bufs_of
+
+
 def _rows(out: torch.Tensor) -> torch.Tensor:
     """Rank 0's (n, B, cn) chunk-major reduced chunks as (B, n cn) rows
     (JAX ``_ar_chunks_to_rows``)."""
     return out[0].permute(1, 0, 2).reshape(out.shape[-2], -1)
 
 
-def _walk_ar(swiglu: bool, x, gate_up, w, mesh: Mesh, axis: str, out_dtype):
+def _walk_ring(swiglu: bool, x, gate_up, w, mesh: Mesh, axis: str, out_dtype):
     team = Team.of(mesh, axis)
     n = team.size
     b, cols = x.shape[-2], w.shape[-1]
@@ -367,67 +432,121 @@ def _walk_ar(swiglu: bool, x, gate_up, w, mesh: Mesh, axis: str, out_dtype):
     return out
 
 
+def walk_oneshot(swiglu: bool, x, gate_up, w, mesh: Mesh, axis: str, out_dtype) -> torch.Tensor:
+    """The one-shot form's plain walk on rank-stacked operands (swiglu: x
+    one (B, K) copy, gate_up (*mesh.sizes, K, 2F); linear: x (*mesh.sizes,
+    B, F)) with w (*mesh.sizes, F, N).  Returns every rank's copy of the
+    result, (*mesh.sizes, B, N)."""
+    team = Team.of(mesh, axis)
+    out = torch.empty((*mesh.sizes, x.shape[-2], w.shape[-1]), dtype=out_dtype, device=w.device)
+    walk_teams(_oneshot_swiglu_program if swiglu else _oneshot_linear_program, team,
+               _oneshot_buffers(x, w, out, mesh, team.size, out_dtype, gate_up))
+    return out
+
+
+def _walk_ar(swiglu: bool, x, gate_up, w, mesh: Mesh, axis: str, out_dtype,
+             method: AllReduceMethod) -> torch.Tensor:
+    """The plain walk of ``method``'s form; returns the (B, N) result."""
+    if method == AllReduceMethod.ONE_SHOT:
+        return walk_oneshot(swiglu, x, gate_up, w, mesh, axis, out_dtype)[0]
+    return _rows(_walk_ring(swiglu, x, gate_up, w, mesh, axis, out_dtype))
+
+
+def _out_bytes(b: int, cols: int, out_dtype) -> int:
+    return b * cols * torch.empty((), dtype=out_dtype).element_size()
+
+
 def fused_mlp_ar_ref(x: torch.Tensor, gate_up: torch.Tensor, down: torch.Tensor,
-                     mesh: Mesh, axis: str = TP_AXIS, *, out_dtype=None) -> torch.Tensor:
-    """Plain version of K15's swiglu form, on any device: the schedule
+                     mesh: Mesh, axis: str = TP_AXIS, *, out_dtype=None,
+                     method: AllReduceMethod = AllReduceMethod.AUTO) -> torch.Tensor:
+    """Plain version of K15's swiglu form, on any device: the schedule of
+    ``method``'s form (AUTO: :func:`ar_method`'s choice, the kernel's)
     walked on tensors (g and u rounded to ``out_dtype``, SwiGLU in f32
-    rounded once, each chunk product rounded, each hop added in f32 and
-    rounded once).  Returns (B, N)."""
+    rounded once, each product rounded; the one-shot's slot sum in f32
+    rounded once, each ring hop added in f32 and rounded once).  Returns
+    (B, N)."""
     out_dtype = out_dtype or x.dtype
-    return _rows(_walk_ar(True, x, gate_up, down, mesh, axis, out_dtype))
+    method = ar_method(_out_bytes(x.shape[-2], down.shape[-1], out_dtype), mesh.shape[axis],
+                       method)
+    return _walk_ar(True, x, gate_up, down, mesh, axis, out_dtype, method)
 
 
 def fused_linear_ar_ref(h: torch.Tensor, w: torch.Tensor, mesh: Mesh, axis: str = TP_AXIS, *,
-                        out_dtype=None) -> torch.Tensor:
+                        out_dtype=None,
+                        method: AllReduceMethod = AllReduceMethod.AUTO) -> torch.Tensor:
     """Plain version of K15's linear form: ``AllReduce(h_r @ w_r)`` on the
-    ring's schedule.  Returns (B, N)."""
+    schedule of ``method``'s form (AUTO: the kernel's).  Returns (B, N)."""
     out_dtype = out_dtype or h.dtype
-    return _rows(_walk_ar(False, h, None, w, mesh, axis, out_dtype))
+    method = ar_method(_out_bytes(h.shape[-2], w.shape[-1], out_dtype), mesh.shape[axis],
+                       method)
+    return _walk_ar(False, h, None, w, mesh, axis, out_dtype, method)
 
 
 GEMV_TILE_COLS = 64   # csrc/fused_ar.cuh kTileCols
 GEMV_ROW_GRANULE = 64
+GEMV_STAGE_ROWS = 512  # csrc/fused_ar.cuh kStageRows
 
 
-def gemv_plan(b: int, kd: int, cols: int, lanes: int) -> symm.Gemv:
+def gemv_plan(b: int, kd: int, cols: int, lanes: int,
+              max_k_chunk: int | None = None) -> symm.Gemv:
     """A decode product's plan: about two (64-column tile, K slice) items
     for every lane of the rank, so that every lane streams weights and the
-    lanes' shares differ by one item at most."""
+    lanes' shares differ by one item at most; with ``max_k_chunk`` (the
+    one-shot form's staged items, ``GEMV_STAGE_ROWS``) K slices of at most
+    that many rows."""
     tiles = cdiv(cols, GEMV_TILE_COLS)
     n = max(1, min(cdiv(2 * lanes, tiles), cdiv(kd, GEMV_ROW_GRANULE)))
+    if max_k_chunk is not None:
+        n = max(n, cdiv(kd, max_k_chunk))
     k_chunk = cdiv(cdiv(kd, n), GEMV_ROW_GRANULE) * GEMV_ROW_GRANULE
     return symm.Gemv(b, kd, cols, cdiv(kd, k_chunk), k_chunk)
 
 
 @functools.lru_cache(maxsize=None)
-def _fused_ar_lanes(dtype_code: int, out_code: int, swiglu: bool, ranks: int) -> int:
-    lanes = build.library().tdt_fused_ar_lanes(dtype_code, out_code, int(swiglu), ranks)
+def _fused_ar_lanes(dtype_code: int, out_code: int, swiglu: bool, method_code: int,
+                    ranks: int) -> int:
+    lanes = build.library().tdt_fused_ar_lanes(dtype_code, out_code, int(swiglu), method_code,
+                                               ranks)
     if lanes <= 0:
         raise RuntimeError(f"fused_ar: no co-resident lanes for {ranks} ranks ({lanes})")
     return lanes
 
 
-def _launch_ar(swiglu: bool, x, gate_up, w, mesh: Mesh, axis: str, out_dtype) -> torch.Tensor:
-    """K15 over every rank of the mesh; returns the (B, N) result."""
+def _launch_ar(swiglu: bool, x, gate_up, w, mesh: Mesh, axis: str, out_dtype,
+               method: AllReduceMethod, stall_rank: int = -1) -> torch.Tensor:
+    """K15 over every rank of the mesh in ``method``'s form (ONE_SHOT or
+    TWO_SHOT, the ring).  Returns the ring's (B, N) result, or every rank's
+    copy of the one-shot's, (*mesh.sizes, B, N).  ``stall_rank`` (tests of
+    the bounded waits): that rank credits none of its puts."""
     team = Team.of(mesh, axis)
     n = team.size
+    one = method == AllReduceMethod.ONE_SHOT
     b, cols = x.shape[-2], w.shape[-1]
-    f, cn, k = w.shape[-2], cols // n, x.shape[-1]
+    f, k = w.shape[-2], x.shape[-1]
+    cn = cols if one else cols // n      # the product's columns: all, or a chunk's
     dt, ot = symm.DTYPE_CODES[w.dtype], symm.DTYPE_CODES[out_dtype]
-    lanes = _fused_ar_lanes(dt, ot, swiglu, mesh.size)
-    up = gemv_plan(b, k, 2 * f, lanes) if swiglu else symm.Gemv()
-    dn = gemv_plan(b, f, cn, lanes)
-    part_elems = max(up.n_kslice * b * 2 * f, 2 * dn.n_kslice * b * cn)
+    lanes = _fused_ar_lanes(dt, ot, swiglu, _CODES[method], mesh.size)
+    stage = GEMV_STAGE_ROWS if one else None   # the one-shot stages A's slices
+    up = gemv_plan(b, k, 2 * f, lanes, stage) if swiglu else symm.Gemv()
+    dn = gemv_plan(b, f, cn, lanes, stage)
+    # the ring double-buffers its chunk products' partials
+    part_elems = max(up.n_kslice * b * 2 * f, (1 if one else 2) * dn.n_kslice * b * cn)
     fam = "fused_ar"
     chunk = b * cn
-    mm = symm.landing(mesh, axis, f"{fam}_mm", (n, chunk), out_dtype).data
-    red = symm.landing(mesh, axis, f"{fam}_out", (n, chunk), out_dtype).data
-    land = symm.landing(mesh, axis, fam, (2, chunk), out_dtype)
+    mm = symm.landing(mesh, axis, f"{fam}_mm", (1 if one else n, chunk), out_dtype).data
+    if one:
+        land = symm.landing(mesh, axis, f"{fam}_slots", (n, chunk), out_dtype)
+        red = torch.empty((*mesh.sizes, b, cols), dtype=out_dtype, device=w.device)
+        rows = None
+    else:
+        land = symm.landing(mesh, axis, fam, (2, chunk), out_dtype)
+        red = symm.landing(mesh, axis, f"{fam}_out", (n, chunk), out_dtype).data
+        rows = torch.empty((b, cols), dtype=out_dtype, device=w.device)
     part = symm.landing(mesh, axis, f"{fam}_part", (part_elems,), torch.float32).data
     act = symm.landing(mesh, axis, f"{fam}_act", (b * f,), out_dtype).data if swiglu else None
-    rows = torch.empty((b, cols), dtype=out_dtype, device=w.device)
     coll = symm.coll_args(team, mesh, x=mm, out=red, land=land,
-                          pad=symm.signal_pad(mesh, axis, fam), chunk_elems=chunk, method=0)
+                          pad=symm.signal_pad(mesh, axis, fam), chunk_elems=chunk,
+                          method=_CODES[method], stall_rank=stall_rank)
     coll.dtype, coll.out_dtype = dt, ot
     none = symm.peers(None)
     args = symm.FusedArArgs(
@@ -435,11 +554,12 @@ def _launch_ar(swiglu: bool, x, gate_up, w, mesh: Mesh, axis: str, out_dtype) ->
         symm.peers(symm.slot_ptrs(gate_up, mesh)) if swiglu else none,
         symm.peers(symm.slot_ptrs(w, mesh)),
         symm.peers(symm.slot_ptrs(act, mesh)) if swiglu else none,
-        symm.peers(symm.slot_ptrs(part, mesh)), rows.data_ptr(), k, f, cols, up, dn)
+        symm.peers(symm.slot_ptrs(part, mesh)), rows.data_ptr() if rows is not None else None,
+        k, f, cols, up, dn)
     stream = torch.cuda.current_stream(w.device).cuda_stream
     build.check(build.library().tdt_fused_ar(ctypes.byref(args), int(swiglu), stream),
                 "fused_ar")
-    return rows
+    return red if one else rows
 
 
 def _ar_operands(name: str, act, w, mesh: Mesh | None, axis: str, out_dtype, wire_dtype: str,
@@ -493,9 +613,11 @@ def fused_mlp_ar(x: torch.Tensor, gate_up: torch.Tensor, down: torch.Tensor,
 
     ``x``: (B, K) replicated, one copy; ``gate_up``: rank-stacked (n, K,
     2F / n), rank r's ``[gate_r | up_r]``; ``down``: (n, F / n, N).  Returns
-    (B, N), every rank's sum.  Needs N % n == 0 (the ring's column chunks);
-    on the card also F / n, N / n, K multiples of 8 (K15's 16-byte rows),
-    else it raises; B is free.  Without a mesh or at one
+    (B, N), every rank's sum.  The reduction's form is :func:`ar_method`'s
+    choice for the (B, N) partial (the one-shot at decode sizes, else the
+    ring).  Needs N % n == 0 (the ring's column chunks); on the card also
+    F / n, N / n, K multiples of 8 (K15's 16-byte rows; the one-shot alone
+    needs N, not N / n), else it raises; B is free.  Without a mesh or at one
     rank (2-D or one-rank weights) the plain MLP, as JAX's n == 1.  A wire
     other than "bf16" raises (the quantized reductions are ROADMAP A5)."""
     n, out_dtype = _ar_operands("fused_mlp_ar", x, down, mesh, axis, out_dtype, wire_dtype,
@@ -507,19 +629,21 @@ def fused_mlp_ar(x: torch.Tensor, gate_up: torch.Tensor, down: torch.Tensor,
         return out if out.dtype == out_dtype else out.to(out_dtype)
     if not x.is_cuda:
         return fused_mlp_ar_ref(x, gate_up, down, mesh, axis, out_dtype=out_dtype)
+    method = ar_method(_out_bytes(x.shape[0], down.shape[2], out_dtype), n)
     out = _launch_ar(True, x.contiguous(), gate_up.contiguous(), down.contiguous(), mesh, axis,
-                     out_dtype)
-    count("fused_mlp_ar", (n, x.shape[0], x.shape[1], down.shape[1], down.shape[2]))
-    return out
+                     out_dtype, method)
+    count("fused_mlp_ar", (FORM_NAMES[method], n, x.shape[0], x.shape[1], down.shape[1],
+                           down.shape[2]))
+    return out[0] if method == AllReduceMethod.ONE_SHOT else out
 
 
 def fused_linear_ar(h: torch.Tensor, w: torch.Tensor, mesh: Mesh | None = None,
                     axis: str = TP_AXIS, *, config=None, out_dtype=None) -> torch.Tensor:
     """``AllReduce(h @ w)`` (JAX ``fused_decode.py:828``, the decode
     o-projection) in one launch of K15 over every rank.  ``h``: rank-stacked
-    (n, B, F / n); ``w``: (n, F / n, N).  Returns (B, N).  Needs N % n == 0;
-    on the card also F / n, N / n multiples of 8, else it raises; B is free.  Without a mesh or at one
-    rank the product."""
+    (n, B, F / n); ``w``: (n, F / n, N).  Returns (B, N), in :func:`ar_method`'s
+    form.  Needs N % n == 0; on the card also F / n, N / n multiples of 8,
+    else it raises; B is free.  Without a mesh or at one rank the product."""
     n, out_dtype = _ar_operands("fused_linear_ar", h, w, mesh, axis, out_dtype, "bf16", config)
     if n == 1:
         hh = h[0] if h.dim() == 3 else h
@@ -527,6 +651,7 @@ def fused_linear_ar(h: torch.Tensor, w: torch.Tensor, mesh: Mesh | None = None,
         return out if out.dtype == out_dtype else out.to(out_dtype)
     if not h.is_cuda:
         return fused_linear_ar_ref(h, w, mesh, axis, out_dtype=out_dtype)
-    out = _launch_ar(False, h.contiguous(), None, w.contiguous(), mesh, axis, out_dtype)
-    count("fused_linear_ar", (n, h.shape[1], h.shape[2], w.shape[2]))
-    return out
+    method = ar_method(_out_bytes(h.shape[1], w.shape[2], out_dtype), n)
+    out = _launch_ar(False, h.contiguous(), None, w.contiguous(), mesh, axis, out_dtype, method)
+    count("fused_linear_ar", (FORM_NAMES[method], n, h.shape[1], h.shape[2], w.shape[2]))
+    return out[0] if method == AllReduceMethod.ONE_SHOT else out

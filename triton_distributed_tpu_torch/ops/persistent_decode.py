@@ -47,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from ..comm import ring
+from ..comm.allreduce import AllReduceMethod
 from ..comm.launch import check_config
 from ..core import build, symm
 from ..core.launches import count
@@ -60,6 +61,9 @@ from .fused_decode import (_fused_attn_folded_ref, _inv_freq, fused_attn_decode_
                            fused_linear_ar_ref, fused_mlp_ar_ref, gemv_plan)
 from .rope import apply_rope_at
 
+# K16 chains K15's ring instances (csrc/fused_ar.cuh ar_instance) whatever the
+# partial's size, so its plain version walks the ring form
+RING = AllReduceMethod.TWO_SHOT
 LAYER_KINDS = ("ln1", "wqkv", "q_norm", "k_norm", "wo", "ln2", "gate_up", "down")
 RANK_STACKED = ("wqkv", "wo", "gate_up", "down")
 
@@ -283,14 +287,14 @@ def reference_decode_step(x: torch.Tensor, sp: StackedDecodeParams, pool_k: torc
         if n == 1:
             o = torch.matmul(att.float(), _rank_weight(wo, 0).float()).to(x.dtype)
         else:
-            o = fused_linear_ar_ref(att, wo, mesh, axis)
+            o = fused_linear_ar_ref(att, wo, mesh, axis, method=RING)
         x = x + o
         h2 = rms_norm(x, sp.weight(l, "ln2"), rms_eps)
         if n == 1:
             act = _mlp_act(h2, _rank_weight(gate_up, 0))
             m = torch.matmul(act.float(), _rank_weight(down, 0).float()).to(x.dtype)
         else:
-            m = fused_mlp_ar_ref(h2, gate_up, down, mesh, axis)
+            m = fused_mlp_ar_ref(h2, gate_up, down, mesh, axis, method=RING)
         x = x + m
     return x, pool_k, pool_v
 
