@@ -8,7 +8,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
 
 1. device   -- CUDA present with capability (9, 0); the card's name and power
                limit as ``nvidia-smi`` prints them.
-2. build    -- nvcc builds the kernels from ``triton_distributed_tpu_torch/csrc``.
+2. build    -- nvcc builds the kernels from ``triton_distributed_tpu_torch/csrc``;
+               the library's SASS must show HGMMA on UTMALDG (TMA) loads in
+               every bf16 instantiation of K12, K13 and their loop alone.
 3. kernels  -- each kernel against its plain PyTorch version on the card:
                small edge cases (f32 and bf16, GQA 1-8, soft cap, qk-norm on
                and off, ragged and empty rows, a position on a page boundary
@@ -65,7 +67,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
                ranks: n 2, 3, 4; f32, bf16 and bf16 -> f32; a rank's product
                of 1, 37 and 130 rows by K 136-1032 by N 136-264, off the tile
                on every edge; each call bitwise equal to its chain (K9 then
-               K6, K6 then K10, K6 then K11's two-shot; K14's one-shot: the
+               K12/K13's wgmma main loop run alone as a rank-stacked product,
+               that loop then K10, K6 then K11's two-shot for K14's ring,
+               which keeps K6's loop; K14's one-shot: the
                slot-order f32 sum of its own rounded partials), within a
                stated limit of its plain version (the schedule walked with
                PyTorch ops; overlap_limit charges each rounding at the size of
@@ -75,11 +79,15 @@ Phases, each printing JSON lines; any failure exits non-zero:
                limits; the gathered A bitwise, every pad at rest; interleaved
                repeats.  A child process runs a K12 in which one rank never
                credits its puts: it must fail by name, as the gather's does.
+               The wgmma loop alone at the four whole prefill products, timed
+               beside torch.matmul and K6 (kernel_main lines, not in the
+               kernels line).
                Then the main rows at Qwen3-8B tp = 4 (prefill qkv, gate_up, o,
                down at 4 x 1024 rows; decode o and down at 4 rows, K14's
                one-shot, its ring form timed in turns beside it), timed beside
                the bound (obs/costs.py's operations over all ranks, the
-               function's bytes), the plain version, the chain and one
+               function's bytes), the plain version, the chain (and K12/K13's
+               chain of PRs 6-10 on K6, k6_chain_ms) and one
                torch.matmul of the whole unsharded product.  K15 (phase
                fused_tp, after overlap) likewise: both bodies in both forms at
                the edges, then the main rows (the one-shot, the ring timed in
@@ -150,7 +158,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
                4096^3 bf16, timed interleaved (the path, counted), with
                hidden_pct, K6 and torch.matmul beside them, and K12's
                decomposition at tp = 4 (qkv, gate_up: K12 against K9 two-way
-               and K6 on the gathered rows).  Then Qwen3-8B on the contiguous
+               and its own loop alone on the gathered rows).  Then Qwen3-8B on the contiguous
                cache, full width and depth, batch 4, in psum and fused at
                tp = 1 and psum, ar, gemm_ar and fused at tp = 4: eager serves
                of a 1024- and a 700-token prompt, precompile([768, 1024])
@@ -277,10 +285,46 @@ def phase_build(tt) -> None:
     emit({"phase": "build_new_kernels", "instantiations": [
         f"{names[e]}: {per_entry[e]}" for e in per_entry
         if "fused_attn_decode_kernel" in e or "grouped_gemm" in e
-        or "ag_gemm_kernel" in e or "gemm_rs_kernel" in e
+        or "ag_gemm_kernel" in e or "gemm_rs_kernel" in e or "product_kernel" in e
         or "fused_ar_kernel" in e or "persistent_decode_kernel" in e
         or re.search(r"decode_splitI(f|13__nv_bfloat16)a", e)]})
     build.library()
+    phase_sass(build, path)
+
+
+# K12's and K13's bf16 kernels (both rings, both output dtypes) and their
+# loop alone: each must issue wgmma (HGMMA) on TMA loads (UTMALDG)
+SASS_KERNELS = {"ag_gemm_kernelI13__nv_bfloat16": 4, "gemm_rs_kernelI13__nv_bfloat16": 2,
+                "product_kernelI13__nv_bfloat16": 2}
+
+
+def phase_sass(build, lib: Path) -> None:
+    """The library's SASS (cuobjdump -sass): every bf16 instantiation of
+    K12, K13 and their loop alone runs HGMMA on UTMALDG loads."""
+    import subprocess
+
+    tool = Path(build.find_nvcc()).parent / "cuobjdump"
+    check(tool.exists(), f"{tool} not found: the SASS of K12/K13 cannot be checked")
+    res = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=300)
+    check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-2000:]}")
+    counts, fn = {}, None
+    for ln in res.stdout.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+            fn = name if any(k in name for k in SASS_KERNELS) else None
+            if fn:
+                counts[fn] = {"HGMMA": 0, "UTMALDG": 0}
+        elif fn:
+            for op in ("HGMMA", "UTMALDG"):
+                counts[fn][op] += op in ln
+    names = demangle(list(counts))
+    emit({"phase": "build_sass", "kernels": {names[f]: c for f, c in counts.items()}})
+    for key, want in SASS_KERNELS.items():
+        found = [c for f, c in counts.items() if key in f]
+        check(len(found) == want, f"{len(found)} instantiations of {key} in the SASS, not {want}")
+        check(all(c["HGMMA"] and c["UTMALDG"] for c in found),
+              f"an instantiation of {key} issues no HGMMA or no UTMALDG")
 
 
 def demangle(symbols: list[str]) -> dict[str, str]:
@@ -1890,11 +1934,14 @@ def overlap_calls(torch, mesh, a, b, a_rs, b_rs, out_dtype) -> list:
     """(label, kernel thunk, plain thunk, chain thunk, limit, faults) of
     every overlapped GEMM on these operands: K12 both rings (C and the
     gathered A), K13 and K14 in both forms, each forced through the private
-    entry.  The chains: K9 then K6 per rank; K6 per rank then K10; K6 per
-    rank then K11's two-shot (K14's ring); for K14's one-shot, the
-    slot-order f32 sum of the kernel's own rounded partials (its product
-    entries, read back), so "bitwise to its chain" holds its exchange."""
+    entry.  The chains: K9 then K12/K13's main loop alone (the rank-stacked
+    product of ``comm/launch.py::loop_product``); that loop then K10; K6 per
+    rank then K11's two-shot (K14's ring, which keeps K6's loop); for K14's
+    one-shot, the slot-order f32 sum of the kernel's own rounded partials
+    (its product entries, read back), so "bitwise to its chain" holds its
+    exchange."""
     from triton_distributed_tpu_torch import comm
+    from triton_distributed_tpu_torch.comm.launch import loop_product
     from triton_distributed_tpu_torch.ops import ag_gemm as AG
     from triton_distributed_tpu_torch.ops import gemm_ar as AR
     from triton_distributed_tpu_torch.ops import gemm_rs as RS
@@ -1903,12 +1950,12 @@ def overlap_calls(torch, mesh, a, b, a_rs, b_rs, out_dtype) -> list:
     n = mesh.shape["tp"]
     tile = dict(zip(("bm", "bn", "bk"), DEFAULT_TILES[a.dtype]))
 
-    def k6(x, w):   # K6 per rank, at the tile the overlapped GEMMs run
+    def k6(x, w):   # K6 per rank, at the tile K14's ring runs
         return torch.stack([matmul(x[r], w[r], out_dtype=out_dtype, **tile) for r in range(n)])
 
     def ag_chain(m):
         g = comm.all_gather(a, mesh, method=m)
-        return k6(g, b), g
+        return loop_product(g, b, out_dtype), g
 
     calls = []
     ag = ag_check(torch, comm.all_gather_ref(a, mesh), b, out_dtype)
@@ -1921,7 +1968,7 @@ def overlap_calls(torch, mesh, a, b, a_rs, b_rs, out_dtype) -> list:
                       lambda m=m: ag_chain(m), *ag))
     calls.append(("gemm_rs/ring", lambda: RS.gemm_rs(a_rs, b_rs, mesh, out_dtype=out_dtype),
                   lambda: RS.gemm_rs_ref(a_rs, b_rs, mesh, out_dtype=out_dtype),
-                  lambda: comm.reduce_scatter(k6(a_rs, b_rs), mesh),
+                  lambda: comm.reduce_scatter(loop_product(a_rs, b_rs, out_dtype), mesh),
                   *rs_check(torch, a_rs, b_rs, out_dtype, replicated=False)))
     ring, one = comm.AllReduceMethod.TWO_SHOT, comm.AllReduceMethod.ONE_SHOT
     calls.append(("gemm_ar/ring", lambda: AR._gemm_ar(a_rs, b_rs, mesh, "tp", out_dtype, ring),
@@ -2049,6 +2096,7 @@ def overlap_main_rows(tt, torch) -> dict:
     one-shot (``ring_ms``); at the o-projection, whose weights fit in the
     L2, both are also timed cycling through four weight copies."""
     from triton_distributed_tpu_torch import comm
+    from triton_distributed_tpu_torch.comm.launch import loop_product
     from triton_distributed_tpu_torch.core.mesh import make_mesh
     from triton_distributed_tpu_torch.core.utils import perf_func
     from triton_distributed_tpu_torch.obs import costs
@@ -2073,7 +2121,7 @@ def overlap_main_rows(tt, torch) -> dict:
             a, b = rnd(n, m // n, k), rnd(n, k, cols // n, scale=k ** -0.5)
             kern = lambda a=a, b=b: AG.ag_gemm(a, b, mesh)
             plain = lambda a=a, b=b: AG.ag_gemm_ref(a, b, mesh, bidir=True)[0]
-            chain = lambda a=a, b=b: k6(comm.all_gather(
+            chain = lambda a=a, b=b: loop_product(comm.all_gather(
                 a, mesh, method=comm.AllGatherMethod.RING_BIDIR), b)
             whole = (a.reshape(m, k), b.permute(1, 0, 2).reshape(k, cols))
             limit, _ = ag_check(torch, comm.all_gather_ref(a, mesh), b, bf)
@@ -2088,7 +2136,7 @@ def overlap_main_rows(tt, torch) -> dict:
             kern = lambda a=a, b=b, op=op: op(a, b, mesh)
             plain = lambda a=a, b=b, ref=ref: ref(a, b, mesh)
             if kind == "gemm_rs":
-                chain = lambda a=a, b=b: comm.reduce_scatter(k6(a, b), mesh)
+                chain = lambda a=a, b=b: comm.reduce_scatter(loop_product(a, b), mesh)
                 limit, _ = rs_check(torch, a, b, bf, replicated=False)
             else:
                 # the chain the "ar" path runs: K6 per rank, then K11 by its
@@ -2156,6 +2204,13 @@ def overlap_main_rows(tt, torch) -> dict:
         _, plain_ms = perf_func(plain, iters=3)
         _, chain_ms = perf_func(chain, iters=20)
         _, lib_ms = perf_func(lambda w=whole: torch.matmul(*w), iters=20)
+        if kind == "ag_gemm":   # the chain of PRs 6-10, on K6's loop
+            k6_chain = lambda a=a, b=b: k6(comm.all_gather(  # noqa: E731
+                a, mesh, method=comm.AllGatherMethod.RING_BIDIR), b)
+        elif kind == "gemm_rs":
+            k6_chain = lambda a=a, b=b: comm.reduce_scatter(k6(a, b), mesh)  # noqa: E731
+        if kind != "gemm_ar":
+            extra["k6_chain_ms"] = perf_func(k6_chain, iters=20)[1]
         flops = n * cost.flops
         bound_ms, bound_by = bound(flops, fn_bytes, H100_BF16_FLOPS)
         rows[name] = dict(
@@ -2164,8 +2219,8 @@ def overlap_main_rows(tt, torch) -> dict:
             max_abs_err=err, worst_share_of_limit=share, ms=ms, **extra, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
             library="torch.matmul of the whole unsharded product", chain_ms=chain_ms,
-            chain={"ag_gemm": "K9 two-way ring then K6 per rank",
-                   "gemm_rs": "K6 per rank then K10",
+            chain={"ag_gemm": "K9 two-way ring then the new loop over the ranks",
+                   "gemm_rs": "the new loop over the ranks then K10",
                    "gemm_ar": "K6 per rank then K11 (one-shot)"}[kind],
             flops=flops, function_bytes=fn_bytes, shape=f"n={n} M={m} K={k} N={cols} bf16",
             counter=kind, form=overlap_form(kind, n, m, k, cols))
@@ -2175,11 +2230,47 @@ def overlap_main_rows(tt, torch) -> dict:
     return rows
 
 
+def loop_main_rows(tt, torch) -> None:
+    """K12's and K13's main loop alone (``comm/launch.py::loop_product``,
+    csrc/wgmma_tile.cuh) at the four whole Qwen3-8B tp = 4 prefill products,
+    bf16, held to K6's limit of the plain product (BF16_TOL + K6_RTOL
+    |plain|) and timed beside the bound, torch.matmul and K6 at its default
+    tile: the loop's share of K12/K13's time, apart from the scaffold's.
+    Printed as kernel_main lines; the loop is no kernel of the path (no
+    launch counter), so it is not in the kernels line."""
+    from triton_distributed_tpu_torch.comm.launch import loop_product
+    from triton_distributed_tpu_torch.core.utils import perf_func
+    from triton_distributed_tpu_torch.ops.matmul import matmul
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 63)
+    atol, rtol = k6_limits(torch, torch.bfloat16)
+    for label, m, k, n in MATMUL_MAIN[2:6]:
+        a, b = k6_operands(torch, gen, m, k, n, torch.bfloat16)
+        x, w = a.unsqueeze(0), b.unsqueeze(0)
+        got = loop_product(x, w)[0]
+        want = torch.matmul(a.float(), b.float())
+        share = k5_share(got, want, atol, rtol)
+        check(share <= 1.0, f"the new loop at {label}: {share:.3g} of K6's limit")
+        t = interleaved_ms(torch, {"loop": lambda: loop_product(x, w),
+                                   "library": lambda: torch.matmul(a, b),
+                                   "k6": lambda: matmul(a, b, bm=128, bn=128, bk=32)})
+        bound_ms, bound_by = bound(2 * m * k * n, nbytes(a, b) + m * n * 2, H100_BF16_FLOPS)
+        emit({"phase": "kernel_main", "name": f"wgmma_loop[{label}]", "route": "cuda",
+              "source": "triton_distributed_tpu_torch/csrc/wgmma_tile.cuh",
+              "max_abs_err": (got.float() - want).abs().max().item(),
+              "worst_share_of_tol": share, "ms": t["loop"], "library_ms": t["library"],
+              "k6_ms": t["k6"], "bound_ms": bound_ms, "bound_by": bound_by,
+              "loop_over_library": t["loop"] / t["library"], "shape": f"{m}x{k}x{n} bf16"})
+        del a, b, x, w, got, want
+    gc.collect()
+
+
 def phase_overlap(tt, torch) -> dict:
-    """K12-K14: edge cases, then the main rows (their launches are read from
-    the serve_tp path)."""
+    """K12-K14: edge cases, the new loop alone, then the main rows (their
+    launches are read from the serve_tp path)."""
     t0 = time.perf_counter()
     phase_overlap_cases(tt, torch)
+    loop_main_rows(tt, torch)
     rows = overlap_main_rows(tt, torch)
     for row in rows.values():
         emit({"phase": "kernel_main", **{k: v for k, v in row.items() if k != "form"}})
@@ -4642,9 +4733,11 @@ def probe_main_rows(tt, torch) -> tuple[dict, dict]:
     timed interleaved (the path: counted), ``hidden_pct``, each beside its
     bound, its plain version, K6 at its default tile and torch.matmul; then
     the collective decomposition of bench.py's overlap_collective at tp = 4:
-    K12 (qkv, gate_up) against the two-way K9 and K6 on the gathered rows.
+    K12 (qkv, gate_up) against the two-way K9 and K12's own main loop alone
+    on the gathered rows (``comm/launch.py::loop_product``).
     Returns the rows and the path's launches by form."""
     from triton_distributed_tpu_torch import comm
+    from triton_distributed_tpu_torch.comm.launch import loop_product
     from triton_distributed_tpu_torch.core.mesh import make_mesh
     from triton_distributed_tpu_torch.core.utils import perf_func
     from triton_distributed_tpu_torch.ops import ag_gemm as AG
@@ -4706,8 +4799,7 @@ def probe_main_rows(tt, torch) -> tuple[dict, dict]:
         t = interleaved_ms(torch, {
             "fused": lambda: AG.ag_gemm(x, w, mesh),
             "comm": lambda: comm.all_gather(x, mesh, method=comm.AllGatherMethod.RING_BIDIR),
-            "gemm": lambda: [matmul(gathered[r], w[r], bm=128, bn=128, bk=32)
-                             for r in range(n)]})
+            "gemm": lambda: loop_product(gathered, w)})
         emit({"phase": "overlap_collective", "name": name, "tp": n, "m": m, "k": k,
               "n_cols": cols, "fused_ms": t["fused"], "comm_ms": t["comm"],
               "gemm_ms": t["gemm"], "hidden_pct": OV.hidden_pct(t["fused"], t["comm"], t["gemm"])})

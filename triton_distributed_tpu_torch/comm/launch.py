@@ -70,8 +70,9 @@ def gemm_operands(a, b, mesh: Mesh, axis, out_dtype, wire_dtype: str = "bf16"):
 
 def check_config(config) -> None:
     """An overlapped GEMM's ``config``: None only.  Each dtype's kernel is
-    built for one tile (``csrc/gemm_tile.cuh``); the tuner's tiles are not
-    wired to these kernels yet."""
+    built for one tile (K12/K13: ``csrc/wgmma_tile.cuh``'s 128 x 256 in bf16,
+    ``csrc/gemm_tile.cuh``'s 64 x 64 in f32; K14's ring: ``gemm_tile.cuh``);
+    the tuner's tiles are not wired to these kernels yet."""
     if config is not None:
         raise NotImplementedError(
             f"config={config!r}: the overlapped GEMMs run the one tile each dtype's "
@@ -79,8 +80,9 @@ def check_config(config) -> None:
 
 
 def check_tile_dims(k: int, n_cols: int) -> None:
-    """The overlapped GEMMs' tiles read 16-byte row pieces: K and the
-    product's columns must be multiples of 8 (``csrc/gemm_tile.cuh``)."""
+    """The overlapped GEMMs' tiles read 16-byte row pieces (TMA row pitches,
+    ``cp.async`` chunks): K and the product's columns must be multiples of
+    8."""
     if k % 8 or n_cols % 8:
         raise ValueError(f"K = {k} and N = {n_cols} must be multiples of 8")
 
@@ -151,3 +153,26 @@ def launch_gemm(entry: str, family: str, team: Team, mesh: Mesh, *, x: torch.Ten
     fn = getattr(build.library(), entry)
     build.check(fn(ctypes.byref(args), *extra, torch.cuda.current_stream(b.device).cuda_stream),
                 entry)
+
+
+def loop_product(x: torch.Tensor, w: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """K12's and K13's main loop run alone (``csrc/overlap_gemm.cu``
+    ``tdt_wgmma_product``): ``y[r] = x[r] @ w[r]`` for CUDA ``x`` (..., M,
+    K) and ``w`` (..., K, N) with the same leading dims, K and N multiples of
+    8.  It counts no launch: no path runs it; ``chip_smoke.py`` builds the
+    chains that K12 and K13 are held to bitwise on it."""
+    out_dtype = out_dtype or x.dtype
+    (m, k), n_cols = x.shape[-2:], w.shape[-1]
+    lead = x.shape[:-2]
+    if w.shape[:-2] != lead or w.shape[-2] != k or not x.is_cuda or x.dtype != w.dtype or (
+            x.dtype, out_dtype) not in GEMM_DTYPES:
+        raise ValueError(f"loop_product takes CUDA x (..., M, K) and w (..., K, N) of one "
+                         f"dtype: got {tuple(x.shape)} {x.dtype}, {tuple(w.shape)} {w.dtype}")
+    check_tile_dims(k, n_cols)
+    x, w = x.contiguous(), w.contiguous()
+    y = torch.empty((*lead, m, n_cols), dtype=out_dtype, device=x.device)
+    fn = build.library().tdt_wgmma_product
+    build.check(fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), x.numel() // (m * k), m, k, n_cols,
+                   symm.DTYPE_CODES[x.dtype], symm.DTYPE_CODES[out_dtype],
+                   torch.cuda.current_stream(x.device).cuda_stream), "tdt_wgmma_product")
+    return y

@@ -10,7 +10,9 @@ passed by value in the launch (:class:`CollArgs`), so a call copies nothing
 to the device and does not synchronize.
 
 Signal pads hold the flags of ``csrc/dl.cuh``: one row of
-``FLAGS_PER_LANE`` int32 per lane (block index) of a launch, per rank.  A pad
+``FLAGS_PER_LANE`` int32 per lane (block index) of a launch, per rank; K12
+and K13 keep their lanes in the first half of the rows, and K13 its
+(hop, tile) flags in the second (``comm/tiles.py``).  A pad
 persists per (team, family) and is zero at rest: every collective takes
 every credit it is given before it ends, so the host never clears a pad
 between calls.  Landing slots (the ReduceScatter ring's receive slots, the
@@ -32,7 +34,7 @@ import math
 
 import torch
 
-from ..lang.primitives import FLAG_NAMES, FLAGS_PER_LANE, Team
+from ..lang.primitives import FLAGS_PER_LANE, Team, flag_name
 from .mesh import MAX_RANKS, Mesh
 
 # lanes a launch may use: the pads' rows (at least the blocks an H100 holds
@@ -282,7 +284,7 @@ def wait_record() -> dict | None:
     if not rec[0]:
         return None
     return {"rank": rec[1], "group": rec[2], "slot": rec[3], "lane": rec[4],
-            "flag": FLAG_NAMES.get(rec[5], str(rec[5])), "seen": rec[6], "want": rec[7]}
+            "flag": flag_name(rec[5]), "seen": rec[6], "want": rec[7]}
 
 
 def raise_if_timed_out() -> None:

@@ -60,6 +60,16 @@ constexpr int kAck = 3;      // + slot: consumption credits of those slots
 constexpr int kSyncArrive = 5;
 constexpr int kSyncLeave = 6;
 constexpr int kRecv = 8;     // + chunk or one-shot slot: arrivals
+// K12's per-chunk counts of lanes whose slice is here, and the count of
+// lanes past their last read of them, in lane 0's row only
+constexpr int kReady = 16;   // + chunk
+constexpr int kReadyLeave = 24;
+// K13's per-tile arrival flags: the second half of a rank's pad (lanes of
+// K12/K13 stay below kMaxLanes / 2), one flag per (hop, tile); a wait that
+// runs out records kTileId + the flag's index
+constexpr int kTileFlagBase = kMaxLanes / 2 * kFlagsPerLane;
+constexpr int kTileFlags = kMaxLanes * kFlagsPerLane - kTileFlagBase;
+constexpr int kTileId = 1 << 16;
 
 struct Peers {
   char* p[kMaxRanks];  // base address, per mesh slot
@@ -227,7 +237,7 @@ __device__ __forceinline__ void collective_prologue(const Rank& c, bool neighbor
   else barrier_all<S>(c);
 }
 
-// A rank-wide barrier that a launch may pass any number of times (K12-K14's
+// A rank-wide barrier that a launch may pass any number of times (K14's ring's
 // chunks, K15's and K16's stages: each reads what other lanes of the rank
 // wrote; a GEMM tile reads whole rows of a chunk that moves in lane slices,
 // and writes columns that every lane's slice covers): the

@@ -192,18 +192,28 @@ __device__ __forceinline__ void bf16_tile(const bf16* __restrict__ A,
 
 // f32: 4 x 4 outputs a thread, A staged transposed so a thread's four rows
 // are one broadcast read; every k step ends in a sync, so tiles may run
-// back to back.
+// back to back.  The sync is the block's (K6, K19), or with Sync<N> a named
+// barrier over the block's first N threads (the overlapped GEMMs, whose
+// other warps move data meanwhile).
 constexpr int kF32BM = 64, kF32BN = 64, kF32BK = 16, kF32Threads = 256;
 
-template <typename OutT>
-__device__ __forceinline__ void f32_tile(const float* __restrict__ A,
-                                         const float* __restrict__ B,
-                                         OutT* __restrict__ C, int M, int N,
-                                         int K, int m0, int n0) {
+template <int N = 0> struct Sync {
+  __device__ static void sync() {
+    if constexpr (N == 0) __syncthreads();
+    else asm volatile("bar.sync 1, %0;" ::"n"(N) : "memory");
+  }
+};
+
+// acc (zeroed by the caller) += the tile's product: acc[i][c] is row
+// m0 + threadIdx.x / 16 + 16 i, column n0 + (threadIdx.x % 16) * 4 + c.
+template <class S = Sync<>>
+__device__ __forceinline__ void f32_acc(const float* __restrict__ A,
+                                        const float* __restrict__ B, int M,
+                                        int N, int K, int m0, int n0,
+                                        float (&acc)[4][4]) {
   __shared__ __align__(16) float as[kF32BK][kF32BM + 4];
   __shared__ __align__(16) float bs[kF32BK][kF32BN];
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  float acc[4][4] = {};
+  const int tid = threadIdx.x, tx = tid % 16;
   for (int k0 = 0; k0 < K; k0 += kF32BK) {
 #pragma unroll
     for (int it = 0; it < kF32BM * kF32BK / kF32Threads; ++it) {
@@ -221,21 +231,31 @@ __device__ __forceinline__ void f32_tile(const float* __restrict__ A,
         v = *reinterpret_cast<const float4*>(B + static_cast<size_t>(k0 + r) * N + n0 + c);
       *reinterpret_cast<float4*>(&bs[r][c]) = v;
     }
-    __syncthreads();
+    S::sync();
 #pragma unroll
     for (int k = 0; k < kF32BK; ++k) {
       const float4 b = *reinterpret_cast<const float4*>(&bs[k][tx * 4]);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float a = as[k][ty + 16 * i];
+        const float a = as[k][tid / 16 + 16 * i];
         acc[i][0] = fmaf(a, b.x, acc[i][0]);
         acc[i][1] = fmaf(a, b.y, acc[i][1]);
         acc[i][2] = fmaf(a, b.z, acc[i][2]);
         acc[i][3] = fmaf(a, b.w, acc[i][3]);
       }
     }
-    __syncthreads();
+    S::sync();
   }
+}
+
+template <typename OutT, class S = Sync<>>
+__device__ __forceinline__ void f32_tile(const float* __restrict__ A,
+                                         const float* __restrict__ B,
+                                         OutT* __restrict__ C, int M, int N,
+                                         int K, int m0, int n0) {
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  float acc[4][4] = {};
+  f32_acc<S>(A, B, M, N, K, m0, n0, acc);
   const int col = n0 + tx * 4;
   if (col < N) {
 #pragma unroll

@@ -109,12 +109,25 @@ def ring_src_rank(team: Team, me: int, step: int) -> int:
 FLAGS_PER_LANE = 32
 FLAG_IDS = {("barrier", 0): 0, ("rs_recv", 0): 1, ("rs_recv", 1): 2,
             ("ack", 0): 3, ("ack", 1): 4,
-            # the rank-wide barrier of K12-K16, in lane 0's row only
+            # the rank-wide barrier of K14-K16, in lane 0's row only
             # (csrc/dl.cuh rank_sync): lanes arrived, lanes past the
             # launch's last one
             ("sync_arrive", 0): 5, ("sync_leave", 0): 6,
-            **{("recv", c): 8 + c for c in range(8)}}
+            **{("recv", c): 8 + c for c in range(8)},
+            # K12, in lane 0's row only: lanes whose slice of chunk c is here,
+            # lanes past their last read of those counts
+            **{("ready", c): 16 + c for c in range(8)}, ("ready_leave", 0): 24}
 FLAG_NAMES = {v: f"{name}[{i}]" for (name, i), v in FLAG_IDS.items()}
+# K13's (hop, tile) flags fill the pads' second half; a wait on flag i of
+# them that runs out records TILE_FLAG_ID + i (csrc/dl.cuh kTileId)
+TILE_FLAG_ID = 1 << 16
+
+
+def flag_name(flag_id: int) -> str:
+    """The name of a flag id as a wait record gives it."""
+    if flag_id >= TILE_FLAG_ID:
+        return f"tile[{flag_id - TILE_FLAG_ID}]"
+    return FLAG_NAMES.get(flag_id, str(flag_id))
 
 
 @dataclasses.dataclass(frozen=True)

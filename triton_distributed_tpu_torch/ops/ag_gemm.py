@@ -7,8 +7,11 @@ two-way ring, ``comm/ring.py``) into a gathered copy on every rank, and each
 chunk is forwarded the moment it arrives and then multiplied, the local
 chunk first, so the copy of chunk s + 1 rides under the product of chunk s
 (JAX ``ag_gemm.py:97-117``, the two-way ring ``:139-144``).  On the card one
-cooperative launch of K12 (``csrc/overlap_gemm.cu``) runs every rank; CPU
-tensors walk the same schedule with PyTorch ops (:func:`ag_gemm_ref`).
+cooperative launch of K12 (``csrc/overlap_gemm.cu``) runs every rank: its
+lanes' spare warps move the ring's slices while the wgmma main loop takes
+the rank's tiles chunk by chunk, each chunk as soon as every slice of it is
+here (``comm/tiles.py`` mirrors the lanes and tiles); CPU tensors walk the
+rank-level schedule with PyTorch ops (:func:`ag_gemm_ref`).
 
 Port decisions:
 

@@ -8,8 +8,11 @@ farthest (rank me - 1's) is computed first and sent raw; at every later
 step the next chunk is computed while the last hop is in flight, then the
 received partial and the fresh product are added and sent on, and the last
 add lands in this rank's output (JAX ``gemm_rs.py:89-123``).  On the card
-one cooperative launch of K13 (``csrc/overlap_gemm.cu``) runs every rank;
-CPU tensors walk the same schedule (:func:`gemm_rs_ref`).
+one cooperative launch of K13 (``csrc/overlap_gemm.cu``) runs every rank,
+tile by tile: a tile's epilogue adds the left neighbour's partial of that
+tile as soon as its flag arrives and writes the sum straight into the
+right neighbour's landing slot (``comm/tiles.py`` mirrors the lanes and
+tiles); CPU tensors walk the rank-level schedule (:func:`gemm_rs_ref`).
 
 Rounding, as JAX's: a chunk's product is rounded to the output dtype (its
 ``mm_buf``), and every hop adds in the output dtype (``blocks.add_body``:
@@ -20,11 +23,12 @@ Port decisions:
 - Operands rank-stacked: ``a`` ``(*mesh.sizes, M, k_loc)`` (JAX: (M, K)
   sharded on dim 1), ``b`` ``(*mesh.sizes, k_loc, N)`` (JAX: sharded on dim
   0).  The result is ``(*mesh.sizes, M / n, N)``: rank r's rows of the sum.
-- The products live in one buffer entry per chunk (JAX keeps two and
-  reuses them every other step): the card's lanes then never wait for each
-  other before overwriting one.  The send semaphores and their drains have
-  no counterpart (``lang/primitives.py``); the ACK credits and their drain
-  for n = 2, 3 and >= 4 stay (``comm/ring.py::rs_ack_drain``).
+- On the card no chunk's product is stored: each tile's epilogue rounds
+  it and adds it on the way.  The partials land in n - 1 slots, one a hop
+  (JAX keeps two and acknowledges each reuse), so a slot is written once a
+  call and needs no acknowledgement; the plain walk keeps JAX's two slots,
+  its ACK credits and their drain (``comm/ring.py::rs_ack_drain``).  The
+  send semaphores have no counterpart (``lang/primitives.py``).
 - ``config`` None only (``ops/ag_gemm.py``); ``wire_dtype``
   other than "bf16" and a tuple axis raise; n == 1 is a plain product.
 """
@@ -33,7 +37,7 @@ from __future__ import annotations
 
 import torch
 
-from ..comm import ring
+from ..comm import ring, tiles
 from ..comm.launch import check_config, check_tile_dims, gemm_operands, launch_gemm, walk_teams
 from ..core import symm
 from ..core.launches import count
@@ -77,8 +81,8 @@ def rs_buffers(a, b, out, mesh: Mesh, n: int, out_dtype):
 
 
 def launch_rs(entry: str, family: str, team: Team, mesh: Mesh, a, b, out, out_dtype) -> None:
-    """Launch K13 or K14: the receive slots and product entries are landing
-    buffers of the family (``core/symm.py::landing``)."""
+    """Launch K14's ring form: the two receive slots and the product entries
+    are landing buffers of the family (``core/symm.py::landing``)."""
     n, (m, k), cols = team.size, a.shape[-2:], b.shape[-1]
     chunk_elems = m // n * cols
     land = symm.landing(mesh, team.axis, family, (2, chunk_elems), out_dtype)
@@ -111,7 +115,12 @@ def _gemm_rs(a: torch.Tensor, b: torch.Tensor, mesh: Mesh, axis: str, out_dtype)
         return gemm_rs_ref(a, b, mesh, axis, out_dtype=out_dtype)
     team, a, b, out = _setup(a, b, mesh, axis, out_dtype)
     if out.shape[-2]:
-        launch_rs("tdt_gemm_rs", "gemm_rs", team, mesh, a, b, out, out_dtype)
+        n, (m, k), cols = team.size, a.shape[-2:], b.shape[-1]
+        tiles.check_tile_flags(n, m // n, cols, a.dtype)
+        land = symm.landing(mesh, team.axis, "gemm_rs", (n - 1, m // n * cols), out_dtype)
+        launch_gemm("tdt_gemm_rs", "gemm_rs", team, mesh, x=out, out=out, land=land, a=a, b=b,
+                    y=out, chunk_elems=m // n * cols, m_loc=m // n, k=k, n_cols=cols,
+                    out_dtype=out_dtype)
         count("gemm_rs", ("ring", team.size, tuple(a.shape[-2:]), tuple(b.shape[-2:])))
     return out
 
