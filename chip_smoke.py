@@ -56,12 +56,15 @@ Phases, each printing JSON lines; any failure exits non-zero:
                repeats; a {"dp": 2, "tp": 4} mesh over either axis.  A child
                process runs a gather in which one rank never credits its
                puts: it must fail by name (rank 0, flag recv[1]) when the
-               bounded wait runs out.  Then the main rows at Qwen3-8B's width
+               bounded wait runs out; so must K11's one-shot and K17 in both
+               their scopes.  Then the main rows at Qwen3-8B's width
                under tp = 4 (bf16; AG of 1024 x 4096 and 1 x 4096 shards, RS
                of 4096 x 4096 partials, one-shot AR 4 x 4096, two-shot AR
                4096 x 4096), counted, timed beside the HBM bound of all the
                ranks' bytes, the NVLink time four cards would take (not
-               measured), the plain version and one PyTorch call.
+               measured), the plain version and one PyTorch call; K11's
+               one-shot in its system-scope form (the multi-card host's) at
+               4 x 4096, bitwise, timed in turns with the device-scope form.
    overlap  -- K12-K14 (AllGather-GEMM both rings, GEMM-ReduceScatter,
                GEMM-AllReduce in its ring and its one-shot form) on co-located
                ranks: n 2, 3, 4; f32, bf16 and bf16 -> f32; a rank's product
@@ -115,17 +118,21 @@ Phases, each printing JSON lines; any failure exits non-zero:
                H 16, 144 and 2048 (+ 128; 136-byte rows refused),
                37 or 200 rows a rank, uniform and skewed splits (every row to
                one peer, a silent rank, empty experts, short totals), the
-               farthest-first emission order; dispatch and combine held
-               bitwise to the plain versions on the valid rows with every
-               landing buffer planted with NaN first, the round trip equal to
-               the input, every pad at rest.  K18 (the wire pack) bitwise
-               against its plain version, fp8 and int8, f32 and bf16 rows,
-               1-1000 rows, H 16-4096, with an all-zero, an all-negative, a
-               denormal-range row and one element at 1e4, decoded within the
-               codec's envelope.  The parity-slot AllGather layer (B17 on
-               K9): slots alternate, call k intact through call k + 1,
-               memory flat from the second call.  The collectives phase's
-               stalled-rank child runs K17 too (it must fail by name).
+               farthest-first emission order, one row a rank and one row to
+               each peer (most lanes credit a share of zero rows); dispatch
+               and combine held bitwise to the plain versions on the valid
+               rows with every landing buffer planted with NaN first, the
+               round trip equal to the input, every pad at rest; the
+               system-scope form at n = 4 on 8192 bf16 rows of 4096 bytes a
+               rank, bitwise, timed in turns with the device-scope form.
+               K18 (the wire pack) bitwise against its plain version, fp8
+               and int8, f32 and bf16 rows, 1-1000 rows, H 16-4096, with an
+               all-zero, an all-negative, a denormal-range row and one
+               element at 1e4, decoded within the codec's envelope.  The
+               parity-slot AllGather layer (B17 on K9): slots alternate,
+               call k intact through call k + 1, memory flat from the second
+               call.  The collectives phase's stalled-rank children run K17
+               too, both scopes (each must fail by name).
    serve_tp -- Qwen3-8B at tp = 4 on four ranks co-located on the card, full
                width and depth (the tp = 1 engines freed first), batch 4,
                prompts of 1024, 64 new tokens, in contiguous psum and paged
@@ -1599,11 +1606,11 @@ def phase_collective_cases(tt, torch) -> None:
 
 def stalled_rank_child(kernel: str) -> int:
     """Run in a child process by phase_wait_bound: a two-rank gather (K9's
-    one-way ring), AG-GEMM (K12's), K16 step, EP dispatch (K17) or K15's
-    one-shot o-projection (its device-scope waits) in which rank 1 never
-    credits its puts, so a wait runs out and the launch fails.  Exits
-    non-zero through the uncaught error, which names the rank and the
-    flag."""
+    one-way ring), AG-GEMM (K12's), K16 step, EP dispatch (K17, both
+    scopes), K15's one-shot o-projection (its device-scope waits) or K11's
+    one-shot (both scopes) in which rank 1 never credits its puts, so a
+    wait runs out and the launch fails.  Exits non-zero through the uncaught
+    error, which names the rank and the flag."""
     import torch
 
     from triton_distributed_tpu_torch.comm import AllGatherMethod
@@ -1626,11 +1633,17 @@ def stalled_rank_child(kernel: str) -> int:
         PD._launch(params.embed[:2], PD.stack_decode_params(params), cache.k, cache.v,
                    cache.block_table, cache.seq_lens, mesh, "tp", rope_theta=c.rope_theta,
                    rms_eps=c.rms_eps, qk_eps=None, sm_scale=0.125, soft_cap=0.0, stall_rank=1)
-    elif kernel == "all_to_all":
+    elif kernel in ("all_to_all", "all_to_all_sys"):
         from triton_distributed_tpu_torch.comm.all_to_all import AllToAllConfig, _dispatch
 
         splits = torch.full((2, 2), 2, dtype=torch.int32, device="cuda")
-        _dispatch(x, splits, mesh, "tp", AllToAllConfig(), stall_rank=1)
+        _dispatch(x, splits, mesh, "tp", AllToAllConfig(), stall_rank=1,
+                  system_scope=kernel.endswith("_sys"))
+    elif kernel in ("all_reduce", "all_reduce_sys"):
+        from triton_distributed_tpu_torch.comm.allreduce import AllReduceMethod, _all_reduce
+
+        _all_reduce(x, mesh, "tp", AllReduceMethod.ONE_SHOT, torch.float32,
+                    system_scope=kernel.endswith("_sys"), stall_rank=1)
     elif kernel == "ag_gemm":
         w = torch.ones(2, 64, 64, device="cuda")
         _ag_gemm(x, w, mesh, "tp", torch.float32, bidir=False, stall_rank=1)
@@ -1653,7 +1666,8 @@ def stalled_rank_child(kernel: str) -> int:
     return 0
 
 
-STALL_KERNELS = ("all_gather", "ag_gemm", "persistent_decode", "all_to_all", "fused_ar")
+STALL_KERNELS = ("all_gather", "ag_gemm", "persistent_decode", "all_to_all", "all_to_all_sys",
+                 "fused_ar", "all_reduce", "all_reduce_sys")
 # the (rank, flag) a stalled child must name: K16's rank 1 credits none of
 # its ring puts, so rank 0 waits on its first ReduceScatter arrival, or rank
 # 1, past its own ReduceScatter, on its first AllGather arrival, whichever
@@ -1662,14 +1676,18 @@ STALL_NAMES = {"all_gather": (("rank 0 ", "recv[1]"),), "ag_gemm": (("rank 0 ", 
                "persistent_decode": (("rank 0 ", "rs_recv[0]"), ("rank 1 ", "recv[0]")),
                # K17: rank 1 credits none of its puts, its own zone's included
                "all_to_all": (("rank 0 ", "recv[1]"), ("rank 1 ", "recv[1]")),
-               # K15's one-shot: rank 0 waits on rank 1's push
-               "fused_ar": (("rank 0 ", "recv[1]"),)}
+               "all_to_all_sys": (("rank 0 ", "recv[1]"), ("rank 1 ", "recv[1]")),
+               # K15's and K11's one-shot: rank 0 waits on rank 1's push
+               "fused_ar": (("rank 0 ", "recv[1]"),),
+               "all_reduce": (("rank 0 ", "recv[1]"),),
+               "all_reduce_sys": (("rank 0 ", "recv[1]"),)}
 
 
 def phase_wait_bound(torch, kernels=STALL_KERNELS) -> None:
     """A wait cannot hang the run: each child's stalled launch (K9's gather,
-    K12's AG-GEMM, K16, K17, K15's one-shot) must fail by name (STALL_NAMES)
-    within the bounded wait, and this process's context carries on."""
+    K12's AG-GEMM, K16, K17 and K11's one-shot at both scopes, K15's
+    one-shot) must fail by name (STALL_NAMES) within the bounded wait, and
+    this process's context carries on."""
     import subprocess
 
     for kernel in kernels:
@@ -1698,9 +1716,9 @@ def coll_bytes(kind: str, n: int, p: int, po: int) -> tuple[int, int, int]:
     one chunk, an AllReduce's whole sum).  The schedule's bytes add every
     landing write and read the design needs: a gather writes n chunks a rank
     and (rings) reads each chunk it forwards; the ReduceScatter ring writes
-    and reads n - 1 slots a rank; the one-shot writes and reads n slots a
-    rank; the two-shot does the ring, then writes n and forwards n - 1
-    out-chunks a rank."""
+    and reads n - 1 slots a rank; the one-shot writes and reads n - 1 slots a
+    rank (its own partial is summed from x in place); the two-shot does the
+    ring, then writes n and forwards n - 1 out-chunks a rank."""
     c = p // n
     if kind in ("push", "ring", "bidir"):
         fn = n * p + n * n * p
@@ -1710,7 +1728,7 @@ def coll_bytes(kind: str, n: int, p: int, po: int) -> tuple[int, int, int]:
         return n * p + n * c, n * p + 2 * n * (n - 1) * c + n * c, (n - 1) * c
     fn = n * p + n * po
     if kind == "one_shot":
-        return fn, n * p + 2 * n * n * p + n * po, (n - 1) * p
+        return fn, n * p + 2 * n * (n - 1) * p + n * po, (n - 1) * p
     co = po // n
     return fn, n * (p + 2 * (n - 1) * c + (2 * n - 1) * co), (n - 1) * (c + co)
 
@@ -1799,14 +1817,46 @@ def collective_main_rows(tt, torch) -> tuple[dict, dict, dict]:
     return rows, launches, forms
 
 
+def k11_system_scope(torch) -> None:
+    """K11's one-shot in its system-scope form (kept for the multi-card
+    host: the entry barrier, system-scope flags) at the main row's shape, 4 x
+    4096 bf16 at n = 4: bitwise the plain version (the slot-order f32 sum),
+    like the device-scope form, every pad at rest after each; both timed in
+    turns (a kernel_main line; no path runs the system-scope form, so it is
+    not in the kernels line)."""
+    from triton_distributed_tpu_torch import comm
+    from triton_distributed_tpu_torch.comm.allreduce import _all_reduce
+    from triton_distributed_tpu_torch.core.mesh import make_mesh
+
+    n, w, bf = COLL_TP, COLL_WIDTH, torch.bfloat16
+    mesh = make_mesh({"tp": n})
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 42)
+    x = torch.randn((n, BATCH, w), generator=gen, device="cuda").to(bf)
+    one = comm.AllReduceMethod.ONE_SHOT
+    forms = {"device": lambda: _all_reduce(x, mesh, "tp", one, bf),
+             "system": lambda: _all_reduce(x, mesh, "tp", one, bf, system_scope=True)}
+    want = comm.all_reduce_ref(x, mesh, "tp", one, bf)
+    for scope, fn in forms.items():
+        got = fn()
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"K11 one-shot, {scope} scope: differs from the plain "
+                                      "version")
+        check(pads_at_rest(), f"K11 one-shot, {scope} scope: a signal pad is not at rest")
+    ms = interleaved_ms(torch, forms)
+    emit({"phase": "kernel_main", "name": f"all_reduce[one_shot {BATCH}x{w}, system scope]",
+          "ms": ms["system"], "device_scope_ms": ms["device"], "bitwise": True,
+          "pads_at_rest": True, "timed": "in turns, median of 5 rounds of 10 calls"})
+
+
 def phase_collectives(tt, torch) -> tuple[dict, dict, dict]:
     """K9-K11: edge cases, the timeout child, then the main rows (counted and
-    timed).  Returns the kernel rows and the path's launches, total and by
-    form."""
+    timed) and K11's one-shot at system scope.  Returns the kernel rows and
+    the path's launches, total and by form."""
     t0 = time.perf_counter()
     phase_collective_cases(tt, torch)
     phase_wait_bound(torch)
     rows, launches, forms = collective_main_rows(tt, torch)
+    k11_system_scope(torch)
     emit({"phase": "collectives_path",
           "launches": {k: v for k, v in launches.items() if v},
           "by_form": [[name, list(f), v] for (name, f), v in forms.items()]})
@@ -3349,6 +3399,44 @@ def a2a_case(torch, mesh, x, spl, config=None) -> None:
               f"combine: rank {r}'s rows differ from the plain version or the input")
 
 
+def a2a_system_scope(torch, gen, cgen) -> None:
+    """K17 in its system-scope form (kept for the multi-card host: the entry
+    barrier, system-scope flags) at n = 4 on 8192 bf16 rows of 4096 bytes a
+    rank, uniform over 128 experts (the EP prefill's width and rows):
+    dispatch and combine bitwise the plain versions on the valid rows, like
+    the device-scope form, every pad at rest after each; both forms of the
+    dispatch timed in turns (a kernel_main line; no path runs the
+    system-scope form, so it is not in the kernels line)."""
+    from triton_distributed_tpu_torch.comm import all_to_all as A
+    from triton_distributed_tpu_torch.core.mesh import make_mesh
+
+    n, t, h = EP_TP, MOE_TOKENS // EP_TP * 8, 2048
+    mesh = make_mesh({"tp": n})
+    spl = ep_splits(torch, gen, n, t, 128, "uniform")
+    x = torch.randn((n, t, h), generator=cgen, device="cuda").to(torch.bfloat16)
+    cfg = A.AllToAllConfig()
+    want, want_rs = A._dispatch(x, spl, mesh, "tp", cfg, plain=True)
+    sent = spl.reshape(n, n, -1).sum(-1).cpu()
+    forms = {scope: (lambda system=(scope == "system"): A._dispatch(
+        x, spl, mesh, "tp", cfg, system_scope=system)[0]) for scope in ("device", "system")}
+    for scope, fn in forms.items():
+        recv = fn()
+        torch.cuda.synchronize()
+        check(pads_at_rest(), f"K17 dispatch, {scope} scope: a signal pad is not at rest")
+        check(all(torch.equal(recv[r, p, :int(sent[p, r])], want[r, p, :int(sent[p, r])])
+                  for r in range(n) for p in range(n)),
+              f"K17 dispatch, {scope} scope: a zone differs from the plain version")
+        back = A._combine(want, spl, mesh, "tp", t, cfg, system_scope=scope == "system")
+        torch.cuda.synchronize()
+        check(pads_at_rest(), f"K17 combine, {scope} scope: a signal pad is not at rest")
+        check(torch.equal(back, x), f"K17 combine, {scope} scope: the round trip differs")
+    ms = interleaved_ms(torch, forms)
+    emit({"phase": "kernel_main", "name": f"all_to_all[dispatch bf16 {t}x{2 * h}B, system scope]",
+          "ms": ms["system"], "device_scope_ms": ms["device"], "bitwise": True,
+          "pads_at_rest": True, "timed": "in turns, median of 5 rounds of 10 calls"})
+    del x, want, want_rs
+
+
 def pack_edge_rows(torch, gen, rows: int, h: int, dtype):
     """Randn rows with, where there are enough rows, an all-zero row, an
     all-negative row, a denormal-range row and a row with one element at
@@ -3402,6 +3490,19 @@ def phase_ep_cases(tt, torch) -> None:
             a2a_case(torch, mesh, x, spl, comm.AllToAllConfig(schedule=order))
             emit({"phase": "ep_case", "kernel": "all_to_all", "n": n, "schedule": list(order),
                   "bitwise": True})
+        # one row a rank; one row to each peer: most lanes credit a share of
+        # zero rows
+        for t, per_peer in ((1, False), (n, True)):
+            spl = (torch.tensor([1, 0] * n, dtype=torch.int32).repeat(n, 1).cuda() if per_peer
+                   else ep_splits(torch, gen, n, t, 2 * n, "uniform"))
+            for kind, x in (("bf16", torch.randn((n, t, 2048), generator=cgen, device="cuda")
+                             .to(torch.bfloat16)),
+                            ("u8", torch.randint(0, 256, (n, t, 2048 + Q.SIDECAR), generator=cgen,
+                                                 device="cuda", dtype=torch.uint8))):
+                a2a_case(torch, mesh, x, spl)
+                emit({"phase": "ep_case", "kernel": "all_to_all", "n": n, "rows": kind,
+                      "rows_a_rank": t, "splits": "one row to each peer" if per_peer else
+                      "uniform", "bitwise": True, "pads_at_rest": True})
     mesh = make_mesh({"tp": 2})
     try:
         comm.ep_dispatch(torch.zeros((2, 4, 136), dtype=torch.uint8, device="cuda"),
@@ -3411,6 +3512,7 @@ def phase_ep_cases(tt, torch) -> None:
         refused = True
     check(refused, "K17 took rows of 136 bytes (not a multiple of 16)")
     emit({"phase": "ep_case", "kernel": "all_to_all", "row_bytes": 136, "refused": True})
+    a2a_system_scope(torch, gen, cgen)
     for dt in (torch.float32, torch.bfloat16):
         for rows in (1, 37, 1000):
             for h in (16, 2048, 4096):

@@ -19,11 +19,15 @@ are rank-stacked (``core/mesh.py``):
 The per-peer counts (the metadata JAX moves with ``lax.all_to_all``) are a
 transpose of device tensors here, as JAX leaves them to XLA; the rows move
 in one cooperative launch of K17 (``csrc/all_to_all.cu``) over every rank,
-which reads the counts, offsets and expected counts on the device.  Nothing
-reads a count back to the host on the card.  The schedule is
+which reads the counts and offsets on the device.  Nothing reads a count
+back to the host on the card.  The rank-level schedule is
 ``comm/ring.py::a2a_push_phase``; the plain versions walk it on tensors
-(CPU tensors take them).  Combine is the same push with the roles swapped,
-then the exact repack, a gather whose indices are computed on the device.
+(CPU tensors take them).  On the card the rows of each destination are
+shared among as many lanes as the card holds, with one credit and one wait
+per (lane, source) at device scope, in place of JAX's credit per
+``chunk``-row put (``comm/lanes.py`` walks that protocol).  Combine is the
+same push with the roles swapped, then the exact repack, a gather whose
+indices are computed on the device.
 
 Port decisions:
 
@@ -63,9 +67,10 @@ from .launch import stacked_shard
 
 @dataclasses.dataclass(frozen=True)
 class AllToAllConfig:
-    """``chunk``: rows a put (each credited on its own); ``schedule``: the
-    peer offsets in emission order (a permutation of range(n)), None for
-    0..n-1."""
+    """``chunk``: rows a put of the rank-level schedule (each credited on its
+    own there; K17 credits once per lane and destination) and the zones'
+    rounding (:func:`zone_geometry`); ``schedule``: the peer offsets in
+    emission order (a permutation of range(n)), None for 0..n-1."""
 
     chunk: int = 128
     schedule: tuple[int, ...] | None = None
@@ -161,11 +166,14 @@ def _push_ref(x, out, send, offs, expected, team: Team, mesh: Mesh, chunk: int, 
 
 
 def _push(role: str, x, out, send, offs, expected, team: Team, mesh: Mesh, chunk: int,
-          z: int, config: AllToAllConfig, plain: bool, stall_rank: int) -> None:
+          z: int, config: AllToAllConfig, plain: bool, stall_rank: int,
+          system_scope: bool = False) -> None:
     """Rows of ``x`` (S, rows, H) into the zones ``out`` (S, n, Z, H): the
     plain version when ``plain`` or on CPU tensors, else K17 (one
     cooperative launch, counted under ``role``).  ``stall_rank`` >= 0 (tests
-    of the bounded waits only) makes that rank credit none of its puts."""
+    of the bounded waits only) makes that rank credit none of its puts;
+    ``system_scope`` launches K17's system-scope form (with the entry
+    barrier), kept for the multi-card host (ROADMAP A11)."""
     order = config.schedule
     if order is not None and sorted(order) != list(range(team.size)):
         raise ValueError(f"schedule {order} is not a permutation of range({team.size})")
@@ -178,9 +186,8 @@ def _push(role: str, x, out, send, offs, expected, team: Team, mesh: Mesh, chunk
     coll = symm.coll_args(team, mesh, x=x.reshape(*mesh.sizes, *x.shape[1:]),
                           out=out.reshape(*mesh.sizes, *out.shape[1:]), land=None,
                           pad=symm.signal_pad(mesh, team.axis, "all_to_all"), chunk_elems=0,
-                          method=0, stall_rank=stall_rank)
-    args = symm.A2aArgs(coll, send.data_ptr(), offs.data_ptr(), expected.data_ptr(), row_bytes,
-                        chunk, z)
+                          method=0, stall_rank=stall_rank, system_scope=system_scope)
+    args = symm.A2aArgs(coll, send.data_ptr(), offs.data_ptr(), row_bytes, z)
     for i, p in enumerate(order if order is not None else range(team.size)):
         args.order[i] = p
     build.check(build.library().tdt_all_to_all(
@@ -189,7 +196,7 @@ def _push(role: str, x, out, send, offs, expected, team: Team, mesh: Mesh, chunk
 
 
 def _dispatch(x, splits, mesh: Mesh, axis: str, config: AllToAllConfig, *,
-              plain: bool = False, stall_rank: int = -1):
+              plain: bool = False, stall_rank: int = -1, system_scope: bool = False):
     t, h = stacked_shard(x, mesh, axis)
     team = Team.of(mesh, axis)
     _check_splits(splits, mesh, team.size)
@@ -201,7 +208,7 @@ def _dispatch(x, splits, mesh: Mesh, axis: str, config: AllToAllConfig, *,
         recv = torch.zeros((*mesh.sizes, team.size, z, h), dtype=x.dtype, device=x.device)
     _push("dispatch", x.contiguous().reshape(mesh.size, t, h),
           recv.reshape(mesh.size, team.size, z, h), meta.send, meta.offs, meta.expected, team,
-          mesh, chunk, z, config, plain, stall_rank)
+          mesh, chunk, z, config, plain, stall_rank, system_scope)
     return recv, meta.recv_splits.reshape(*mesh.sizes, team.size, -1)
 
 
@@ -245,7 +252,7 @@ def _repack_index(meta: _Meta, mesh: Mesh, n: int, z: int, t: int) -> torch.Tens
 
 
 def _combine(y, splits, mesh: Mesh, axis: str, token_dim: int, config: AllToAllConfig, *,
-             plain: bool = False):
+             plain: bool = False, system_scope: bool = False):
     team = Team.of(mesh, axis)
     n = team.size
     shard = stacked_shard(y, mesh, axis)
@@ -266,7 +273,7 @@ def _combine(y, splits, mesh: Mesh, axis: str, token_dim: int, config: AllToAllC
     # roles swapped: zone p's rows go back to p, p's count of mine comes back
     _push("combine", y.contiguous().reshape(mesh.size, n * z, h),
           back.reshape(mesh.size, n, z, h), meta.expected, zone_offs.contiguous(), meta.send,
-          team, mesh, chunk, z, config, plain, -1)
+          team, mesh, chunk, z, config, plain, -1, system_scope)
     out = back.reshape(-1, h).index_select(0, _repack_index(meta, mesh, n, z, token_dim))
     return out.reshape(*mesh.sizes, token_dim, h)
 

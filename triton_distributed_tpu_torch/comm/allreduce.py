@@ -17,7 +17,11 @@ result ``(*mesh.sizes, M, ...)``, every rank's copy of the sum.  ``AUTO``
 resolves through :func:`choose_method` alone (JAX's tuner comes with the
 multi-card host, see ``comm/allgather.py``); TWO_SHOT with M not divisible
 by n runs ONE_SHOT, as in JAX.  :class:`AllReduceConfig` is accepted and
-its tile unused on the card.  float32 and bfloat16 in and out.
+its tile unused on the card.  float32 and bfloat16 in and out.  On the card
+ONE_SHOT runs at device scope without JAX's entry barrier, each rank's
+credits and waits on a thread each (``csrc/ring.cuh::one_shot_phase``,
+walked lane by lane in ``comm/lanes.py``); its system-scope form, with the
+barrier, is kept for the multi-card host.  The results are the same bits.
 """
 
 from __future__ import annotations
@@ -115,8 +119,11 @@ def all_reduce_ref(x: torch.Tensor, mesh: Mesh, axis: str = TP_AXIS,
 
 
 def _all_reduce(x: torch.Tensor, mesh: Mesh, axis: str, method: AllReduceMethod,
-                out_dtype) -> torch.Tensor:
-    """K11 for a CUDA tensor, the plain version for a CPU one."""
+                out_dtype, *, system_scope: bool = False, stall_rank: int = -1) -> torch.Tensor:
+    """K11 for a CUDA tensor, the plain version for a CPU one.
+    ``system_scope``: the one-shot's system-scope form (with the entry
+    barrier), kept for the multi-card host (ROADMAP A11); ``stall_rank`` >=
+    0 (tests of the bounded waits only): that rank credits no arrival."""
     if not x.is_cuda:
         return all_reduce_ref(x, mesh, axis, method, out_dtype)
     team, x, out, chunk_elems, landing = _setup(x, mesh, axis, method, out_dtype)
@@ -124,7 +131,7 @@ def _all_reduce(x: torch.Tensor, mesh: Mesh, axis: str, method: AllReduceMethod,
         (name, entries), = landing.items()
         land = symm.landing(mesh, axis, f"allreduce_{name}", (entries, chunk_elems), x.dtype)
         launch("tdt_all_reduce", "allreduce", team, mesh, x, out, land, chunk_elems,
-               _CODES[method])
+               _CODES[method], stall_rank, system_scope)
         count("all_reduce", (method.value, team.size, tuple(x.shape[len(mesh.axes):])))
     return out
 

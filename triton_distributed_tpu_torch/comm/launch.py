@@ -124,13 +124,14 @@ def walk_mesh(program, team: Team, mesh: Mesh, x: torch.Tensor, out: torch.Tenso
 
 def launch(entry: str, family: str, team: Team, mesh: Mesh, x: torch.Tensor,
            out: torch.Tensor, land: symm.SymmetricBuffer | None, chunk_elems: int,
-           method: int, stall_rank: int = -1) -> None:
+           method: int, stall_rank: int = -1, system_scope: bool = False) -> None:
     """Launch C entry point ``entry`` on the current stream over every team
     of the mesh.  Raises on a refused launch; a wait that runs out fails the
     launch on the device."""
     args = symm.coll_args(team, mesh, x=x, out=out, land=land,
                           pad=symm.signal_pad(mesh, team.axis, family),
-                          chunk_elems=chunk_elems, method=method, stall_rank=stall_rank)
+                          chunk_elems=chunk_elems, method=method, stall_rank=stall_rank,
+                          system_scope=system_scope)
     fn = getattr(build.library(), entry)
     build.check(fn(ctypes.byref(args), torch.cuda.current_stream(x.device).cuda_stream), entry)
 

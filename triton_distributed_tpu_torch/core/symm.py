@@ -154,20 +154,19 @@ class CollArgs(ctypes.Structure):
         ("slot", ctypes.c_int * MAX_RANKS),
         ("method", ctypes.c_int), ("dtype", ctypes.c_int),
         ("out_dtype", ctypes.c_int), ("elsize", ctypes.c_int),
-        ("stall_rank", ctypes.c_int),
+        ("stall_rank", ctypes.c_int), ("scope", ctypes.c_int),
     ]
 
 
 class A2aArgs(ctypes.Structure):
     """The EP all-to-all's launch arguments (csrc/all_to_all.cu A2aArgs):
     the :class:`CollArgs` (x the source rows, out the landing zones), the
-    device int32 (mesh slots, n) counts, offsets and expected counts, the
-    row's bytes, the rows a put and a zone, and the peer offsets in
-    emission order."""
+    device int32 (mesh slots, n) counts and offsets, the row's bytes, the
+    rows a zone, and the peer offsets in emission order."""
 
     _fields_ = [("c", CollArgs), ("counts", ctypes.c_void_p), ("offs", ctypes.c_void_p),
-                ("expected", ctypes.c_void_p), ("row_bytes", ctypes.c_longlong),
-                ("chunk", ctypes.c_int), ("z", ctypes.c_int), ("order", ctypes.c_int * MAX_RANKS)]
+                ("row_bytes", ctypes.c_longlong), ("z", ctypes.c_int),
+                ("order", ctypes.c_int * MAX_RANKS)]
 
 
 class GemmArgs(ctypes.Structure):
@@ -244,10 +243,14 @@ def gemm_args(coll: CollArgs, mesh: Mesh, *, a: torch.Tensor | None, b: torch.Te
 
 def coll_args(team: Team, mesh: Mesh, *, x: torch.Tensor, out: torch.Tensor,
               land: SymmetricBuffer | None, pad: SymmetricBuffer,
-              chunk_elems: int, method: int, stall_rank: int = -1) -> CollArgs:
+              chunk_elems: int, method: int, stall_rank: int = -1,
+              system_scope: bool = False) -> CollArgs:
     """The arguments of one launch over every team of the mesh: the peer
     tables of ``x``, ``out``, the landing slots and the pad, and the team
-    layout (``slot[g * n + r]`` is the mesh slot of rank r of team g)."""
+    layout (``slot[g * n + r]`` is the mesh slot of rank r of team g).
+    ``system_scope`` asks K11's one-shot and K17 for their system-scope
+    form (the multi-card host); the co-located launch runs at device
+    scope."""
     a = CollArgs()
     a.x, a.out = peers(slot_ptrs(x, mesh)), peers(slot_ptrs(out, mesh))
     a.land = peers(land.ptrs() if land is not None else None)
@@ -262,6 +265,7 @@ def coll_args(team: Team, mesh: Mesh, *, x: torch.Tensor, out: torch.Tensor,
     a.out_dtype = DTYPE_CODES.get(out.dtype, -1)
     a.elsize = x.element_size()
     a.stall_rank = stall_rank
+    a.scope = int(system_scope)
     return a
 
 

@@ -26,14 +26,22 @@
 // into its put (no send buffer).  Co-located ranks exchange through device
 // memory: NVLink, and the ordering between processes of a multi-card host,
 // are not exercised here.
+//
+// K11's one-shot moves a few KB a rank, so its time is flag latency: it runs
+// at device scope (CollArgs::scope 0; scope 1 keeps JAX's entry barrier and
+// system-scope flags for the multi-card host), without the entry barrier,
+// its n - 1 credits and n - 1 waits each on a thread of their own, and one
+// 16-byte unit a thread (ring.cuh one_shot_phase).
 #include "ring.cuh"
 
 namespace tdt {
 namespace dl {
 namespace {
 
-// Lanes that leave each thread at least two units of a chunk.
+// Lanes that leave each thread at least two units of a chunk; the one-shot,
+// whose time is flag latency, not bytes, takes one unit a thread.
 constexpr long long kMinUnitsPerLane = 2 * kThreads;
+constexpr long long kOneShotUnitsPerLane = kThreads;
 
 // K9: the gather copies bytes, so the chunk is counted in bytes and moved in
 // units U (16 bytes where every chunk and base allows).
@@ -68,21 +76,17 @@ __global__ void __launch_bounds__(kThreads)
   rs_ack_drain(c);
 }
 
-// K11
-template <typename T, typename OT, bool VEC, int METHOD>
+// K11; S is the one-shot's scope (CollArgs::scope), the two-shot's is system
+template <typename T, typename OT, bool VEC, int METHOD, Scope S = kSys>
 __global__ void __launch_bounds__(kThreads)
     all_reduce_kernel(const __grid_constant__ CollArgs a) {
   const Rank c(a);
-  const int n = c.n();
   if (METHOD == 0) {
-    // one-shot: push the partial into slot `me` of every rank, then the f32
-    // sum of the n slots in slot order
+    // one-shot: the partial into slot `me` of every peer, then the f32 sum
+    // of the n partials in slot order
     long long lo, hi;
     c.slice(Elems<T, VEC>::G, quantum<VEC>(), lo, hi);
-    push_phase<T, Unit<T, VEC>>(c, a.land, lo, hi);
-    const T* src[kMaxRanks];
-    for (int i = 0; i < n; ++i) src[i] = c.at<T>(a.land, c.me, i);
-    sum_units<T, OT, VEC>(c.at<OT>(a.out, c.me, 0), src, n, lo, hi);
+    one_shot_phase<T, OT, VEC, S>(c, lo, hi);
   } else {
     // two-shot: the RS ring with its last fold in f32 into out-chunk me,
     // then the AG ring of the reduced chunks
@@ -103,11 +107,11 @@ bool aligned16(const Peers& p, int ranks) {
 }
 
 // One cooperative launch of `kernel`: lanes as many as the chunk's units ask
-// for, at most what is co-resident.
+// for (`per` units a lane), at most what is co-resident.
 template <typename K>
-cudaError_t launch(K kernel, CollArgs* args, long long units, cudaStream_t st) {
-  return cooperative_launch(kernel, args, args, (units + kMinUnitsPerLane - 1) / kMinUnitsPerLane,
-                            0, st);
+cudaError_t launch(K kernel, CollArgs* args, long long units, cudaStream_t st,
+                   long long per = kMinUnitsPerLane) {
+  return cooperative_launch(kernel, args, args, (units + per - 1) / per, 0, st);
 }
 
 template <typename U>
@@ -122,7 +126,11 @@ cudaError_t gather_as(CollArgs* a, cudaStream_t st) {
 template <typename T, typename OT, bool VEC>
 cudaError_t reduce_as(CollArgs* a, cudaStream_t st) {
   const long long units = a->chunk_elems / Elems<T, VEC>::G;
-  if (a->method == 0) return launch(all_reduce_kernel<T, OT, VEC, 0>, a, units, st);
+  if (a->method == 0)
+    return a->scope ? launch(all_reduce_kernel<T, OT, VEC, 0, kSys>, a, units, st,
+                             kOneShotUnitsPerLane)
+                    : launch(all_reduce_kernel<T, OT, VEC, 0, kGpu>, a, units, st,
+                             kOneShotUnitsPerLane);
   if (a->method == 1) return launch(all_reduce_kernel<T, OT, VEC, 1>, a, units, st);
   return cudaErrorInvalidValue;
 }
@@ -205,9 +213,9 @@ extern "C" int tdt_reduce_scatter(CollArgs* args, void* stream) {
   return static_cast<int>(e);
 }
 
-// K11.  method 0 one-shot (chunk: the whole partial; landing: n slots),
-// 1 two-shot (chunk: M / n rows; landing: two slots).  dtype and out_dtype
-// 0 f32, 1 bf16.
+// K11.  method 0 one-shot (chunk: the whole partial; landing: n slots; scope
+// 0 device, 1 system), 1 two-shot (chunk: M / n rows; landing: two slots).
+// dtype and out_dtype 0 f32, 1 bf16.
 extern "C" int tdt_all_reduce(CollArgs* args, void* stream) {
   using namespace tdt::dl;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -26,9 +26,11 @@
 // These two, the put's fence and the barriers built on them take the
 // memory scope as a template argument: system (kSys) unless a kernel asks
 // for device scope (kGpu), which is enough where every rank is a block of
-// the one launch on this card, as in K14's and K15's one-shot exchange.  On
-// an H100 a system-scope release costs microseconds a notify (a hub barrier
-// of four ranks took 11-19 us at system scope, ~3 us at device scope).
+// the one launch on this card, as in K14's and K15's one-shot exchange, and
+// in K11's one-shot and K17 unless CollArgs::scope asks for system scope.
+// On an H100 a system-scope release costs microseconds a notify (a hub
+// barrier of four ranks took 11-19 us at system scope, ~3 us at device
+// scope).
 // A wait is bounded: after kWaitNs of %globaltimer it records (rank, flag,
 // value seen, value wanted) in mapped host memory and traps, which fails the
 // launch; a protocol bug fails the run by name instead of hanging it.
@@ -84,6 +86,9 @@ struct CollArgs {
   int slot[kMaxRanks];    // slot[g * n + r]: mesh slot of rank r of team g
   int method, dtype, out_dtype, elsize;
   int stall_rank;         // tests only: this rank credits no arrival
+  int scope;              // K11's one-shot and K17: 0 device scope (every rank a
+                          // block of the one launch on this card), 1 system
+                          // scope (the multi-card host); other kernels fix theirs
 };
 
 // one claim per module: the first wait that runs out writes the record
@@ -174,23 +179,35 @@ __device__ __forceinline__ void notify(const Rank& c, int r, int id) {
   if (threadIdx.x == 0) red_release_add<S>(c.flag(r, id), 1);
 }
 
+// The calling thread spins until one's own flag `id` reaches v, then takes
+// v off it (bounded: a wait that runs out records and traps).
+template <Scope S = kSys>
+__device__ __forceinline__ void take(const Rank& c, int id, int v) {
+  int* f = c.flag(c.me, id);
+  int seen = ld_acquire<S>(f);
+  if (seen < v) {
+    const unsigned long long t0 = globaltimer();
+    while ((seen = ld_acquire<S>(f)) < v) {
+      if (globaltimer() - t0 > kWaitNs) timed_out(c, id, seen, v);
+      __nanosleep(32);
+    }
+  }
+  if constexpr (S == kSys) atomicSub_system(f, v);
+  else atomicSub(f, v);
+}
+
 // Wait until one's own flag `id` reaches v, then take v off it.
 template <Scope S = kSys>
 __device__ __forceinline__ void wait(const Rank& c, int id, int v = 1) {
-  if (threadIdx.x == 0) {
-    int* f = c.flag(c.me, id);
-    int seen = ld_acquire<S>(f);
-    if (seen < v) {
-      const unsigned long long t0 = globaltimer();
-      while ((seen = ld_acquire<S>(f)) < v) {
-        if (globaltimer() - t0 > kWaitNs) timed_out(c, id, seen, v);
-        __nanosleep(32);
-      }
-    }
-    if constexpr (S == kSys) atomicSub_system(f, v);
-    else atomicSub(f, v);
-  }
+  if (threadIdx.x == 0) take<S>(c, id, v);
   __syncthreads();
+}
+
+// The calling thread's fence at the scope.
+template <Scope S = kSys>
+__device__ __forceinline__ void fence() {
+  if constexpr (S == kSys) __threadfence_system();
+  else __threadfence();
 }
 
 // The arrival credit of a put (skipped by stall_rank, in the tests of the
@@ -204,10 +221,30 @@ __device__ __forceinline__ void credit(const Rank& c, int r, int id) {
 template <Scope S = kSys>
 __device__ __forceinline__ void put_fence() {
   __syncthreads();
-  if (threadIdx.x == 0) {
-    if constexpr (S == kSys) __threadfence_system();
-    else __threadfence();
+  if (threadIdx.x == 0) fence<S>();
+}
+
+// One credit per team rank at once (K11's one-shot, K17): once every thread
+// of the block is done with its puts, thread t < n (t != skip) fences and
+// credits rank t's recv[me] in this lane's row.  Skipped by stall_rank.
+template <Scope S>
+__device__ __forceinline__ void credit_each(const Rank& c, int skip) {
+  __syncthreads();
+  const int t = threadIdx.x;
+  if (t < c.n() && t != skip && c.me != c.a.stall_rank) {
+    fence<S>();
+    red_release_add<S>(c.flag(t, kRecv + c.me), 1);
   }
+}
+
+// One wait per source at once: thread t < n (t != skip) takes one credit of
+// recv[t] in this lane's row, so no wait queues behind another; then the
+// block meets.
+template <Scope S>
+__device__ __forceinline__ void wait_each(const Rank& c, int skip) {
+  const int t = threadIdx.x;
+  if (t < c.n() && t != skip) take<S>(c, kRecv + t, 1);
+  __syncthreads();
 }
 
 // Hub barrier over the team (lane by lane): arrivals only at rank 0,

@@ -130,6 +130,35 @@ __device__ void push_phase(const Rank& c, const Peers& dst, long long lo, long l
   for (int off = 1; off < n; ++off) wait<S>(c, kRecv + (c.me + n - off) % n);
 }
 
+// K11's one-shot AllReduce (comm/lanes.py walks it lane by lane): this
+// rank's partial into entry `me` of the landing slots of every peer (one
+// read, n - 1 writes), one fence and credit per peer, one wait per peer, all
+// at once (credit_each, wait_each), then the f32 sum of the n partials in
+// slot order into out, rounded once to OT (entry me read from x in place: a
+// put to oneself would copy the same values).  At system scope (the
+// multi-card host) the team barrier comes first, as in push_phase: a peer
+// process may still be reading its slots from the previous call.  At device
+// scope there is none: every rank is a block of this one launch, and the
+// previous call's launch finished on the same stream before this one began
+// (a captured graph keeps that order), so no slot is still being read and
+// every flag is at zero.
+template <typename T, typename OT, bool VEC, Scope S>
+__device__ void one_shot_phase(const Rank& c, long long lo, long long hi) {
+  typedef Unit<T, VEC> U;
+  const int n = c.n();
+  const T* mine = c.at<T>(c.a.x, c.me, 0);
+  U* d[kMaxRanks] = {};
+  for (int off = 1; off < n; ++off)
+    d[off - 1] = reinterpret_cast<U*>(c.at<T>(c.a.land, (c.me + off) % n, c.me));
+  if constexpr (S == kSys) barrier_all<S>(c);
+  copy_units<U>(d, n - 1, reinterpret_cast<const U*>(mine), lo, hi);
+  credit_each<S>(c, c.me);
+  wait_each<S>(c, c.me);
+  const T* src[kMaxRanks];
+  for (int i = 0; i < n; ++i) src[i] = i == c.me ? mine : c.at<T>(c.a.land, c.me, i);
+  sum_units<T, OT, VEC>(c.at<OT>(c.a.out, c.me, 0), src, n, lo, hi);
+}
+
 // One-way AllGather ring over out-chunks of OT already at their final
 // offsets; out-chunk `me` holds this rank's part.  Moved in units U, the
 // lanes cut at QUANTUM elements.  Each chunk is forwarded before it is

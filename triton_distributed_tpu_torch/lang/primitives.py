@@ -20,7 +20,8 @@ barriers.  This module keeps:
 Send semaphores are gone: JAX waits for a remote DMA's send completion
 (``wait_send``) before it reuses the source, but a put here is made by the
 block's own stores, which are done when the put returns.  Every receive
-count and every ACK credit of the JAX schedules stays.
+count and every ACK credit of the JAX schedules stays (on the card K17 and
+K11's one-shot credit once per lane and peer instead: ``comm/lanes.py``).
 """
 
 from __future__ import annotations
