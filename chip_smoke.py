@@ -10,15 +10,18 @@ Phases, each printing JSON lines; any failure exits non-zero:
                limit as ``nvidia-smi`` prints them.
 2. build    -- nvcc builds the kernels from ``triton_distributed_tpu_torch/csrc``;
                the library's SASS must show HGMMA on UTMALDG (TMA) loads in
-               every bf16 instantiation of K12, K13 and their loop alone.
+               every bf16 instantiation of K12, K13, their loop alone, K5's
+               prefill form and K1's served form, the last two with no
+               local memory (no spill).
 3. kernels  -- each kernel against its plain PyTorch version on the card:
                small edge cases (f32 and bf16, GQA 1-8, soft cap, qk-norm on
                and off, ragged and empty rows, a position on a page boundary
                and in the table's last slot, shuffled page tables; for K4 the
                pools after the append as well; for K5 empty experts, one
                expert, a zero tail, T 1/37/1000, K and N off the tile, held
-               to BF16_TOL + 2**-7 |plain| in bf16; and K5's schedule as its
-               blocks derive it, against ops/swizzle.py, slot for slot), K1,
+               to BF16_TOL + 2**-7 |plain| in bf16; and K5's slot schedule
+               and prefill work units as its blocks derive them, against
+               ops/swizzle.py, slot for slot and unit for unit), K1,
                K3 and K4 once at the Qwen3-30B-A3B attention shapes, then the
                main-path shapes (Qwen3-8B attention: B = 4, prompt 1024,
                cache of 2048, position 1056; Qwen3-30B-A3B expert products:
@@ -291,7 +294,7 @@ def phase_build(tt) -> None:
     names = demangle(list(per_entry))
     emit({"phase": "build_new_kernels", "instantiations": [
         f"{names[e]}: {per_entry[e]}" for e in per_entry
-        if "fused_attn_decode_kernel" in e or "grouped_gemm" in e
+        if "fused_attn_decode_kernel" in e or "grouped_gemm" in e or "flash_fwd_wgmma" in e
         or "ag_gemm_kernel" in e or "gemm_rs_kernel" in e or "product_kernel" in e
         or "fused_ar_kernel" in e or "persistent_decode_kernel" in e
         or re.search(r"decode_splitI(f|13__nv_bfloat16)a", e)]})
@@ -299,32 +302,39 @@ def phase_build(tt) -> None:
     phase_sass(build, path)
 
 
-# K12's and K13's bf16 kernels (both rings, both output dtypes) and their
-# loop alone: each must issue wgmma (HGMMA) on TMA loads (UTMALDG)
+# K12's and K13's bf16 kernels (both rings, both output dtypes), their loop
+# alone, K5's prefill form (both output dtypes) and K1's served form: each
+# must issue wgmma (HGMMA) on TMA loads (UTMALDG); the last two, redesigned
+# since, must also touch no local memory (no spill: LDL / STL)
 SASS_KERNELS = {"ag_gemm_kernelI13__nv_bfloat16": 4, "gemm_rs_kernelI13__nv_bfloat16": 2,
-                "product_kernelI13__nv_bfloat16": 2}
+                "product_kernelI13__nv_bfloat16": 2, "grouped_gemm_wgmmaI": 2,
+                "flash_fwd_wgmma": 1}
+NO_LOCAL = ("grouped_gemm_wgmmaI", "flash_fwd_wgmma")
 
 
 def phase_sass(build, lib: Path) -> None:
     """The library's SASS (cuobjdump -sass): every bf16 instantiation of
-    K12, K13 and their loop alone runs HGMMA on UTMALDG loads."""
+    K12, K13, their loop alone, K5's prefill form and K1's served form runs
+    HGMMA on UTMALDG loads; K5's and K1's touch no local memory."""
     import subprocess
 
     tool = Path(build.find_nvcc()).parent / "cuobjdump"
-    check(tool.exists(), f"{tool} not found: the SASS of K12/K13 cannot be checked")
+    check(tool.exists(), f"{tool} not found: the SASS of the wgmma kernels cannot be checked")
     res = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
                          timeout=300)
     check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-2000:]}")
     counts, fn = {}, None
+    ops = ("HGMMA", "UTMALDG", "LDL", "STL")
     for ln in res.stdout.splitlines():
         if "Function :" in ln:
             name = ln.split("Function :")[1].strip()
             fn = name if any(k in name for k in SASS_KERNELS) else None
             if fn:
-                counts[fn] = {"HGMMA": 0, "UTMALDG": 0}
+                counts[fn] = dict.fromkeys(ops, 0)
         elif fn:
-            for op in ("HGMMA", "UTMALDG"):
-                counts[fn][op] += op in ln
+            words = set(re.findall(r"\b([A-Z0-9]+)(?:\.[A-Z0-9_.]+)?\b", ln))
+            for op in ops:
+                counts[fn][op] += op in words
     names = demangle(list(counts))
     emit({"phase": "build_sass", "kernels": {names[f]: c for f, c in counts.items()}})
     for key, want in SASS_KERNELS.items():
@@ -332,6 +342,9 @@ def phase_sass(build, lib: Path) -> None:
         check(len(found) == want, f"{len(found)} instantiations of {key} in the SASS, not {want}")
         check(all(c["HGMMA"] and c["UTMALDG"] for c in found),
               f"an instantiation of {key} issues no HGMMA or no UTMALDG")
+        if key in NO_LOCAL:
+            check(all(c["LDL"] + c["STL"] == 0 for c in found),
+                  f"an instantiation of {key} touches local memory (spills): {found}")
 
 
 def demangle(symbols: list[str]) -> dict[str, str]:
@@ -369,9 +382,13 @@ def phase_kernel_cases(tt, torch) -> None:
 
     results = []
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        # D = 128 in bf16 is K1's wgmma body: GQA 1, 3 (a pair with one head),
+        # 4 and 8, S = 1 and S off the 64-row q tile and the 128-row kv tile
         for (b, h, hk, s, d, causal, cap) in (
                 (2, 4, 2, 200, 64, True, 0.0), (1, 8, 8, 130, 128, False, 0.0),
-                (2, 4, 1, 96, 128, True, 30.0), (1, 2, 2, 64, 64, False, 5.0)):
+                (2, 4, 1, 96, 128, True, 30.0), (1, 2, 2, 64, 64, False, 5.0),
+                (2, 16, 2, 333, 128, True, 0.0), (1, 16, 2, 1, 128, True, 0.0),
+                (1, 6, 2, 200, 128, False, 5.0)):
             q, k, v = rnd(b, h, s, d, dtype=dtype), rnd(b, hk, s, d, dtype=dtype), \
                 rnd(b, hk, s, d, dtype=dtype)
             got = A.flash_attention(q, k, v, causal=causal, soft_cap=cap)
@@ -754,16 +771,17 @@ def k5_limits(torch, out_dtype) -> tuple[float, float]:
 
 
 def schedule_mismatches(torch, splits: list, t: int) -> tuple[int, list]:
-    """K5's derivation of its schedule, run alone on the card
-    (``derived_tile_schedule`` on a CUDA tensor), against
-    ``grouped_tile_schedule`` on the CPU, at every m-tile K5 is built for.
-    Returns the slots compared and the fields that differ."""
+    """K5's derivation of its slot schedule (the decode and f32 forms), run
+    alone on the card (``derived_tile_schedule`` on a CUDA tensor), against
+    ``grouped_tile_schedule`` on the CPU, at every m-tile those forms are
+    built for.  Returns the slots compared and the fields that differ."""
     from triton_distributed_tpu_torch.ops import group_gemm as G
     from triton_distributed_tpu_torch.ops.swizzle import derived_tile_schedule
 
     host = torch.tensor(splits, dtype=torch.int32)
     slots, bad = 0, []
-    for bm in sorted({cfg.bm for tiles in G.KERNEL_CONFIGS.values() for cfg in tiles}):
+    for bm in sorted({cfg.bm for tiles in G.KERNEL_CONFIGS.values() for cfg in tiles
+                      if cfg not in G.UNIT_CONFIGS}):
         card = derived_tile_schedule(host.cuda(), t, bm)
         plain = derived_tile_schedule(host, t, bm)
         slots += plain["valid"].numel()
@@ -771,12 +789,34 @@ def schedule_mismatches(torch, splits: list, t: int) -> tuple[int, list]:
     return slots, bad
 
 
+UNIT_COLS = (200, 1536, 2048)   # output widths the prefill form's units are checked at
+
+
+def units_mismatches(torch, splits: list, t: int, cols=UNIT_COLS) -> tuple[int, list]:
+    """K5's prefill form's derivation of its work units, run alone on the
+    card (``derived_work_units`` on a CUDA tensor), against the mirror
+    ``grouped_work_units`` on the CPU, at each width of ``cols``.  Returns
+    the units compared and the fields that differ."""
+    from triton_distributed_tpu_torch.ops.swizzle import derived_work_units
+
+    host = torch.tensor(splits, dtype=torch.int32)
+    units, bad = 0, []
+    for n in cols:
+        card = derived_work_units(host.cuda(), t, n)
+        plain = derived_work_units(host, t, n)
+        units += int(plain["valid"].sum())
+        bad += [f"N {n} {f}" for f in plain if not torch.equal(card[f].cpu(), plain[f])]
+    return units, bad
+
+
 def phase_group_gemm_cases(tt, torch) -> list:
     """K5 against its plain version at small shapes, f32 and bf16 (both
-    tiles, bf16 and f32 results): E 1, 8 and 128; empty groups; all rows in
+    forms, bf16 and f32 results): E 1, 8 and 128; empty groups; all rows in
     one group; sum(splits) below T, with those rows held to exactly zero;
-    T 1, 37 and 1000; K and N that are not multiples of the tile.  Then
-    K5's schedule, as its blocks derive it, against the PyTorch mirror,
+    T 1, 37, 385, 1000 and 1100; K and N that are not multiples of the tile;
+    group ends at 127, 128 and 129 rows, and N 200 and 1536 against the
+    prefill form's 256-wide tile.  Then K5's slot schedule and its prefill
+    work units, as its blocks derive them, against the PyTorch mirrors,
     over these splits and others that put group ends on, one row before and
     one row after every tile edge."""
     from triton_distributed_tpu_torch.ops import group_gemm as G
@@ -793,6 +833,8 @@ def phase_group_gemm_cases(tt, torch) -> list:
         (1000, 48, 200, [int(v) for v in torch.multinomial(
             torch.ones(128), 900, replacement=True,
             generator=torch.Generator().manual_seed(SEED)).bincount(minlength=128)]),
+        (385, 72, 200, [127, 128, 129, 1]),
+        (1100, 512, 1536, [129, 0, 127, 128, 256, 1, 300]),
     )
     forms = [(torch.float32, None, None)] + [
         (torch.bfloat16, cfg, out)
@@ -827,7 +869,7 @@ def phase_group_gemm_cases(tt, torch) -> list:
 
     rng = torch.Generator().manual_seed(SEED + 13)
     sched_cases = [(t, splits) for t, _, _, splits in cases] + [(37, [0] * 8)]
-    for bm in (16, 32, 64):   # group ends on, before and after tile edges
+    for bm in (16, 32, 64, 128):   # group ends on, before and after tile edges
         sched_cases += [(4 * bm, [bm, 0, 2 * bm, bm]),
                         (4 * bm + 3, [bm - 1, 2, bm - 1, 0, bm + 1, 1]),
                         (3 * bm, [1] * bm + [0, bm - 1])]
@@ -835,20 +877,27 @@ def phase_group_gemm_cases(tt, torch) -> list:
         counts = torch.multinomial(torch.ones(128), t - 17, replacement=True,
                                    generator=rng).bincount(minlength=128)
         sched_cases.append((t, (counts * (torch.rand(128, generator=rng) > 0.2)).tolist()))
-    slots, bad = 0, []
+    slots, units, bad = 0, 0, []
     for t, splits in sched_cases:
         n, wrong = schedule_mismatches(torch, splits, t)
+        u, wrong_units = units_mismatches(torch, splits, t)
         slots += n
-        bad += [f"T={t} splits={splits}: {w}" for w in wrong]
+        units += u
+        bad += [f"T={t} splits={splits}: {w}" for w in wrong + wrong_units]
     emit({"phase": "kernel_schedule", "kernel": "grouped_matmul", "cases": len(sched_cases),
-          "slots": slots, "differing": bad[:8], "ok": not bad})
-    check(not bad, f"K5's schedule differs from grouped_tile_schedule: {bad[:4]}")
+          "slots": slots, "units": units, "differing": bad[:8], "ok": not bad})
+    check(not bad, f"K5's schedule or work units differ from their mirrors: {bad[:4]}")
     return results
 
 
 def phase_moe_attention_cases(tt, torch) -> None:
     """K1, K3 and K4 once each at the Qwen3-30B-A3B attention shapes (32 q
-    heads, 4 kv heads: GQA 8; hidden 2048) against their plain versions."""
+    heads, 4 kv heads: GQA 8; hidden 2048) against their plain versions;
+    K1's time there beside SDPA's (a `kernel_main` line outside the kernels
+    line)."""
+    import torch.nn.functional as F
+
+    from triton_distributed_tpu_torch.core.utils import perf_func
     from triton_distributed_tpu_torch.ops import attention as A
     from triton_distributed_tpu_torch.ops import fused_decode as FD
 
@@ -868,6 +917,14 @@ def phase_moe_attention_cases(tt, torch) -> None:
     q, k, v = rnd(BATCH, h, PROMPT, d), rnd(BATCH, hk, PROMPT, d), rnd(BATCH, hk, PROMPT, d)
     rows.append(("flash_attention", err(A.flash_attention(q, k, v, causal=True),
                                         A.flash_attention_ref(q, k, v, causal=True))))
+    _, ms = perf_func(lambda: A.flash_attention(q, k, v, causal=True))
+    _, lib_ms = perf_func(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    b_ms, b_by = bound(4 * BATCH * h * PROMPT * PROMPT * d / 2,
+                       nbytes(q, k, v, q), H100_BF16_FLOPS)
+    emit({"phase": "kernel_main", "name": "flash_attention[Qwen3-30B-A3B]", "ms": ms,
+          "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+          "shape": f"q ({BATCH},{h},{PROMPT},{d}) kv ({BATCH},{hk},{PROMPT},{d}) bf16 causal"})
     qd = rnd(BATCH, h, d)
     pk, pv = rnd(BATCH * mp, hk, ps, d), rnd(BATCH * mp, hk, ps, d)
     table = torch.randperm(BATCH * mp, generator=torch.Generator().manual_seed(SEED)) \
@@ -930,9 +987,13 @@ def group_gemm_main_rows(tt, torch) -> dict:
         x_sorted, splits, h = moe_routed(tt, torch, layer, x)
         host_splits = splits.cpu()
         n_slots, wrong = schedule_mismatches(torch, host_splits.tolist(), x_sorted.shape[0])
+        n_units, wrong_units = units_mismatches(
+            torch, host_splits.tolist(), x_sorted.shape[0],
+            (layer.w_up.shape[2], layer.w_dn.shape[2]))
+        wrong += wrong_units
         emit({"phase": "kernel_schedule", "kernel": "grouped_matmul", "stage": stage,
-              "slots": n_slots, "differing": wrong, "ok": not wrong})
-        check(not wrong, f"K5's schedule differs from grouped_tile_schedule at {stage}")
+              "slots": n_slots, "units": n_units, "differing": wrong, "ok": not wrong})
+        check(not wrong, f"K5's schedule or work units differ from their mirrors at {stage}")
         for form, a, w in (("up", x_sorted, layer.w_up), ("down", h, layer.w_dn)):
             got = G.grouped_matmul(a, w, splits)
             want = G.grouped_matmul_ref(a, w, host_splits)

@@ -46,6 +46,7 @@ SIGNATURES = {
     "tdt_fused_attn_decode_blocks_per_sm": [_I, _I, _I, _I],
     "tdt_grouped_matmul": [*[_P] * 4, *[_I] * 9, _P],
     "tdt_grouped_schedule": [_P, _I, _I, _I, _P, _P],
+    "tdt_grouped_units": [_P, _I, _I, _I, _P, _P],
     "tdt_matmul": [_P, _P, _P, *[_I] * 8, _P],
     "tdt_decode_attention_state": [*[_P] * 10, *[_I] * 9, _F, _F, _I, _P],
     "tdt_flash_attention_chunk": [*[_P] * 11, *[_I] * 9, _F, _F, _I, _P],

@@ -20,21 +20,53 @@
 //
 // Bound on the H100 at the Qwen3-8B prefill shape (B = 4, H = 32, Hkv = 8,
 // S = 1024, D = 128): about 34 GFLOP of causal q.k and p.v products against
-// about 84 MB of q, k, v and o, so the tensor cores bound it.  The bf16 design
-// keeps both products on the tensor cores: one block owns 64 query rows of one
-// (batch, head), four warps own 16 rows each, and 64-row K/V tiles of the
-// head's kv head stream through shared memory with cp.async, double-buffered
-// so tile j + 1 arrives while tile j is computed; the q tile is staged in the
-// second K buffer, so three blocks fit on an SM (rows padded by 8 elements
-// so the ldmatrix reads hit distinct banks).  QK^T and PV are mma.sync
-// m16n8k16 bf16 -> f32 with the K and V^T fragments read by ldmatrix; the
-// score fragment is reused in registers as the A operand of the PV product,
-// so no score tile ever goes through memory, and exp is exp2 of a scaled
-// argument.  Query tiles are launched heaviest-first across all heads so the
-// causal tail finishes early.
-// The f32 storage path is plain scalar FMA: it serves parity checks, not the
-// serving path.
-#include "ptx.cuh"
+// about 84 MB of q, k, v and o, so the tensor cores bound it (0.035 ms).
+//
+// The served form (bf16, D = 128, not the chunk fold) runs a wgmma body
+// (namespace fa) on wgmma_tile.cuh's mbarriers, TMA and descriptors.  A
+// unit of work is 64 query rows of two q heads of one kv head (GQA is 4 or
+// 8 on the served models): one 64-row K and V tile in shared memory serves
+// both heads, so each K/V byte crosses L2 into shared memory half as often
+// as with one head a block, and the two consumer warpgroups see the same
+// causal mask and the same number of kv tiles (with 128 rows of one head
+// they would not).  An odd group's last pair has one head; its second
+// warpgroup computes that head again and stores nothing, so every
+// warpgroup runs the same code.  Units are numbered heaviest q tile first;
+// one persistent block an SM takes them in rounds, every other round walked
+// backwards, which evens out the blocks' causal work.  Warpgroup 2's first
+// warp is the producer: one thread keeps TMA loads in flight, running ahead
+// across units, of each unit's two q tiles (two slots, one a unit in turn)
+// and of its K and V tiles, each in a three-stage ring with its own
+// full/empty mbarriers, so K_{j+1} lands while P V_{j-1} still holds
+// V_{j-1}; its three spare warps scale each q tile in f32 and round it to
+// bf16 in shared memory as it lands, off the consumers' path.  Boxes are 64
+// columns (the 128-byte swizzle).  S = Q K^T is wgmma m64n64k16 with both
+// operands K-major in shared memory (q and k rows run along D); the soft
+// cap, the mask (only on tiles that reach the diagonal or the ragged kv
+// edge) and the online softmax run in f32 registers, exp as ex2 of a
+// scaled argument, a row with no visible key subtracting +inf so that its
+// p is 0 with no select; p is rounded to bf16 in registers, where a
+// 16-column slice of the m64n64 accumulator already has the layout of one
+// k-step's A fragment, and O += P V is wgmma m64n128k16 with A from
+// registers and V from shared memory, MN-major (the transpose bit).  Tile
+// j's S is issued before tile j - 1's P V, so that product runs behind tile
+// j's softmax.  S (32 registers), O (64) and P (16) fit the 168 registers
+// a thread of a 384-thread block is compiled to, with no spill.  ptxas
+// serializes register-operand wgmmas that follow a trap on a divergent
+// path, so the consumers' stage waits are plain spins and the producer
+// thread is the watchdog: after its last load it waits, bounded, for every
+// stage to be released, and traps if one is not.  The tensor maps travel
+// as __grid_constant__ parameters, so a captured CUDA graph replays them.
+
+// The other forms keep the first design: one block owns 64 query rows of
+// one (batch, head), four warps own 16 rows each, and 64-row K/V tiles of
+// the head's kv head stream through shared memory with cp.async,
+// double-buffered; QK^T and PV are mma.sync m16n8k16 bf16 -> f32 with the
+// K and V^T fragments read by ldmatrix, the score fragment reused in
+// registers as the A operand of the PV product.  That serves D = 64 and
+// K8's chunk fold.  The f32 storage path is plain scalar FMA: it serves
+// parity checks, not the serving path.
+#include "wgmma_tile.cuh"
 
 namespace tdt {
 namespace {
@@ -467,6 +499,457 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K1's served form (bf16, D = 128, not the chunk fold): the wgmma body
+
+namespace fa {
+
+constexpr int D = 128, BQ = 64, BKV = 64, STAGES = 3;
+constexpr int kAcc = 64;                // f32 registers of O, an m64n128 accumulator
+constexpr int kS = 32;                  // f32 registers of S, an m64n64 accumulator
+constexpr int Q_BYTES = BQ * D * 2;     // 16 KB a head: two 64-row x 64-column boxes
+constexpr int KV_BYTES = BKV * D * 2;   // 16 KB a tile: two 64-row x 64-column boxes
+constexpr int SMEM_BYTES = 4 * Q_BYTES + 2 * STAGES * KV_BYTES + 1024;  // + alignment slack
+constexpr int THREADS = 384, kProducerWarp = 8;  // warpgroup 2's first warp
+constexpr int kArrivals = 8;            // a stage's release: one arrival a consumer warp
+constexpr int kSpare = 96;              // the producer warpgroup's other three warps
+
+struct Bars {
+  // the two q slots (a block's units alternate): landed, scaled, free again
+  uint64_t qfull[2], qready[2], qempty[2];
+  uint64_t kfull[STAGES], kempty[STAGES], vfull[STAGES], vempty[STAGES];
+};
+
+// The launch: q (D, Sq, B H), k and v (D, Skv, B Hkv) as TMA maps,
+// innermost first, 128-byte swizzle; o (B, H, Sq, D).
+struct Args {
+  CUtensorMap mq, mk, mv;
+  bf16* o;
+  int B, H, Hkv, Sq, Skv, causal;
+  float sm_scale, soft_cap;
+};
+
+// d (64 x 64 f32) = (scale_d ? d : 0) + A (64 x 16) @ B (16 x 64), A and B
+// from shared memory, both K-major (S = Q K^T: q rows and kv rows along D).
+__device__ __forceinline__ void wgmma_ss_64(float (&d)[kS], uint64_t da, uint64_t db,
+                                            int scale_d) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "setp.ne.b32 p, %34, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 128 f32) += A (64 x 16 bf16, four registers a thread in the
+// m16n8k16 A layout of each warp's 16 rows) @ B (16 x 128, MN-major in
+// shared memory: the transpose bit).  O += P V with P from registers.
+__device__ __forceinline__ void wgmma_rs_128(float (&d)[kAcc], uint32_t a0, uint32_t a1,
+                                             uint32_t a2, uint32_t a3, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "setp.ne.b32 p, %69, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
+}
+
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void fence_acc(uint32_t (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_acc(float& x) { asm volatile("" : "+f"(x)::"memory"); }
+
+// A consumer's wait for a full stage: a plain spin.  A bound with a trap on
+// this path would put the wgmmas after it on a divergent path, where ptxas
+// serializes them (it waits for each before the next issues); the
+// producer's watchdog bounds these waits instead.
+__device__ __forceinline__ void wait_full(uint64_t* bar, int parity) {
+  const uint32_t at = smem_u32(bar);
+  while (!wg::mbar_try(at, parity)) {
+  }
+}
+
+// 2^x on the special-function unit, subnormal results flushed to zero (p
+// below 2^-126 counts for nothing against a row sum of at least 1)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Unit u's work: q tile qt (heaviest first: the last tiles of a causal row
+// read the most kv tiles), batch b, kv head hk, and the pair of q heads
+// 2 pair, 2 pair + 1 of that kv head's group (one when the group is odd
+// and this is its last pair); and the kv tiles it reads.
+struct Item {
+  int qt, b, hk, pair, n_kt;
+};
+
+__device__ __forceinline__ Item item(const Args& a, int u) {
+  const int pairs = (a.H / a.Hkv + 1) / 2, per = a.B * a.Hkv * pairs;
+  const int nqt = (a.Sq + BQ - 1) / BQ, r = u % per, qt = nqt - 1 - u / per;
+  int n_kt = (a.Skv + BKV - 1) / BKV;
+  if (a.causal) n_kt = min(n_kt, (qt * BQ + BQ - 1) / BKV + 1);  // stop at the diagonal
+  return Item{qt, r / (a.Hkv * pairs), (r / pairs) % a.Hkv, r % pairs, n_kt};
+}
+
+__device__ __forceinline__ int units(const Args& a) {
+  return a.B * a.Hkv * ((a.H / a.Hkv + 1) / 2) * ((a.Sq + BQ - 1) / BQ);
+}
+
+// The n-th unit of block b of G: rounds of G units in heaviest-first order,
+// every other round walked backwards (a snake), so that the blocks' shares
+// of the causal work come out about even.
+__device__ __forceinline__ int unit_of(int n) {
+  return n * gridDim.x + ((n & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+}
+
+__global__ void __launch_bounds__(THREADS, 1) flash_fwd_wgmma(const __grid_constant__ Args a) {
+  extern __shared__ __align__(16) unsigned char dyn[];
+  __shared__ Bars bars;
+  const int U = units(a), g = a.H / a.Hkv;
+  unsigned char* sq = wg::stages(dyn);          // two slots of the two warpgroups' q tiles
+  unsigned char* sk = sq + 4 * Q_BYTES;         // STAGES K tiles
+  unsigned char* sv = sk + STAGES * KV_BYTES;   // STAGES V tiles
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      wg::mbar_init(&bars.qfull[s], 1);
+      wg::mbar_init(&bars.qready[s], kSpare);
+      wg::mbar_init(&bars.qempty[s], kArrivals);
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      wg::mbar_init(&bars.kfull[s], 1);
+      wg::mbar_init(&bars.vfull[s], 1);
+      wg::mbar_init(&bars.kempty[s], kArrivals);
+      wg::mbar_init(&bars.vempty[s], kArrivals);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // the warpgroup index, through a shuffle so that the compiler sees it is
+  // the same across each warp (a branch on it does not diverge a warp)
+  const int w = __shfl_sync(kFullMask, static_cast<int>(threadIdx.x / 128), 0);
+  if (w == 2) {
+    wg::set_max_regs_dec<40>();
+    if (threadIdx.x == kProducerWarp * 32) {
+      // the block's units in turn, running ahead across them: the next
+      // unit's q and first tiles load while this one's last tiles compute
+      int nu = 0, kv = 0;  // units and kv tiles loaded so far
+      for (int n = 0; n * static_cast<int>(gridDim.x) < U; ++n) {
+        const int u = unit_of(n);
+        if (u >= U) continue;
+        const Item it = item(a, u);
+        const int h0 = it.hk * g + 2 * it.pair, heads = min(2, g - 2 * it.pair);
+        const int kv_slab = it.b * a.Hkv + it.hk, slot = nu & 1;
+        // warpgroup hw's q tile is head h0 + hw's; where the pair has one
+        // head both take it (the second computes it again and stores nothing)
+        wg::mbar_wait(&bars.qempty[slot], ((nu >> 1) & 1) ^ 1);
+        wg::mbar_expect_tx(&bars.qfull[slot], 2 * Q_BYTES);
+        for (int hw = 0; hw < 2; ++hw)
+          for (int c = 0; c < 2; ++c)
+            wg::tma3(sq + (2 * slot + hw) * Q_BYTES + c * (Q_BYTES / 2), &a.mq,
+                     &bars.qfull[slot], c * 64, it.qt * BQ, it.b * a.H + h0 + min(hw, heads - 1));
+        for (int j = 0; j < it.n_kt; ++j, ++kv) {
+          const int s = kv % STAGES, ph = (kv / STAGES) & 1;
+          wg::mbar_wait(&bars.kempty[s], ph ^ 1);
+          wg::mbar_expect_tx(&bars.kfull[s], KV_BYTES);
+          for (int c = 0; c < 2; ++c)
+            wg::tma3(sk + s * KV_BYTES + c * (KV_BYTES / 2), &a.mk, &bars.kfull[s], c * 64,
+                     j * BKV, kv_slab);
+          wg::mbar_wait(&bars.vempty[s], ph ^ 1);
+          wg::mbar_expect_tx(&bars.vfull[s], KV_BYTES);
+          for (int c = 0; c < 2; ++c)
+            wg::tma3(sv + s * KV_BYTES + c * (KV_BYTES / 2), &a.mv, &bars.vfull[s], c * 64,
+                     j * BKV, kv_slab);
+        }
+        ++nu;
+      }
+      // the watchdog: every stage still in use is released within the
+      // bound, or the launch traps (the consumers' own waits are unbounded)
+      for (int i = max(0, kv - STAGES); i < kv; ++i) {
+        wg::mbar_wait(&bars.kempty[i % STAGES], (i / STAGES) & 1);
+        wg::mbar_wait(&bars.vempty[i % STAGES], (i / STAGES) & 1);
+      }
+    } else if (threadIdx.x >= (kProducerWarp + 1) * 32) {
+      // the spare warps: each unit's q scaled in f32 and rounded back to
+      // bf16 in place (the JAX _scaled_q) as soon as it lands, then handed
+      // to the async proxy that wgmma reads through; off the consumers' path
+      const int t = threadIdx.x - (kProducerWarp + 1) * 32;
+      int nu = 0;
+      for (int n = 0; n * static_cast<int>(gridDim.x) < U; ++n) {
+        if (unit_of(n) >= U) continue;
+        const int slot = nu & 1;
+        wg::mbar_wait(&bars.qfull[slot], (nu >> 1) & 1);
+        uint4* qs = reinterpret_cast<uint4*>(sq + 2 * slot * Q_BYTES);
+        for (int i = t; i < 2 * Q_BYTES / 16; i += kSpare) {
+          uint4 v = qs[i];
+          __nv_bfloat162* hh = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 f = __bfloat1622float2(hh[e]);
+            hh[e] = __floats2bfloat162_rn(f.x * a.sm_scale, f.y * a.sm_scale);
+          }
+          qs[i] = v;
+        }
+        wg::fence_proxy_async();
+        wg::mbar_arrive(&bars.qready[slot]);
+        ++nu;
+      }
+    }
+    return;
+  }
+
+  wg::set_max_regs_inc<232>();
+  const int t = threadIdx.x % 128;
+  const bool signal = (threadIdx.x & 31) == 0;
+  const int r0 = (t / 32) * 16 + (t & 31) / 4, c0 = 2 * (t & 3);
+  float o[kAcc], s[kS];
+  uint32_t p[kS / 2];
+  float m0, m1, l0, l1, r0_, r1_;
+  int nu = 0, kv = 0;  // units and kv tiles consumed so far
+  for (int n = 0; n * static_cast<int>(gridDim.x) < U; ++n) {
+    const int u = unit_of(n);
+    if (u >= U) continue;
+    const Item it = item(a, u);
+    const int h0 = it.hk * g + 2 * it.pair, heads = min(2, g - 2 * it.pair);
+    const int q0 = it.qt * BQ, n_kt = it.n_kt, slot = nu & 1;
+    const int row0 = q0 + r0, row1 = row0 + 8;  // this thread's query positions
+    wait_full(&bars.qready[slot], (nu >> 1) & 1);  // landed and scaled
+
+    const uint32_t qa = smem_u32(sq + (2 * slot + w) * Q_BYTES);
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) o[i] = 0.f;
+    m0 = m1 = kNegInf;
+    l0 = l1 = 0.f;
+
+    // S = Q K^T of the tile in ring stage st: 8 k-steps over D, both
+    // operands K-major in shared memory
+    auto issue_s = [&](int st) {
+      const uint32_t kb = smem_u32(sk + st * KV_BYTES);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_64(s, wg::desc_a(qa + (kk / 4) * (Q_BYTES / 2) + (kk % 4) * 32),
+                    wg::desc_a(kb + (kk / 4) * (KV_BYTES / 2) + (kk % 4) * 32), kk != 0);
+      wg::wgmma_commit();
+    };
+    // O += P V of the tile in ring stage st, P from registers, V MN-major
+    // (the transpose bit)
+    auto issue_pv = [&](int st) {
+      const uint32_t vb = smem_u32(sv + st * KV_BYTES);
+#pragma unroll
+      for (int ks = 0; ks < BKV / 16; ++ks)
+        wgmma_rs_128(o, p[4 * ks], p[4 * ks + 1], p[4 * ks + 2], p[4 * ks + 3],
+                     wg::desc_mn(vb + ks * 16 * 128, BKV), 1);
+      wg::wgmma_commit();
+    };
+    // S of the unit's tile j: soft cap and mask, folded into the running max
+    // and sum; s becomes p (f32), (r0_, r1_) the rescale of O for the new max
+    auto softmax = [&](int j) {
+      if (a.soft_cap > 0.f) {  // uniform branches around the whole tile
+#pragma unroll
+        for (int i = 0; i < kS; ++i) s[i] = tanhf(s[i] / a.soft_cap) * a.soft_cap;
+      }
+      const int k0 = j * BKV;
+      if (k0 + BKV > a.Skv || (a.causal && k0 + BKV - 1 > q0)) {
+#pragma unroll
+        for (int i = 0; i < kS; ++i) {
+          const int col = k0 + 8 * (i / 4) + c0 + (i & 1);
+          const int row = (i & 2) ? row1 : row0;
+          if (col >= a.Skv || (a.causal && col > row)) s[i] = kNegInf;
+        }
+      }
+      // the four threads of a quad share a row
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int i = 0; i < kS; i += 4) {
+        mx0 = fmaxf(mx0, fmaxf(s[i], s[i + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[i + 2], s[i + 3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(kFullMask, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(kFullMask, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(kFullMask, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(kFullMask, mx1, 2));
+      // a row with no visible key yet (max -1e30) subtracts +inf: p = 0
+      const float inf = __int_as_float(0x7f800000);
+      const float ms0 = mx0 > 0.5f * kNegInf ? mx0 * kLog2e : inf;
+      const float ms1 = mx1 > 0.5f * kNegInf ? mx1 * kLog2e : inf;
+      float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < kS; i += 4) {
+        s[i] = ex2(fmaf(s[i], kLog2e, -ms0));
+        s[i + 1] = ex2(fmaf(s[i + 1], kLog2e, -ms0));
+        s[i + 2] = ex2(fmaf(s[i + 2], kLog2e, -ms1));
+        s[i + 3] = ex2(fmaf(s[i + 3], kLog2e, -ms1));
+        rs0 += s[i] + s[i + 1];
+        rs1 += s[i + 2] + s[i + 3];
+      }
+      rs0 += __shfl_xor_sync(kFullMask, rs0, 1);
+      rs0 += __shfl_xor_sync(kFullMask, rs0, 2);
+      rs1 += __shfl_xor_sync(kFullMask, rs1, 1);
+      rs1 += __shfl_xor_sync(kFullMask, rs1, 2);
+      r0_ = ex2((m0 - mx0) * kLog2e);
+      r1_ = ex2((m1 - mx1) * kLog2e);
+      l0 = l0 * r0_ + rs0;
+      l1 = l1 * r1_ + rs1;
+      m0 = mx0;
+      m1 = mx1;
+    };
+    // p rounded to bf16: a 16-column slice of the accumulator is the A
+    // fragment of one k-step of P V (column blocks 2 ks and 2 ks + 1)
+    auto pack = [&]() {
+#pragma unroll
+      for (int ks = 0; ks < BKV / 16; ++ks) {
+        p[4 * ks] = wg::pack_bf16(s[8 * ks], s[8 * ks + 1]);
+        p[4 * ks + 1] = wg::pack_bf16(s[8 * ks + 2], s[8 * ks + 3]);
+        p[4 * ks + 2] = wg::pack_bf16(s[8 * ks + 4], s[8 * ks + 5]);
+        p[4 * ks + 3] = wg::pack_bf16(s[8 * ks + 6], s[8 * ks + 7]);
+      }
+    };
+
+    // tile 0 alone (O is still zero: no rescale, no P V behind it)
+    wait_full(&bars.kfull[kv % STAGES], (kv / STAGES) & 1);
+    fence_acc(s);
+    wg::wgmma_fence();
+    issue_s(kv % STAGES);
+    wg::wgmma_wait<0>();
+    fence_acc(s);
+    if (signal) wg::mbar_arrive(&bars.kempty[kv % STAGES]);
+    softmax(0);
+    pack();
+    // tile j: S_j is issued, then P_{j-1} V_{j-1}, which runs behind S_j's
+    // softmax; both tiles have landed before the first wgmma is issued
+    for (int j = 1; j < n_kt; ++j) {
+      const int i = kv + j, st = i % STAGES, pst = (i - 1) % STAGES;
+      wait_full(&bars.kfull[st], (i / STAGES) & 1);
+      wait_full(&bars.vfull[pst], ((i - 1) / STAGES) & 1);
+      fence_acc(s);
+      fence_acc(o);
+      fence_acc(p);
+      wg::wgmma_fence();
+      issue_s(st);
+      issue_pv(pst);
+      wg::wgmma_wait<1>();
+      fence_acc(s);
+      if (signal) wg::mbar_arrive(&bars.kempty[st]);
+      softmax(j);
+      // the softmax's results are computed here, before the wait below (the
+      // compiler would otherwise move it past the wait, off the P V's shadow)
+      fence_acc(s);
+      fence_acc(r0_);
+      fence_acc(r1_);
+      fence_acc(l0);
+      fence_acc(l1);
+      wg::wgmma_wait<0>();
+      fence_acc(o);
+      if (signal) wg::mbar_arrive(&bars.vempty[pst]);
+#pragma unroll
+      for (int i = 0; i < kAcc; i += 4) {
+        o[i] *= r0_;
+        o[i + 1] *= r0_;
+        o[i + 2] *= r1_;
+        o[i + 3] *= r1_;
+      }
+      pack();
+    }
+    const int last = kv + n_kt - 1;
+    wait_full(&bars.vfull[last % STAGES], (last / STAGES) & 1);
+    fence_acc(o);
+    fence_acc(p);
+    wg::wgmma_fence();
+    issue_pv(last % STAGES);
+    wg::wgmma_wait<0>();
+    fence_acc(o);
+    if (signal) {
+      wg::mbar_arrive(&bars.vempty[last % STAGES]);
+      wg::mbar_arrive(&bars.qempty[slot]);  // this unit's q tiles are read
+    }
+
+    // o / l (one reciprocal a row), rounded once, out in 16-byte row
+    // pieces; a row with no visible key (l = 0) is zeros
+    const float inv0 = l0 > 0.f ? __frcp_rn(l0) : 0.f, inv1 = l1 > 0.f ? __frcp_rn(l1) : 0.f;
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) o[i] *= (i & 2) ? inv1 : inv0;
+    bf16* out = a.o + static_cast<size_t>(it.b * a.H + h0 + w) * a.Sq * D;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = h ? row1 : row0;
+#pragma unroll
+      for (int k = 0; k < kAcc / 16; ++k) {
+        const uint4 v = wg::row_piece(o, h, k);
+        if (w < heads && row < a.Sq)
+          *reinterpret_cast<uint4*>(out + static_cast<size_t>(row) * D + wg::piece_col(k)) = v;
+      }
+    }
+    kv += n_kt;
+    ++nu;
+  }
+}
+
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv,
+                   int Sq, int Skv, int causal, float sm_scale, float soft_cap,
+                   cudaStream_t stream) {
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
+    return cudaErrorInvalidValue;
+  if (Skv < 1)  // no key: every row is zeros
+    return cudaMemsetAsync(o, 0, static_cast<size_t>(B) * H * Sq * D * 2, stream);
+  Args a{};
+  const uint64_t row = 2ull * D;
+  cudaError_t e = wg::make_map(&a.mq, q, D, Sq, static_cast<uint64_t>(B) * H, row, row * Sq, BQ);
+  if (e == cudaSuccess)
+    e = wg::make_map(&a.mk, k, D, Skv, static_cast<uint64_t>(B) * Hkv, row, row * Skv, BKV);
+  if (e == cudaSuccess)
+    e = wg::make_map(&a.mv, v, D, Skv, static_cast<uint64_t>(B) * Hkv, row, row * Skv, BKV);
+  if (e != cudaSuccess) return e;
+  a.o = static_cast<bf16*>(o);
+  a.B = B, a.H = H, a.Hkv = Hkv, a.Sq = Sq, a.Skv = Skv, a.causal = causal;
+  a.sm_scale = sm_scale, a.soft_cap = soft_cap;
+  const long long U = static_cast<long long>(B) * Hkv * ((H / Hkv + 1) / 2) *
+                      ((Sq + BQ - 1) / BQ);
+  if (U < 1) return cudaSuccess;
+  if (U >= (1LL << 31)) return cudaErrorInvalidValue;
+  long long fit = 0;  // one block an SM
+  if ((e = dl::resident_lanes(flash_fwd_wgmma, 1, THREADS, SMEM_BYTES, &fit)) != cudaSuccess)
+    return e;
+  const unsigned grid = static_cast<unsigned>(max(1LL, min(fit, U)));
+  flash_fwd_wgmma<<<grid, THREADS, SMEM_BYTES, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace fa
+
 template <int D, bool CHUNK>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         int B, int H, int Hkv, int Sq, int Skv, int causal,
@@ -508,8 +991,13 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
              int H, int Hkv, int Sq, int Skv, int D, int causal,
              float sm_scale, float soft_cap, int dtype, const ChunkState& cs,
              cudaStream_t st) {
-  if (dtype == 1 && D == 128)
-    return launch_bf16<128, CHUNK>(q, k, v, o, B, H, Hkv, Sq, Skv, causal, sm_scale, soft_cap, cs, st);
+  if (dtype == 1 && D == 128) {
+    if constexpr (!CHUNK)  // the served form: the wgmma body
+      return fa::launch(q, k, v, o, B, H, Hkv, Sq, Skv, causal, sm_scale, soft_cap, st);
+    else
+      return launch_bf16<128, CHUNK>(q, k, v, o, B, H, Hkv, Sq, Skv, causal, sm_scale, soft_cap,
+                                     cs, st);
+  }
   if (dtype == 1 && D == 64)
     return launch_bf16<64, CHUNK>(q, k, v, o, B, H, Hkv, Sq, Skv, causal, sm_scale, soft_cap, cs, st);
   if (dtype == 0 && D == 128)

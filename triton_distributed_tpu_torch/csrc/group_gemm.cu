@@ -7,109 +7,98 @@
 // rows [start, end) hold r; rows from sum(splits) to T are zeros; empty
 // groups are allowed; f32 accumulation, the output rounded once.
 //
-// Schedule.  The Pallas kernel walks (m-tile, group) work units in order on
-// one core and revisits an output tile once per overlapping group, adding
-// into it.  Here each block owns one unit (slot) and one n-tile, and derives
-// its slot from `splits` itself: the same schedule as
-// ops/swizzle.py::grouped_tile_schedule (m-tiles of BM rows on one grid from
-// row 0; a tile gets one slot per group that meets it, at least one), from
-// two block-wide prefix sums in shared memory, so a product is one launch
-// and nothing is read back to the host.  A block stores only its own
-// group's rows of the tile, so slots need no ordering and no read-back of
-// the output; the first slot of a tile also writes the zeros of its rows
-// past sum(splits).  Padding slots (past the real count) exit at once.
-//
 // Bound on the H100 at the Qwen3-30B-A3B shapes: the prefill products
 // (32768 rows, K 2048 -> N 1536 and K 768 -> N 2048, 128 experts) move
-// 0.6-1.0 GB and compute 103-206 GFLOP, so the bytes bound them at
-// 3.35 TB/s (0.18-0.31 ms); the decode products (32 rows) read only the
-// weights of the experts touched, 3-6 MB each, and are bound by those bytes.
-// The bf16 design keeps the products on the tensor cores with mma.sync
-// m16n8k16 bf16 -> f32: operand tiles stream through a ring of STAGES
-// shared-memory buffers with cp.async (rows padded by 8 elements so the
-// ldmatrix reads hit distinct banks), A fragments by ldmatrix, B fragments
-// by ldmatrix.trans from the (K, N) row-major weights.  Two tiles: 16 rows
-// for the decode products (every warp its own 16 columns), 64 rows for
-// prefill (2 x 2 warps of 32 x 64).  `wgmma`, TMA and a persistent schedule
-// are later work.  The f32 path is plain scalar FMA in full f32 (no TF32),
-// for parity checks, as JAX runs f32 at Precision.HIGHEST.
-#include "common.cuh"
+// 0.59-1.04 GB (x once, the 128 experts' weights once, out once) and compute
+// 103-206 GFLOP, so the bytes bound them at 3.35 TB/s (0.18-0.31 ms); the
+// decode products (32 rows) read only the weights of the experts touched,
+// 3-6 MB each, and are bound by those bytes.
+//
+// Three forms, chosen by the wrapper (ops/group_gemm.py) by rows and dtype:
+//
+// Prefill (bf16, 128 x 256 x 64, from 1024 rows): wgmma_tile.cuh's main
+// loop on a persistent walk of per-group work units.  A unit is (group,
+// m-tile, n-tile); a group's m-tiles start at its first row, so no tile
+// spans two groups and a group of n rows costs ceil(n / 128) tiles, not the
+// extra tile each group boundary adds on a grid fixed from row 0.  Units are
+// ordered group-major, n-tile next, m-tile fastest: the ~132 blocks in flight
+// work on one to a dozen experts at a time, each weight band (K x 256) is
+// read by the group's m-tiles while it is in L2 and the group's rows by its
+// n-tiles, so x, the touched experts' weights and out each cross HBM about
+// once (1.04 GB for the up product, 0.59 GB for the down one).  min(#SMs,
+// units) blocks are launched (units bounded on the host by (cdiv(T, 128) +
+// E) * cdiv(N, 256): splits stays on the device); each derives the groups'
+// row and tile ends once, from one block-wide prefix sum of E packed
+// (tiles << 32 | rows) values in shared memory, then takes units u =
+// blockIdx.x, u += gridDim.x, finding a unit's group by a binary search.
+// The producer warp loads A boxes from the group's rows (rows of the next
+// group are loaded, never stored; past T TMA fills zeros) and B boxes from
+// the expert's slab of the (E, K, N) weights (zeros past K and N); a
+// consumer warpgroup whose 64 rows lie wholly past the group's end skips
+// its wgmmas.  The three spare warps write the zero rows from sum(splits)
+// to T while the products run.  bf16 results leave as 16-byte row pieces
+// (wgmma_tile.cuh's quad transpose), f32 ones as float pairs.  Sums run
+// over k in 16-deep wgmma steps, in order: each output element is one f32
+// sum of its K products, as in the earlier mma.sync form, but taken in
+// another order inside the tensor cores, so a result may differ from that
+// form's by the f32 rounding of a K-long sum (well below one bf16 ulp of the
+// output; the f32 output by ~1e-6 relative).
+//
+// Decode (bf16, 16 x 64 x 64, below 1024 rows): each block owns one slot of
+// ops/swizzle.py::grouped_tile_schedule (m-tiles of 16 rows on one grid from
+// row 0; a tile gets one slot per group that meets it, at least one) and
+// one n-tile, and derives its slot from `splits` itself with two block-wide
+// prefix sums in shared memory.  A block stores only its own group's rows
+// of the tile; the first slot of a tile also writes the zeros of its rows
+// past sum(splits); padding slots exit at once.  Products on mma.sync
+// m16n8k16 bf16 -> f32, operand tiles through a cp.async ring of four
+// stages (rows padded by 8 elements so the ldmatrix reads hit distinct
+// banks), every warp its own 16 columns: at 32 rows the weights' bytes
+// bound it, not the tensor path.
+//
+// f32 (32 x 64 x 16): the decode form's schedule with plain scalar FMA in
+// full f32 (no TF32), for parity checks, as JAX runs f32 at
+// Precision.HIGHEST.
+#include <type_traits>
+
+#include "wgmma_tile.cuh"
 
 namespace tdt {
 namespace {
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(in ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)) : "memory");
-}
-
-// d (16x8 f32) += a (16x16 bf16, row-major) * b (16x8 bf16, k-major)
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // ---------------------------------------------------------------------------
 // the schedule
 
 // In-place inclusive prefix sum of a[0, n) in shared memory, by the block.
-template <int THREADS>
-__device__ void block_scan(int* a, int n, int* warp_sums) {
+template <int THREADS, typename V>
+__device__ void block_scan(V* a, int n, V* warp_sums) {
   const int per = (n + THREADS - 1) / THREADS;
   const int lo = threadIdx.x * per, hi = min(lo + per, n);
-  int sum = 0;
+  V sum = 0;
   for (int i = lo; i < hi; ++i) {
     sum += a[i];
     a[i] = sum;
   }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = sum;
+  V x = sum;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(kFullMask, x, o);
+    const V y = __shfl_up_sync(kFullMask, x, o);
     if (lane >= o) x += y;
   }
   if (lane == 31) warp_sums[warp] = x;
   __syncthreads();
   if (warp == 0) {
-    int v = lane < THREADS / 32 ? warp_sums[lane] : 0;
+    V v = lane < THREADS / 32 ? warp_sums[lane] : 0;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(kFullMask, v, o);
+      const V y = __shfl_up_sync(kFullMask, v, o);
       if (lane >= o) v += y;
     }
     if (lane < THREADS / 32) warp_sums[lane] = v;
   }
   __syncthreads();
-  const int offset = x - sum + (warp ? warp_sums[warp - 1] : 0);
+  const V offset = x - sum + (warp ? warp_sums[warp - 1] : 0);
   for (int i = lo; i < hi; ++i) a[i] += offset;
   __syncthreads();
 }
@@ -411,6 +400,172 @@ int launch_bf16(const void* x, const void* w, const void* splits, void* out,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 prefill: wgmma_tile.cuh's loop on a persistent walk of per-group units
+
+constexpr int kMaxGroups = 1024;
+
+// The groups' ends, derived once a block: ends[g] packs the inclusive
+// prefix sums of the groups' m-tiles, ceil(n_g / BM) (high 32 bits), and of
+// their rows n_g (low 32 bits), one scan of E values.  sum(splits) < 2^31,
+// so the rows never carry into the tiles.
+struct Groups {
+  const long long* ends;
+  int E, total, tiles;  // sum(splits), sum of the groups' m-tiles
+  __device__ int row_end(int g) const { return static_cast<int>(ends[g] & 0xffffffffLL); }
+  __device__ int tile_end(int g) const { return static_cast<int>(ends[g] >> 32); }
+  __device__ int row_start(int g) const { return g ? row_end(g - 1) : 0; }
+  __device__ int tile_start(int g) const { return g ? tile_end(g - 1) : 0; }
+};
+
+template <int THREADS>
+__device__ Groups derive_groups(const int* __restrict__ splits, int E, long long* ends,
+                                long long* warp_sums) {
+  for (int i = threadIdx.x; i < E; i += THREADS) {
+    const long long n = splits[i];
+    ends[i] = ((n + wg::BM - 1) / wg::BM) << 32 | n;
+  }
+  __syncthreads();
+  block_scan<THREADS>(ends, E, warp_sums);
+  return Groups{ends, E, static_cast<int>(ends[E - 1] & 0xffffffffLL),
+                static_cast<int>(ends[E - 1] >> 32)};
+}
+
+// Work unit u of gr.tiles * nn (ops/swizzle.py::grouped_work_units): group
+// g holds units [nn tile_start(g), nn tile_end(g)), n-tile-major with the
+// m-tile fastest; its m-tile i covers rows [row_start(g) + BM i, ...) up to
+// the group's end.
+struct Unit {
+  int group, m0, row_end, n0;
+};
+
+__device__ __forceinline__ Unit unit_at(const Groups& gr, int nn, int u) {
+  // the first group whose tiles end past u / nn (empty groups end where the
+  // one before does, so they are never chosen)
+  const int v = u / nn;
+  int lo = 0, hi = gr.E;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (gr.tile_end(mid) <= v) lo = mid + 1; else hi = mid;
+  }
+  const int g = lo, t0 = gr.tile_start(g), tiles = gr.tile_end(g) - t0;
+  const int local = u - nn * t0;
+  return Unit{g, gr.row_start(g) + (local % tiles) * wg::BM, gr.row_end(g),
+              (local / tiles) * wg::BN};
+}
+
+struct GroupedArgs {
+  CUtensorMap ma, mb;  // A (K, T, 1); B (N, K, E)
+  const int* splits;
+  void* out;
+  int T, K, N, E;
+};
+
+template <typename OutT>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+grouped_gemm_wgmma(const __grid_constant__ GroupedArgs p) {
+  extern __shared__ __align__(16) unsigned char dyn[];
+  __shared__ wg::Bars bars;
+  __shared__ long long ends[kMaxGroups];
+  __shared__ long long warp_sums[wg::THREADS / 32];
+  const Groups gr = derive_groups<wg::THREADS>(p.splits, p.E, ends, warp_sums);
+  wg::init_bars(bars);
+  const int nn = (p.N + wg::BN - 1) / wg::BN, units = gr.tiles * nn;
+  const int ktiles = (p.K + wg::BK - 1) / wg::BK, warp = threadIdx.x / 32;
+  unsigned char* st = wg::stages(dyn);
+  OutT* out = static_cast<OutT*>(p.out);
+  if (warp >= wg::kProducerWarp) {
+    wg::set_max_regs_dec<40>();
+    if (threadIdx.x == wg::kProducerWarp * 32) {
+      wg::Ring ring;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const Unit w = unit_at(gr, nn, u);
+        wg::load_tile(st, bars, ring, &p.ma, &p.mb, wg::TileAt{0, w.group, w.m0, w.n0}, ktiles);
+      }
+    } else if (warp > wg::kProducerWarp) {
+      // the spare warps: rows [sum(splits), T) are zeros, in 16-byte pieces
+      const long long n16 = static_cast<long long>(p.T - gr.total) * p.N * sizeof(OutT) / 16;
+      uint4* z = reinterpret_cast<uint4*>(out + static_cast<long long>(gr.total) * p.N);
+      const long long step = static_cast<long long>(gridDim.x) * wg::kSpareThreads;
+      for (long long i = static_cast<long long>(blockIdx.x) * wg::kSpareThreads + threadIdx.x -
+                         (wg::kProducerWarp + 1) * 32;
+           i < n16; i += step)
+        z[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  } else {
+    wg::set_max_regs_inc<232>();
+    wg::Ring ring;
+    float d[wg::kAccRegs];
+    const int mine = (threadIdx.x / 128) * 64;  // this warpgroup's first row in a tile
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const Unit w = unit_at(gr, nn, u);
+      const int rows = min(w.row_end, p.T);  // the group's rows that are stored
+      wg::mma_tile(st, bars, ring, ktiles, d, w.m0 + mine < rows);
+      if constexpr (std::is_same<OutT, bf16>::value) {
+        wg::store_pieces(d, out, rows, p.N, w.m0, w.n0);
+      } else {
+        const int r0 = wg::acc_row0(), c0 = wg::acc_col0();
+#pragma unroll
+        for (int q = 0; q < wg::kAccRegs / 2; ++q) {
+          const int row = w.m0 + r0 + 8 * (q & 1), col = w.n0 + 8 * (q >> 1) + c0;
+          if (row < rows && col < p.N)
+            *reinterpret_cast<float2*>(out + static_cast<long long>(row) * p.N + col) =
+                make_float2(d[4 * (q >> 1) + 2 * (q & 1)], d[4 * (q >> 1) + 2 * (q & 1) + 1]);
+        }
+      }
+    }
+  }
+}
+
+// An upper bound of the units, known on the host without reading splits:
+// sum(ceil(n_g / BM)) <= cdiv(T, BM) + E.
+long long max_units(int T, int N, int E) {
+  return (static_cast<long long>((T + wg::BM - 1) / wg::BM) + E) * ((N + wg::BN - 1) / wg::BN);
+}
+
+template <typename OutT>
+int launch_wgmma(const void* x, const void* w, const void* splits, void* out, int T, int K,
+                 int N, int E, cudaStream_t st) {
+  if (E > kMaxGroups || max_units(T, N, E) >= (1LL << 31) ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+       reinterpret_cast<uintptr_t>(out)) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  GroupedArgs p{};
+  cudaError_t e = wg::map_a(&p.ma, x, K, T, 1);
+  if (e == cudaSuccess) e = wg::map_b(&p.mb, w, K, N, E);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  p.splits = static_cast<const int*>(splits);
+  p.out = out;
+  p.T = T, p.K = K, p.N = N, p.E = E;
+  auto kernel = grouped_gemm_wgmma<OutT>;
+  long long fit = 0;
+  if ((e = dl::resident_lanes(kernel, 1, wg::THREADS, wg::SMEM_BYTES, &fit)) != cudaSuccess)
+    return static_cast<int>(e);
+  const unsigned grid = static_cast<unsigned>(max(1LL, min(fit, max_units(T, N, E))));
+  kernel<<<grid, wg::THREADS, wg::SMEM_BYTES, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The prefill form's work list alone, as its blocks derive it: out (5, U)
+// int32, U = max_units, rows valid, group, m0, row_end, n0, zeros past the
+// real units (ops/swizzle.py::grouped_work_units is its mirror).
+__global__ void __launch_bounds__(wg::THREADS)
+grouped_units(const int* __restrict__ splits, int E, int N, int U, int* __restrict__ out) {
+  __shared__ long long ends[kMaxGroups];
+  __shared__ long long warp_sums[wg::THREADS / 32];
+  const Groups gr = derive_groups<wg::THREADS>(splits, E, ends, warp_sums);
+  const int nn = (N + wg::BN - 1) / wg::BN, units = gr.tiles * nn;
+  for (int u = threadIdx.x; u < U; u += wg::THREADS) {
+    const bool valid = u < units;
+    const Unit w = valid ? unit_at(gr, nn, u) : Unit{0, 0, 0, 0};
+    out[u] = valid;
+    out[U + u] = w.group;
+    out[2 * U + u] = w.m0;
+    out[3 * U + u] = w.row_end;
+    out[4 * U + u] = w.n0;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // the schedule alone: derive_slot's result for every slot, written out so
 // that the derivation can be held to ops/swizzle.py::grouped_tile_schedule
 
@@ -439,9 +594,10 @@ grouped_schedule(const int* __restrict__ splits, int E, int T, int BM,
 }  // namespace tdt
 
 // x (T, K), w (E, K, N), splits (E,) int32, out (T, N), all on one device and
-// contiguous; K and N multiples of 8.  dtype: 0 f32, 1 bf16; out_dtype the
-// same codes (bf16 input only: bf16 or f32 out).  (bm, bn, bk) picks the
-// tile: (16, 64, 64) or (64, 128, 32) for bf16, (32, 64, 16) for f32.
+// contiguous, 16-byte aligned; K and N multiples of 8.  dtype: 0 f32, 1 bf16;
+// out_dtype the same codes (bf16 input only: bf16 or f32 out).  (bm, bn,
+// bk) picks the form: (16, 64, 64) decode or (128, 256, 64) prefill for
+// bf16, (32, 64, 16) for f32.
 extern "C" int tdt_grouped_matmul(const void* x, const void* w,
                                   const void* splits, void* out, int T, int K,
                                   int N, int E, int bm, int bn, int bk,
@@ -453,9 +609,9 @@ extern "C" int tdt_grouped_matmul(const void* x, const void* w,
     if (out_dtype == 1) return launch_bf16<16, 64, 64, 1, 4, bf16>(x, w, splits, out, T, K, N, E, st);
     if (out_dtype == 0) return launch_bf16<16, 64, 64, 1, 4, float>(x, w, splits, out, T, K, N, E, st);
   }
-  if (dtype == 1 && bm == 64 && bn == 128 && bk == 32) {
-    if (out_dtype == 1) return launch_bf16<64, 128, 32, 2, 3, bf16>(x, w, splits, out, T, K, N, E, st);
-    if (out_dtype == 0) return launch_bf16<64, 128, 32, 2, 3, float>(x, w, splits, out, T, K, N, E, st);
+  if (dtype == 1 && bm == wg::BM && bn == wg::BN && bk == wg::BK) {
+    if (out_dtype == 1) return launch_wgmma<bf16>(x, w, splits, out, T, K, N, E, st);
+    if (out_dtype == 0) return launch_wgmma<float>(x, w, splits, out, T, K, N, E, st);
   }
   if (dtype == 0 && out_dtype == 0 && bm == kF32BM && bn == kF32BN && bk == kF32BK) {
     const int nt = (T + kF32BM - 1) / kF32BM;
@@ -480,5 +636,19 @@ extern "C" int tdt_grouped_schedule(const void* splits, int T, int E, int bm,
   if (slots > kScheduleScratchInts) return static_cast<int>(cudaErrorInvalidValue);
   grouped_schedule<<<slots, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(splits), E, T, bm, static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The prefill form's work units for splits (E,), T rows and N columns: out
+// (5, (cdiv(T, 128) + E) * cdiv(N, 256)) int32, rows valid, group, m0,
+// row_end, n0, zeros past the real units.  Computes no product.
+extern "C" int tdt_grouped_units(const void* splits, int T, int E, int N, void* out,
+                                 void* stream) {
+  using namespace tdt;
+  if (T <= 0 || E <= 0 || E > kMaxGroups || N <= 0 || max_units(T, N, E) >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  grouped_units<<<1, wg::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(splits), E, N, static_cast<int>(max_units(T, N, E)),
+      static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -192,48 +192,14 @@ __device__ __forceinline__ void store_tile(const F& f, OT* C, int rows, int N, i
   }
 }
 
-// bf16 outputs of the wgmma sums go out as whole 16-byte row pieces: the
-// four threads of a quad hold columns 2q, 2q + 1 of the same 8-column block
-// in each row, so a 4 x 4 transpose within the quad (shuffles) gives thread
-// q all eight columns of block 4k + q, one 16-byte load or store where four
-// 4-byte ones would touch half a sector each.
-__device__ __forceinline__ unsigned pack_bf16(float x, float y) {
-  const __nv_bfloat162 b = __floats2bfloat162_rn(x, y);
-  return *reinterpret_cast<const unsigned*>(&b);
-}
+// bf16 outputs of the wgmma sums go out as whole 16-byte row pieces
+// (wgmma_tile.cuh's quad transpose, shared with K5).
+using wg::pack_bf16;
+using wg::piece_col;
+using wg::row_piece;
 
-__device__ __forceinline__ unsigned pick(const unsigned (&v)[4], int i) {
-  return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
-}
-
-// out[k] = in[q] of quad lane k, for this thread's lane q of the quad.
-__device__ __forceinline__ void quad_transpose(const unsigned (&in)[4], unsigned (&out)[4]) {
-  const int lane = threadIdx.x & 31, q = lane & 3;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int src = (q + r) & 3;
-    const unsigned v = __shfl_sync(0xffffffffu, pick(in, (q - r) & 3), (lane & ~3) | src);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) out[k] = k == src ? v : out[k];
-  }
-}
-
-// Row half h, column blocks 4k..4k+3 of a thread's m64n256 sums, rounded to
-// bf16: the eight values of its row r0 + 8 h, columns 8 (4 k + q) + [0, 8).
-__device__ __forceinline__ uint4 row_piece(const float (&d)[wg::kAccRegs], int h, int k) {
-  unsigned in[4], out[4];
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    const int j = 4 * k + b;
-    in[b] = pack_bf16(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
-  }
-  quad_transpose(in, out);
-  return make_uint4(out[0], out[1], out[2], out[3]);
-}
-
-// The row and first column of piece (h, k) in the tile.
+// The row of piece (h, k) in the tile.
 __device__ __forceinline__ int piece_row(const WgFrag& f, int h) { return f.r0 + 8 * h; }
-__device__ __forceinline__ int piece_col(int k) { return 8 * (4 * k + (threadIdx.x & 3)); }
 
 // x + y of eight bf16 pairs, in f32, rounded once.
 __device__ __forceinline__ uint4 add_bf16x8(const uint4& a, const uint4& b) {
@@ -251,17 +217,7 @@ __device__ __forceinline__ uint4 add_bf16x8(const uint4& a, const uint4& b) {
 template <>
 __device__ __forceinline__ void store_tile<bf16, WgFrag>(const WgFrag& f, bf16* C, int rows, int N,
                                                          int m0, int n0) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = m0 + piece_row(f, h);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const uint4 v = row_piece(f.d, h, k);
-      const int col = n0 + piece_col(k);
-      if (row < rows && col < N)
-        *reinterpret_cast<uint4*>(C + static_cast<long long>(row) * N + col) = v;
-    }
-  }
+  wg::store_pieces(f.d, C, rows, N, m0, n0);
 }
 
 // K13's received partial of one tile, as this consumer thread's pairs,

@@ -1,21 +1,26 @@
-// The Hopper main loop of the overlapped GEMMs K12 and K13 (overlap_gemm.cu):
-// acc = A[m0:m0+128, :] @ B[:, n0:n0+256] for bf16 operands, f32 sums, on
-// wgmma with TMA loads, in a block that walks many tiles in turn.  It is the
-// Hopper form of triton_distributed_tpu/ops/blocks.py::matmul_body, which
-// gemm_tile.cuh's mma.sync loop (K6) also runs; later redesigns of K5, K6
-// and K19 are to take this one.
+// The Hopper main loop of the overlapped GEMMs K12 and K13 (overlap_gemm.cu)
+// and of K5's prefill form (group_gemm.cu): acc = A[m0:m0+128, :] @
+// B[:, n0:n0+256] for bf16 operands, f32 sums, on wgmma with TMA loads, in a
+// block that walks many tiles in turn.  It is the Hopper form of
+// triton_distributed_tpu/ops/blocks.py::matmul_body, which gemm_tile.cuh's
+// mma.sync loop (K6) also runs; later redesigns of K6 and K19 are to take
+// this one.  K1's wgmma body (flash_attention.cu) takes its barriers, TMA,
+// descriptors and register moves, not its loop.
 //
 // The block is three warpgroups (384 threads).  Warpgroup 2's first warp
 // is the producer: one thread keeps TMA loads of A and B tiles in flight
 // into a ring of STAGES shared-memory stages, running ahead across tiles,
 // each stage guarded by an mbarrier pair (full: the bytes landed; empty:
 // both consumers are done with it).  Its three other warps are free for the
-// kernel's own data movement (K12's ring).  Warpgroups 0 and 1 consume:
-// each issues wgmma m64n256k16 (bf16 -> f32, A and B from shared memory) on
-// its 64 rows of the 128-row tile, 4 per 64-deep stage, keeping one stage's
-// products in flight while it releases the one before.  setmaxnreg moves
-// registers from the producer warpgroup (40) to the consumers (232): a
-// consumer holds its 64 x 256 sums in 128 registers a thread.
+// kernel's own data movement (K12's ring, K5's zero tail).  Warpgroups 0
+// and 1 consume: each issues wgmma m64n256k16 (bf16 -> f32, A and B from
+// shared memory) on its 64 rows of the 128-row tile, 4 per 64-deep stage,
+// keeping one stage's products in flight while it releases the one before.
+// A warpgroup whose rows the kernel will not store (K5: all past its
+// group's end) may skip its products and only release the stages.
+// setmaxnreg moves registers from the producer warpgroup (40) to the
+// consumers (232): a consumer holds its 64 x 256 sums in 128 registers a
+// thread.
 //
 // Layouts.  A is row-major (M, K): K-major for wgmma, one TMA box of 64 x
 // 128 (a 128-byte row of k a tile row) a stage.  B is row-major (K, N):
@@ -24,11 +29,11 @@
 // 8 KB apart.  Both use the 128-byte swizzle, which the descriptors name;
 // the stages are 1024-byte aligned, as the swizzle's 8-row atoms ask.
 // Every map is 3-D (innermost first): A (K, rows, slabs) and B (N, K,
-// slabs), a slab being a chunk of rows (K12, K13) or a rank's matrix (the
-// rank-stacked product), so a box never reads past its slab: TMA fills what
-// lies outside the tensor with zeros.  K and N multiples of 8 make every
-// pitch a multiple of 16 bytes, as TMA needs; the epilogues write only the
-// rows and columns inside the matrix.
+// slabs), a slab being a chunk of rows (K12, K13), a rank's matrix (the
+// rank-stacked product) or an expert's weights (K5), so a box never reads
+// past its slab: TMA fills what lies outside the tensor with zeros.  K and
+// N multiples of 8 make every pitch a multiple of 16 bytes, as TMA needs;
+// the epilogues write only the rows and columns inside the matrix.
 //
 // An output element's sum runs over k in 16-deep wgmma steps, 64 a stage,
 // in order, whatever the tile's place: a tile of a chunk and the same rows
@@ -156,10 +161,13 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t s
 // A, K-major: 8-row groups 1024 bytes apart (the leading offset is unused
 // with the swizzle); a 16-deep step is 32 bytes into the swizzled row.
 __device__ __forceinline__ uint64_t desc_a(uint32_t addr) { return desc(addr, 16, 1024); }
-// B, MN-major: 64-column boxes 8 KB apart, 8-row k groups 1024 bytes apart.
-__device__ __forceinline__ uint64_t desc_b(uint32_t addr) {
-  return desc(addr, BK * 128, 1024);
+// An MN-major operand stored as 64-column boxes of `box_rows` k rows each
+// (box_rows * 128 bytes apart), 8-row k groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t desc_mn(uint32_t addr, uint32_t box_rows) {
+  return desc(addr, box_rows * 128, 1024);
 }
+// B, MN-major: 64-column boxes of BK rows, 8 KB apart.
+__device__ __forceinline__ uint64_t desc_b(uint32_t addr) { return desc_mn(addr, BK); }
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
@@ -267,11 +275,20 @@ __device__ __forceinline__ void load_tile(unsigned char* st, Bars& b, Ring& r,
 }
 
 // Consumer warpgroup (threads [0, 256)): d = the tile's product over all
-// `ktiles` stages for this warpgroup's 64 rows.
+// `ktiles` stages for this warpgroup's 64 rows.  With `live` false the
+// warpgroup only waits for each stage and releases it: d is left as it was.
 __device__ __forceinline__ void mma_tile(unsigned char* st, Bars& b, Ring& r, int ktiles,
-                                         float (&d)[kAccRegs]) {
+                                         float (&d)[kAccRegs], bool live = true) {
   const uint32_t base = smem_u32(st) + (threadIdx.x / 128) * (64 * 128);
   const bool signal = (threadIdx.x & 31) == 0;
+  if (!live) {
+    for (int kt = 0; kt < ktiles; ++kt) {
+      mbar_wait(&b.full[r.stage], r.phase);
+      if (signal) mbar_arrive(&b.empty[r.stage]);
+      r.next();
+    }
+    return;
+  }
   int prev = -1;
   for (int kt = 0; kt < ktiles; ++kt) {
     mbar_wait(&b.full[r.stage], r.phase);
@@ -303,6 +320,71 @@ __device__ __forceinline__ int acc_row0() {
   return (t / 128) * 64 + ((t % 128) / 32) * 16 + (t & 31) / 4;
 }
 __device__ __forceinline__ int acc_col0() { return 2 * (threadIdx.x & 3); }
+
+// ---------------------------------------------------------------------------
+// bf16 epilogue: the sums of a wgmma m64nN accumulator (R = N / 2 registers
+// a thread) leave as whole 16-byte row pieces.  The four threads of a quad
+// hold columns 2q, 2q + 1 of the same 8-column block in each row, so a 4 x 4
+// transpose within the quad (shuffles) gives thread q all eight columns of
+// block 4k + q, one 16-byte load or store where four 4-byte ones would
+// touch half a sector each.
+
+__device__ __forceinline__ unsigned pack_bf16(float x, float y) {
+  const __nv_bfloat162 b = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const unsigned*>(&b);
+}
+
+__device__ __forceinline__ unsigned pick(const unsigned (&v)[4], int i) {
+  return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
+}
+
+// out[k] = in[q] of quad lane k, for this thread's lane q of the quad.
+__device__ __forceinline__ void quad_transpose(const unsigned (&in)[4], unsigned (&out)[4]) {
+  const int lane = threadIdx.x & 31, q = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int src = (q + r) & 3;
+    const unsigned v = __shfl_sync(0xffffffffu, pick(in, (q - r) & 3), (lane & ~3) | src);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) out[k] = k == src ? v : out[k];
+  }
+}
+
+// Row half h, column blocks 4k..4k+3 of a thread's m64nN sums, rounded to
+// bf16: the eight values of its row (acc_row0() + 8 h within the warpgroup's
+// rows), columns 8 (4 k + q) + [0, 8); k < R / 16.
+template <int R>
+__device__ __forceinline__ uint4 row_piece(const float (&d)[R], int h, int k) {
+  unsigned in[4], out[4];
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    const int j = 4 * k + b;
+    in[b] = pack_bf16(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+  }
+  quad_transpose(in, out);
+  return make_uint4(out[0], out[1], out[2], out[3]);
+}
+
+// The first column of piece k in the tile.
+__device__ __forceinline__ int piece_col(int k) { return 8 * (4 * k + (threadIdx.x & 3)); }
+
+// The m64n256 sums of both consumer warpgroups rounded to bf16 into C
+// (row-major, N columns), the tile at (m0, n0): rows from `rows` on and
+// columns from N on left out (N a multiple of 8).
+__device__ __forceinline__ void store_pieces(const float (&d)[kAccRegs], bf16* C, int rows,
+                                             int N, int m0, int n0) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = m0 + acc_row0() + 8 * h;
+#pragma unroll
+    for (int k = 0; k < kAccRegs / 16; ++k) {
+      const uint4 v = row_piece(d, h, k);
+      const int col = n0 + piece_col(k);
+      if (row < rows && col < N)
+        *reinterpret_cast<uint4*>(C + static_cast<long long>(row) * N + col) = v;
+    }
+  }
+}
 
 // ---------------------------------------------------------------------------
 // host side: tensor maps, cuTensorMapEncodeTiled found through the runtime (nothing

@@ -216,6 +216,40 @@ def _stream(device) -> int:
 # ---------------------------------------------------------------------------
 # K1: flash-attention prefill
 
+FLASH_BQ, FLASH_BKV = 64, 64   # K1's wgmma body: q rows a head, kv rows a tile
+
+
+def flash_work_items(b: int, h: int, hk: int, sq: int, skv: int,
+                     causal: bool) -> list[tuple[int, int, tuple, int]]:
+    """The units of K1's served form (bf16, D = 128) in their order, as
+    ``fa::item`` in ``csrc/flash_attention.cu`` numbers them: (q tile,
+    batch, q heads, kv tiles read).  A unit is 64 query rows of two q heads
+    of one kv head (one where the group is odd and this is its last pair),
+    heaviest q tile first; a causal tile reads the kv tiles up to its
+    diagonal."""
+    g = h // hk
+    pairs = cdiv(g, 2)
+    per, nqt = b * hk * pairs, cdiv(sq, FLASH_BQ)
+    items = []
+    for u in range(per * nqt):
+        r, qt = u % per, nqt - 1 - u // per
+        bb, kh, pair = r // (hk * pairs), (r // pairs) % hk, r % pairs
+        heads = tuple(kh * g + 2 * pair + w for w in range(min(2, g - 2 * pair)))
+        n_kt = cdiv(skv, FLASH_BKV)
+        if causal:
+            n_kt = min(n_kt, (qt * FLASH_BQ + FLASH_BQ - 1) // FLASH_BKV + 1)
+        items.append((qt, bb, heads, n_kt))
+    return items
+
+
+def flash_block_units(units: int, blocks: int) -> list[list[int]]:
+    """The units each persistent block of K1's served form takes, in turn
+    (``fa::unit_of``): rounds of ``blocks`` units, every other round walked
+    backwards."""
+    return [[u for n in range(cdiv(units, blocks))
+             if (u := n * blocks + (blocks - 1 - blk if n % 2 else blk)) < units]
+            for blk in range(blocks)]
+
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, sm_scale: float | None = None,

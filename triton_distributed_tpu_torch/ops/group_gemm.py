@@ -10,7 +10,11 @@ autotuner's port.  Its plain version :func:`grouped_matmul_ref` is a loop
 over the groups with f32 accumulation; the wrapper takes it only for CPU
 tensors.  A CUDA tensor launches K5 or raises.  One launch per product,
 counted under ``"grouped_matmul"`` with its (T, K, N) as the form;
-``splits`` stays on the device.  ``ag_group_gemm`` and ``moe_reduce_rs``,
+``splits`` stays on the device.  From :data:`SMALL_T` rows on, K5 runs its
+prefill form: ``wgmma`` on TMA loads over a persistent walk of per-group
+work units (:func:`..ops.swizzle.grouped_work_units`); below, its decode
+form, 16-row ``mma.sync`` tiles on the slot schedule of
+:func:`..ops.swizzle.grouped_tile_schedule`.  ``ag_group_gemm`` and ``moe_reduce_rs``,
 the collectives around it, come with the multi-GPU slice of the port: at
 one rank they gather and reduce nothing, and ``layers.moe`` calls
 :func:`grouped_matmul` directly.
@@ -30,24 +34,26 @@ from .attention import KERNEL_DTYPES, _check_tensors, _stream, check_int32
 
 @dataclasses.dataclass(frozen=True)
 class GroupGemmConfig:
-    """K5's tile: ``bm`` rows (one m-tile of the schedule), ``bn`` output
-    columns a block, ``bk`` the depth of one shared-memory stage.  The
-    JAX config's ``vmem_limit`` has no meaning on Hopper."""
+    """K5's tile: ``bm`` rows (one m-tile), ``bn`` output columns a block,
+    ``bk`` the depth of one shared-memory stage.  The JAX config's
+    ``vmem_limit`` has no meaning on Hopper."""
 
-    bm: int = 64
-    bn: int = 128
-    bk: int = 32
+    bm: int = 128
+    bn: int = 256
+    bk: int = 64
 
 
-DECODE_CONFIG = GroupGemmConfig(16, 64, 64)    # a few rows an expert
-PREFILL_CONFIG = GroupGemmConfig(64, 128, 32)  # hundreds of rows an expert
-F32_CONFIG = GroupGemmConfig(32, 64, 16)       # scalar f32, parity only
-# the tiles K5 is built for, by input dtype, with the largest E + cdiv(T, bm)
-# its shared memory holds while a block derives its slot
+DECODE_CONFIG = GroupGemmConfig(16, 64, 64)     # a few rows an expert
+PREFILL_CONFIG = GroupGemmConfig(128, 256, 64)  # hundreds of rows an expert
+F32_CONFIG = GroupGemmConfig(32, 64, 16)        # scalar f32, parity only
+# the forms K5 is built for, by input dtype, with what a block's shared
+# memory holds while it derives its work: the slot forms (decode, f32) the
+# largest E + cdiv(T, bm), the unit walk (prefill, UNIT_CONFIGS) the largest E
 KERNEL_CONFIGS = {
-    torch.bfloat16: {DECODE_CONFIG: 11520, PREFILL_CONFIG: 10368},
+    torch.bfloat16: {DECODE_CONFIG: 11520, PREFILL_CONFIG: 1024},
     torch.float32: {F32_CONFIG: 4096},
 }
+UNIT_CONFIGS = frozenset({PREFILL_CONFIG})
 SMALL_T = 1024   # below this many rows the decode tile is the default
 
 
@@ -55,6 +61,25 @@ def default_config(t: int, dtype: torch.dtype) -> GroupGemmConfig:
     if dtype == torch.float32:
         return F32_CONFIG
     return DECODE_CONFIG if t < SMALL_T else PREFILL_CONFIG
+
+
+def kernel_config(t: int, e: int, n_dim: int, dtype: torch.dtype,
+                  config: GroupGemmConfig | None = None) -> GroupGemmConfig:
+    """The form K5 runs for T = ``t`` rows, ``e`` groups and ``n_dim``
+    columns: ``config``, or :func:`default_config`.  Raises for a config
+    with no kernel of ``dtype`` and for shapes past what it holds."""
+    cfg = config or default_config(t, dtype)
+    tiles = KERNEL_CONFIGS.get(dtype, {})
+    if cfg not in tiles:
+        raise ValueError(f"{cfg} has no {dtype} kernel (built for {list(tiles)})")
+    if cfg in UNIT_CONFIGS:
+        units = (cdiv(t, cfg.bm) + e) * cdiv(n_dim, cfg.bn)
+        over = e > tiles[cfg] or units >= 2 ** 31
+    else:
+        over = e + cdiv(t, cfg.bm) > min(tiles[cfg], 65535)
+    if over:
+        raise ValueError(f"{t} rows and {e} groups exceed what K5 holds with {cfg}")
+    return cfg
 
 
 def _check(x_sorted, w, splits):
@@ -93,9 +118,9 @@ def grouped_matmul(x_sorted: torch.Tensor, w: torch.Tensor,
     ``sum(splits)`` gets ``x_sorted[r] @ w[g]`` for the group g holding it
     (``splits`` (E,) int32 rows per group, in order from row 0), rows past
     it are zeros.  f32 accumulation, the result in ``out_dtype`` (x's by
-    default; bf16 input may also give f32).  ``config`` picks K5's tile
-    (:data:`KERNEL_CONFIGS`; by default by T and dtype); on the CPU it is
-    not used."""
+    default; bf16 input may also give f32).  ``config`` picks K5's form
+    (:data:`KERNEL_CONFIGS`; by default by T and dtype,
+    :func:`kernel_config`); on the CPU it is not used."""
     _check_tensors(("x_sorted", "w"), (x_sorted, w))
     _check_tensors(("splits",), (splits,), float_like=False)
     if x_sorted.dim() != 2 or w.dim() != 3:
@@ -116,14 +141,7 @@ def grouped_matmul(x_sorted: torch.Tensor, w: torch.Tensor,
                          "the kernel")
     if t == 0:
         return torch.empty((0, n_dim), dtype=out_dtype, device=x_sorted.device)
-    cfg = config or default_config(t, x_sorted.dtype)
-    tiles = KERNEL_CONFIGS[x_sorted.dtype]
-    if cfg not in tiles:
-        raise ValueError(f"{cfg} has no {x_sorted.dtype} kernel (built for "
-                         f"{list(tiles)})")
-    if e + cdiv(t, cfg.bm) > tiles[cfg] or cdiv(t, cfg.bm) + e > 65535:
-        raise ValueError(f"{t} rows and {e} groups exceed the schedule K5 "
-                         f"holds with {cfg}")
+    cfg = kernel_config(t, e, n_dim, x_sorted.dtype, config)
     out = torch.empty((t, n_dim), dtype=out_dtype, device=x_sorted.device)
     err = build.library().tdt_grouped_matmul(
         x_sorted.data_ptr(), w.data_ptr(), splits.data_ptr(), out.data_ptr(),

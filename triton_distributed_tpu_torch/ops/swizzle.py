@@ -1,4 +1,4 @@
-"""The work-unit schedule of the grouped GEMM (counterpart of
+"""The work schedules of the grouped GEMM (counterpart of
 ``triton_distributed_tpu/ops/swizzle.py::grouped_tile_schedule``).
 
 The rows of a grouped product are sorted by group (expert) and cut into
@@ -15,7 +15,14 @@ mirror in PyTorch (on the input's device, no host read either), equal to
 the JAX schedule array for array where the rows divide into tiles; unlike
 the JAX version it also takes a row count that does not, the last tile then
 being partial.  :func:`derived_tile_schedule` runs K5's own derivation on
-the card and writes it out, so that the two can be held equal.
+the card and writes it out, so that the two can be held equal.  That is K5's decode form (16-row tiles).
+
+Its prefill form walks per-group work units instead
+(:func:`grouped_work_units`): a group's m-tiles start at its first row, so
+no unit spans two groups, and units are group-major, the n-tile next and
+the m-tile fastest; the rows from ``sum(splits)`` to the end are written as
+zeros beside the units.  :func:`derived_work_units` runs the card's own
+derivation of that list.
 
 The ring orders (:func:`ring_chunk_order`, :func:`bidir_chunk_order`) are
 the order in which the AllGather-GEMM (K12) multiplies the chunks of A: the
@@ -116,6 +123,82 @@ def grouped_tile_schedule(group_sizes: torch.Tensor, num_rows: int,
 
 SLOT_FIELDS = ("valid", "tile_ids", "group_ids", "row_starts", "row_ends",
                "is_first")
+
+
+class GroupedUnits(NamedTuple):
+    """All int32 of length ``(cdiv(num_rows, bm) + E) * cdiv(num_cols,
+    bn)``, a bound of the real count that needs no host read.  Unit ``u``
+    with ``valid[u]`` multiplies rows ``[m0[u], min(m0[u] + bm,
+    row_ends[u]))`` of group ``group_ids[u]`` by that group's weights into
+    columns ``[n0[u], n0[u] + bn)``; rows of the next group that the tile
+    also covers are loaded but never stored.  The units past the real ones
+    are zeros.  ``tail`` is ``(sum(splits), num_rows)``: the rows written as
+    zeros, outside any unit."""
+
+    valid: torch.Tensor
+    group_ids: torch.Tensor
+    m0: torch.Tensor
+    row_ends: torch.Tensor
+    n0: torch.Tensor
+    tail: tuple
+
+
+UNIT_FIELDS = ("valid", "group_ids", "m0", "row_ends", "n0")
+
+
+def grouped_work_units(group_sizes: torch.Tensor, num_rows: int, num_cols: int,
+                       bm: int = 128, bn: int = 256) -> GroupedUnits:
+    """K5's prefill work list for ``group_sizes`` (E,) rows per group,
+    contiguous from row 0, over ``num_cols`` output columns: group g's
+    ``ceil(n_g / bm)`` m-tiles times the ``cdiv(num_cols, bn)`` n-tiles,
+    group-major, the n-tile next, the m-tile fastest (on the input's
+    device; only ``tail`` is read back)."""
+    (num_groups,) = group_sizes.shape
+    dev = group_sizes.device
+    i32 = torch.int32
+    nn = cdiv(num_cols, bn)
+    count = (cdiv(num_rows, bm) + num_groups) * nn
+
+    sizes = group_sizes.to(i32)
+    ends = torch.cumsum(sizes, 0, dtype=i32)
+    tiles = (sizes + bm - 1) // bm
+    tile_end = torch.cumsum(tiles, 0, dtype=i32)
+    tile_start = tile_end - tiles
+
+    u = torch.arange(count, dtype=i32, device=dev)
+    # the first group whose tiles end past u // nn: never an empty group
+    g = torch.clamp(torch.searchsorted(tile_end, u // nn, right=True),
+                    max=num_groups - 1).long()
+    local = u - nn * tile_start[g]
+    per = torch.clamp(tiles[g], min=1)
+    valid = u < tile_end[-1] * nn
+    zero = torch.zeros_like(u)
+    m0 = torch.where(valid, ends[g] - sizes[g] + (local % per) * bm, zero)
+    row_end = torch.where(valid, ends[g], zero)
+    n0 = torch.where(valid, (local // per) * bn, zero)
+    group = torch.where(valid, g.to(i32), zero)
+    return GroupedUnits(valid.to(i32), group, m0, row_end, n0,
+                        (int(ends[-1]), num_rows))
+
+
+def derived_work_units(group_sizes: torch.Tensor, num_rows: int,
+                       num_cols: int) -> dict[str, torch.Tensor]:
+    """The prefill form's units by :data:`UNIT_FIELDS`: on a CUDA tensor,
+    K5's own derivation (``derive_groups`` and ``unit_at`` in
+    ``csrc/group_gemm.cu``) in one block, no product; on a CPU tensor,
+    :func:`grouped_work_units` with K5's 128 x 256 tile."""
+    (num_groups,) = group_sizes.shape
+    if group_sizes.device.type == "cpu":
+        units = grouped_work_units(group_sizes, num_rows, num_cols)
+        return {f: getattr(units, f) for f in UNIT_FIELDS}
+    sizes = group_sizes.to(torch.int32).contiguous()
+    count = (cdiv(num_rows, 128) + num_groups) * cdiv(num_cols, 256)
+    out = torch.empty((len(UNIT_FIELDS), count), dtype=torch.int32, device=sizes.device)
+    err = build.library().tdt_grouped_units(
+        sizes.data_ptr(), num_rows, num_groups, num_cols, out.data_ptr(),
+        torch.cuda.current_stream(sizes.device).cuda_stream)
+    build.check(err, "grouped_units")
+    return dict(zip(UNIT_FIELDS, out))
 
 
 def derived_tile_schedule(group_sizes: torch.Tensor, num_rows: int,
