@@ -11,8 +11,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
 2. build    -- nvcc builds the kernels from ``triton_distributed_tpu_torch/csrc``;
                the library's SASS must show HGMMA on UTMALDG (TMA) loads in
                every bf16 instantiation of K12, K13, their loop alone, K5's
-               prefill form and K1's served form, the last two with no
-               local memory (no spill).
+               prefill form and K1's served form, and HMMA on UTMALDG loads
+               in every instantiation of K2/K3's clustered form; K5's, K1's
+               and K2/K3's with no local memory (no spill).
 3. kernels  -- each kernel against its plain PyTorch version on the card:
                small edge cases (f32 and bf16, GQA 1-8, soft cap, qk-norm on
                and off, ragged and empty rows, a position on a page boundary
@@ -21,14 +22,20 @@ Phases, each printing JSON lines; any failure exits non-zero:
                expert, a zero tail, T 1/37/1000, K and N off the tile, held
                to BF16_TOL + 2**-7 |plain| in bf16; and K5's slot schedule
                and prefill work units as its blocks derive them, against
-               ops/swizzle.py, slot for slot and unit for unit), K1,
+               ops/swizzle.py, slot for slot and unit for unit; K2/K3's
+               clustered form (bf16, D = 128) at GQA 1, 2 and 8 over the
+               contiguous cache, bf16 pages and int8 pages, lengths 0, 1, 63,
+               64, 65 and the capacity, soft cap 0 and 5, a (B,), a 0-d
+               device and an int length, each result bit for bit unmoved by
+               NaN past the lengths), K1,
                K3 and K4 once at the Qwen3-30B-A3B attention shapes, then the
                main-path shapes (Qwen3-8B attention: B = 4, prompt 1024,
                cache of 2048, position 1056; Qwen3-30B-A3B expert products:
                32768 prefill rows, 32 decode rows, splits from a real
-               routing), each timed with CUDA events beside its plain
-               version, its bound, and SDPA, the per-kernel chain (K4) or
-               ``torch._grouped_mm`` (K5).
+               routing; K2 with an int and with a 0-d device length, K3 on
+               bf16 pages at the 30B-A3B shape too), each timed with CUDA
+               events beside its plain version, its bound, and SDPA, the
+               per-kernel chain (K4) or ``torch._grouped_mm`` (K5).
    local_ops -- the local ops beside the serving path (K6-K8).  K6, the
                tiled GEMM, against its plain version at the edges (M 1, 37,
                1000, 4096; N and K 136 and 4104; every built tile; bf16 ->
@@ -100,7 +107,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
                turns beside it); a stalled-rank child runs K15's one-shot,
                whose waits are at device scope: it must fail by name too.
 4. serve    -- Qwen3-8B at full width and depth with seeded random weights,
-               batch 4, max_length 2048: two requests of 1024 prompt tokens and 64
+               batch 4, max_length 2048: two requests of 1024 prompt tokens and 32
                new tokens in five modes (contiguous, paged, paged + fused,
                paged + int8, paged + int8 + fused); the launch counters must
                rise by 36 per prefill (K1) and by 36 per decode step for the
@@ -115,7 +122,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
                torch.profiler trace of one prefill and eight decode steps
                per mode: wall vs kernel time, idle share, kernel time by
                class (attention, grouped GEMM, overlapped GEMM, collective,
-               GEMM, other).
+               GEMM, other), the decode kernels' launches by name (a decode
+               step must run no combine pass).
    ep_cases -- K17 (the EP all-to-all) on co-located ranks, n 2, 3, 4, 8:
                f32 and bf16 rows of widths 8, 136 and 2048, packed u8 rows of
                H 16, 144 and 2048 (+ 128; 136-byte rows refused),
@@ -138,7 +146,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
                too, both scopes (each must fail by name).
    serve_tp -- Qwen3-8B at tp = 4 on four ranks co-located on the card, full
                width and depth (the tp = 1 engines freed first), batch 4,
-               prompts of 1024, 64 new tokens, in contiguous psum and paged
+               prompts of 1024, 32 new tokens, in contiguous psum and paged
                psum, ar and gemm_ar: per prefill K1 +36, K12 +72, K13 +72; per
                step K2 or K3 +36, K11 +72 (ar), K14 +72 (gemm_ar), nothing
                else; two requests a mode, a profile, peak memory; the tp = 4
@@ -297,6 +305,7 @@ def phase_build(tt) -> None:
         if "fused_attn_decode_kernel" in e or "grouped_gemm" in e or "flash_fwd_wgmma" in e
         or "ag_gemm_kernel" in e or "gemm_rs_kernel" in e or "product_kernel" in e
         or "fused_ar_kernel" in e or "persistent_decode_kernel" in e
+        or "decode_cluster" in e
         or re.search(r"decode_splitI(f|13__nv_bfloat16)a", e)]})
     build.library()
     phase_sass(build, path)
@@ -309,13 +318,17 @@ def phase_build(tt) -> None:
 SASS_KERNELS = {"ag_gemm_kernelI13__nv_bfloat16": 4, "gemm_rs_kernelI13__nv_bfloat16": 2,
                 "product_kernelI13__nv_bfloat16": 2, "grouped_gemm_wgmmaI": 2,
                 "flash_fwd_wgmma": 1}
-NO_LOCAL = ("grouped_gemm_wgmmaI", "flash_fwd_wgmma")
+# K2/K3's clustered form (G 1, 2, 4, 8 over a contiguous cache, bf16 pages
+# and int8 pages): mma.sync (HMMA) on TMA loads (UTMALDG)
+SASS_MMA_KERNELS = {"decode_cluster": 12}
+NO_LOCAL = ("grouped_gemm_wgmmaI", "flash_fwd_wgmma", "decode_cluster")
 
 
 def phase_sass(build, lib: Path) -> None:
     """The library's SASS (cuobjdump -sass): every bf16 instantiation of
     K12, K13, their loop alone, K5's prefill form and K1's served form runs
-    HGMMA on UTMALDG loads; K5's and K1's touch no local memory."""
+    HGMMA on UTMALDG loads, K2/K3's clustered form HMMA on UTMALDG loads;
+    K5's, K1's and K2/K3's touch no local memory."""
     import subprocess
 
     tool = Path(build.find_nvcc()).parent / "cuobjdump"
@@ -324,11 +337,11 @@ def phase_sass(build, lib: Path) -> None:
                          timeout=300)
     check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-2000:]}")
     counts, fn = {}, None
-    ops = ("HGMMA", "UTMALDG", "LDL", "STL")
+    ops = ("HGMMA", "HMMA", "UTMALDG", "LDL", "STL")
     for ln in res.stdout.splitlines():
         if "Function :" in ln:
             name = ln.split("Function :")[1].strip()
-            fn = name if any(k in name for k in SASS_KERNELS) else None
+            fn = name if any(k in name for k in (*SASS_KERNELS, *SASS_MMA_KERNELS)) else None
             if fn:
                 counts[fn] = dict.fromkeys(ops, 0)
         elif fn:
@@ -337,11 +350,12 @@ def phase_sass(build, lib: Path) -> None:
                 counts[fn][op] += op in words
     names = demangle(list(counts))
     emit({"phase": "build_sass", "kernels": {names[f]: c for f, c in counts.items()}})
-    for key, want in SASS_KERNELS.items():
+    for key, want in (*SASS_KERNELS.items(), *SASS_MMA_KERNELS.items()):
         found = [c for f, c in counts.items() if key in f]
+        mma = "HMMA" if key in SASS_MMA_KERNELS else "HGMMA"
         check(len(found) == want, f"{len(found)} instantiations of {key} in the SASS, not {want}")
-        check(all(c["HGMMA"] and c["UTMALDG"] for c in found),
-              f"an instantiation of {key} issues no HGMMA or no UTMALDG")
+        check(all(c[mma] and c["UTMALDG"] for c in found),
+              f"an instantiation of {key} issues no {mma} or no UTMALDG")
         if key in NO_LOCAL:
             check(all(c["LDL"] + c["STL"] == 0 for c in found),
                   f"an instantiation of {key} touches local memory (spills): {found}")
@@ -419,6 +433,15 @@ def phase_kernel_cases(tt, torch) -> None:
             check(not got[0].any(), "paged_decode_attention: a length-0 row is not zeros")
             results.append(("paged_decode_attention", str(dtype), (b, h, hk, ps, mp, d, cap),
                             (got.float() - want.float()).abs().max().item(), tol))
+    # the split + combine pass in bf16 (D = 64), beside the clustered form
+    q64, k64, v64 = (rnd(*shape, dtype=torch.bfloat16) for shape in
+                     ((3, 8, 64), (3, 2, 200, 64), (3, 2, 200, 64)))
+    lens64 = torch.tensor([0, 131, 200], dtype=torch.int32, device=dev)
+    results.append(("decode_attention", "torch.bfloat16", (3, 8, 2, 200, 64, lens64.tolist(), 0.0),
+                    (A.decode_attention(q64, k64, v64, lens64).float()
+                     - A.decode_attention_ref(q64, k64, v64, lens64).float()).abs().max().item(),
+                    BF16_TOL))
+    results += clustered_cases(tt, torch, quantized=False)
     torch.cuda.synchronize()
     for name, dt, shape, err, tol in results:
         emit({"phase": "kernel_case", "kernel": name, "dtype": dt,
@@ -436,6 +459,84 @@ def phase_kernel_cases(tt, torch) -> None:
     emit({"phase": "kernel_case", "kernel": "logits_f32", "dtype": str(got.dtype),
           "max_abs_err": err, "tol": 1e-3, "ok": err <= 1e-3})
     check(got.dtype == torch.float32 and err <= 1e-3, "logits_f32 is not f32-accurate")
+
+
+CLUSTER_LENS = (0, 1, 63, 64, 65, 320)   # ragged, on and off a page and a piece; the capacity
+
+
+def clustered_cases(tt, torch, quantized: bool) -> list:
+    """K2/K3's clustered form (bf16, D = 128) against the plain versions at G
+    = 1, 2 and 8: lengths 0, 1, 63, 64, 65 and the capacity (320: five pages
+    of 64), soft cap 0 and 5; the contiguous cache with a (B,) length, a 0-d
+    device length and an int, then bf16 pages (or int8 pages when
+    ``quantized``) in a shuffled table whose entries past a sequence's pages
+    point at page 0.  A length-0 row must be exact zeros, and a result must
+    not move, bit for bit, when every row past a sequence's length (and
+    every page past its pages) holds NaN instead."""
+    from triton_distributed_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11 + quantized)
+    bf = torch.bfloat16
+    b, hk, d, ps = len(CLUSTER_LENS), 2, 128, PAGE
+    cap = CLUSTER_LENS[-1]
+    mp = cap // ps
+    lens = torch.tensor(CLUSTER_LENS, dtype=torch.int32, device=dev)
+    table = torch.randperm(b * mp, generator=torch.Generator().manual_seed(SEED + 12)) \
+        .to(torch.int32).reshape(b, mp)
+    for i, n in enumerate(CLUSTER_LENS):
+        table[i, -(-n // ps):] = 0        # past the sequence's pages: page 0, never read
+    table = table.to(dev)
+    past = torch.arange(cap, device=dev)[None, :] >= lens[:, None]   # (B, capacity)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    def nan_past(x):   # a (B, Hkv, capacity, D) cache with NaN past each length
+        return x.masked_fill(past[:, None, :, None], float("nan"))
+
+    results = []
+    for g in (1, 2, 8):
+        h = hk * g
+        q = rnd(b, h, d)
+        for cap_ in (0.0, 5.0):
+            if not quantized:
+                k, v = rnd(b, hk, cap, d), rnd(b, hk, cap, d)
+                for kv_len in (lens, torch.tensor(65, dtype=torch.int32, device=dev), 64):
+                    got = A.decode_attention(q, k, v, kv_len, soft_cap=cap_)
+                    want = A.decode_attention_ref(q, k, v, kv_len, soft_cap=cap_)
+                    form = "(B,)" if torch.is_tensor(kv_len) and kv_len.dim() else \
+                        "0-d" if torch.is_tensor(kv_len) else "int"
+                    results.append(("decode_attention[clustered]", str(bf),
+                                    (g, cap_, form, CLUSTER_LENS), (got.float() - want.float())
+                                    .abs().max().item(), BF16_TOL))
+                    if kv_len is lens:
+                        check(not got[0].any(), "clustered K2: a length-0 row is not zeros")
+                        check(torch.equal(got, A.decode_attention(q, nan_past(k), nan_past(v),
+                                                                  lens, soft_cap=cap_)),
+                              f"clustered K2 g={g}: rows past the length moved the result")
+                pk, pv = rnd(b * mp, hk, ps, d), rnd(b * mp, hk, ps, d)
+                scales, name = {}, "paged_decode_attention[clustered]"
+            else:
+                pk, pv, ks, vs = int8_pools(torch, gen, b * mp, hk, ps, d)
+                scales, name = dict(k_scale=ks, v_scale=vs), "paged_decode_attention_int8[clustered]"
+            got = A.paged_decode_attention(q, pk, pv, table, lens, soft_cap=cap_, **scales)
+            want = A.paged_decode_attention_ref(q, pk, pv, table, lens, soft_cap=cap_, **scales)
+            results.append((name, str(bf), (g, cap_, CLUSTER_LENS),
+                            (got.float() - want.float()).abs().max().item(), BF16_TOL))
+            check(not got[0].any(), f"{name}: a length-0 row is not zeros")
+            if not quantized:
+                # NaN in every pool slot no sequence reads (the pages past each
+                # sequence's, and each last page's tail)
+                used = torch.zeros(b * mp, ps, dtype=torch.bool, device=dev)
+                for i, n in enumerate(CLUSTER_LENS):
+                    for pos in range(0, n, ps):
+                        used[int(table[i, pos // ps]), :min(ps, n - pos)] = True
+                nk, nv_ = (x.masked_fill(~used[:, None, :, None], float("nan")) for x in (pk, pv))
+                check(torch.equal(got, A.paged_decode_attention(q, nk, nv_, table, lens,
+                                                                soft_cap=cap_)),
+                      f"clustered K3 g={g}: slots past the length moved the result")
+    return results
 
 
 def int8_pools(torch, gen, p, hk, ps, d):
@@ -531,6 +632,7 @@ def phase_fused_cases(tt, torch) -> list:
                       f"K4 int8 {dtype} g={g}: the int8 pools or scales moved")
                 results.append(("fused_attn_decode_int8", str(dtype), (g, d, eps, lens.tolist()),
                                 max(err(out, want), err(kt, kt_r), err(vt, vt_r)), tol))
+    results += clustered_cases(tt, torch, quantized=True)
     torch.cuda.synchronize()
     for name, dt, case, e, tol in results:
         emit({"phase": "kernel_case", "kernel": name, "dtype": dt,
@@ -591,11 +693,22 @@ def phase_kernels_main(tt, torch) -> dict:
     b_ms, b_by = bound(4 * BATCH * h * DECODE_POS * d,
                        rows_read + nbytes(qd, got), H100_BF16_FLOPS)
     rows["decode_attention"] = dict(
-        name="decode_attention", route="cuda", source=src + "decode_attention.cu",
+        name="decode_attention", route="cuda", source=src + "decode_cluster.cu",
         replaces="triton_distributed_tpu/ops/attention.py:935",
         max_abs_err=err, tol=BF16_TOL, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms,
         shape=f"q ({BATCH},{h},{d}) cache ({BATCH},{hk},{MAX_LEN},{d}) bf16 kv_len {DECODE_POS}")
+    # the served form of the length: a 0-d int32 on the card (the contiguous
+    # KVCache.kv_len + 1, made once a step)
+    pos = torch.tensor(DECODE_POS, dtype=torch.int32, device=dev)
+    got = A.decode_attention(qd, kc, vc, pos)
+    err = (got.float() - A.decode_attention_ref(qd, kc, vc, pos).float()).abs().max().item()
+    _, ms = perf_func(lambda: A.decode_attention(qd, kc, vc, pos), iters=50)
+    _, plain_ms = perf_func(lambda: A.decode_attention_ref(qd, kc, vc, pos))
+    rows["decode_attention[device length]"] = dict(
+        rows["decode_attention"], name="decode_attention[device length]",
+        counter="decode_attention", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        shape=rows["decode_attention"]["shape"] + " (0-d int32 on the card)")
 
     # K3: paged decode, page 64, shuffled table, 1056 positions per sequence
     ps, mp = 64, MAX_LEN // 64
@@ -615,11 +728,31 @@ def phase_kernels_main(tt, torch) -> dict:
                        rows_read + nbytes(qd, got, lens) + BATCH * mp * 4,
                        H100_BF16_FLOPS)
     rows["paged_decode_attention"] = dict(
-        name="paged_decode_attention", route="cuda", source=src + "decode_attention.cu",
+        name="paged_decode_attention", route="cuda", source=src + "decode_cluster.cu",
         replaces="triton_distributed_tpu/ops/attention.py:1096",
         max_abs_err=err, tol=BF16_TOL, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms,
         shape=f"q ({BATCH},{h},{d}) pool ({BATCH * mp},{hk},{ps},{d}) bf16 seq_lens {DECODE_POS}")
+    # K3 on bf16 pages at the Qwen3-30B-A3B shape: 32 q heads over 4 kv heads (G = 8)
+    c30 = tt.QWEN3_30B_A3B
+    h30, hk30 = c30.num_heads, c30.num_kv_heads
+    q30 = rnd(BATCH, h30, d)
+    pk30, pv30 = pk[:, :hk30].contiguous(), pv[:, :hk30].contiguous()
+    got = A.paged_decode_attention(q30, pk30, pv30, table, lens)
+    err = (got.float() - A.paged_decode_attention_ref(q30, pk30, pv30, table, lens).float()
+           ).abs().max().item()
+    _, ms = perf_func(lambda: A.paged_decode_attention(q30, pk30, pv30, table, lens), iters=50)
+    _, plain_ms = perf_func(lambda: A.paged_decode_attention_ref(q30, pk30, pv30, table, lens))
+    _, lib_ms = perf_func(lambda: F.scaled_dot_product_attention(
+        q30[:, :, None], gk[:, :hk30], gv[:, :hk30], enable_gqa=True), iters=50)
+    b_ms, b_by = bound(4 * BATCH * h30 * DECODE_POS * d,
+                       rows_read // 2 + nbytes(q30, got, lens) + BATCH * mp * 4,
+                       H100_BF16_FLOPS)
+    rows["paged_decode_attention[Qwen3-30B-A3B]"] = dict(
+        rows["paged_decode_attention"], name="paged_decode_attention[Qwen3-30B-A3B]",
+        counter="paged_decode_attention", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        shape=f"q ({BATCH},{h30},{d}) pool ({BATCH * mp},{hk30},{ps},{d}) bf16 seq_lens {DECODE_POS}")
     rows.update(fused_main_rows(tt, torch, g, qd, table, lens))
     torch.cuda.synchronize()
     for row in rows.values():
@@ -681,7 +814,7 @@ def fused_main_rows(tt, torch, g, qd, table, lens) -> dict:
                        + BATCH * mp * 4, H100_BF16_FLOPS)
     rows["paged_decode_attention_int8"] = dict(
         name="paged_decode_attention_int8", route="cuda",
-        source=src + "decode_attention.cu",
+        source=src + "decode_cluster.cu",
         replaces="triton_distributed_tpu/ops/attention.py:1096",
         max_abs_err=err((got, want)), tol=BF16_TOL, ms=ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
@@ -4163,8 +4296,8 @@ def phase_parity_ep(tt, torch) -> None:
     torch.cuda.empty_cache()
 
 
-KERNEL_CLASSES = (("attention", ("flash_fwd", "decode_split", "decode_combine",
-                                 "fused_attn_decode")),
+KERNEL_CLASSES = (("attention", ("flash_fwd", "decode_cluster", "decode_split",
+                                 "decode_combine", "fused_attn_decode")),
                   ("grouped_gemm", ("grouped_gemm",)),   # K5, before "gemm"
                   ("overlap_gemm", ("ag_gemm_kernel", "gemm_rs_kernel")),   # K12-K14
                   ("fused_ar", ("fused_ar_kernel",)),                       # K15
@@ -4219,13 +4352,23 @@ def phase_profile(eng, ids, torch, layout: str, prefill: bool = True) -> None:
             classes[cls] += ms
         device_ms = sum(classes.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        # the decode kernels' launches by name: bf16 at D = 128 is K2/K3's
+        # clustered form alone, no combine pass beside it
+        decode_launches: dict[str, float] = {}
+        for e in ks:
+            for key in ("decode_cluster", "decode_split", "decode_combine"):
+                if key in e.name:
+                    decode_launches[key] = decode_launches.get(key, 0) + 1 / n
         emit({"phase": "profile", "layout": layout, "what": what,
               "wall_ms": walls[what], "device_kernel_ms": device_ms,
               "idle_share": 1.0 - device_ms / walls[what],
               "host_enqueue_ms": enqueue_ms if what == "decode_step" else None,
               "kernel_launches": len(ks) / n,
               "device_ms_by_class": classes,
+              "decode_kernel_launches": decode_launches,
               "top_kernels_ms": [[name[:60], ms] for name, ms in top]})
+        check(what != "decode_step" or "decode_combine" not in decode_launches,
+              f"{layout}: a decode step ran the combine pass: {decode_launches}")
 
 
 # (label, cache layout, decode mode, kv dtype, the decode step's kernel)

@@ -1,5 +1,7 @@
 // K2, K3 and K7: single-token decode attention for Hopper (sm_90a), over a
-// contiguous KV cache and over a paged one.
+// contiguous KV cache and over a paged one.  K2 and K3 with bf16 queries at
+// D = 128, the served form, run decode_cluster.cu's one clustered launch
+// instead; their f32 and D = 64 forms run the split + combine pass below.
 //
 // K2 replaces triton_distributed_tpu/ops/attention.py::_decode_fused_kernel
 // (split-KV decode over a contiguous (B, Hkv, Smax, D) cache with ragged

@@ -415,18 +415,21 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 3-D map of bf16 at `base`: (d0, d1, d2) elements innermost first, d0
-// contiguous, pitches p1 and p2 in bytes; boxes of BOX x box1 x 1 with the
+// A 3-D map of `type` (bf16 unless given) at `base`: (d0, d1, d2) elements
+// innermost first, d0 contiguous, pitches p1 and p2 in bytes; boxes of box0
+// x box1 x 1 (box0 of 128 bytes: BOX bf16 values unless given) with the
 // 128-byte swizzle, zeros outside the tensor.
 inline cudaError_t make_map(CUtensorMap* m, const void* base, uint64_t d0, uint64_t d1,
-                            uint64_t d2, uint64_t p1, uint64_t p2, uint32_t box1) {
+                            uint64_t d2, uint64_t p1, uint64_t p2, uint32_t box1,
+                            CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                            uint32_t box0 = BOX) {
   EncodeTiled enc = encode_tiled();
   if (!enc) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {d0, d1, d2};
   const cuuint64_t pitch[2] = {p1, p2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(BOX), box1, 1};
+  const cuuint32_t box[3] = {box0, box1, 1};
   const cuuint32_t one[3] = {1, 1, 1};
-  const CUresult r = enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+  const CUresult r = enc(m, type, 3, const_cast<void*>(base), dims,
                          pitch, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

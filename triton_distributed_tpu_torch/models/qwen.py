@@ -343,10 +343,11 @@ class Qwen3(nn.Module):
     # -- decode -----------------------------------------------------------
 
     def _attn_decode(self, p: TPAttnParams, x: torch.Tensor, cache,
-                     layer: int, cos, sin) -> torch.Tensor:
+                     layer: int, cos, sin, lens) -> torch.Tensor:
         """The per-kernel attention step (``qwen.py:474-626``): qkv product,
         qk-norm, RoPE, the token's append (requantizing its page on an int8
-        cache), then the decode kernel over the cache including the token.
+        cache), then the decode kernel over the cache including the token
+        (``lens``: the step's lengths after the append, made once a step).
         At tp > 1 the ranks' heads attend as one rank-folded batch against the
         head-sharded cache.  Returns the o-proj output (B, K)."""
         b = x.shape[0]
@@ -356,11 +357,10 @@ class Qwen3(nn.Module):
         append_token(cache, layer, k, v[:, :, 0])
         if isinstance(cache, PagedKVCache):
             out = paged_decode_attention(q, cache.k[layer], cache.v[layer],
-                                         cache.block_table, cache.seq_lens + 1,
+                                         cache.block_table, lens,
                                          **layer_scales(cache, layer))
         else:
-            out = decode_attention(q, cache.k[layer], cache.v[layer],
-                                   cache.kv_len + 1)
+            out = decode_attention(q, cache.k[layer], cache.v[layer], lens)
         if self.tp > 1:
             return self._row_parallel_reduce(out.reshape(self.tp, b, -1), p.wo)
         return self._row_parallel_reduce(out.reshape(b, -1), p.wo)
@@ -462,14 +462,16 @@ class Qwen3(nn.Module):
         c = self.config
         paged = isinstance(cache, PagedKVCache)
         fused = paged and self.decode_mode in ("fused", "persistent")
-        cos = sin = None
+        cos = sin = lens = None
         if not fused:
             if paged:
                 # per-sequence ragged positions (qwen.py:558)
                 pos = cache.seq_lens.to(torch.float32)[:, None, None]   # (B, 1, 1)
+                lens = cache.seq_lens + 1
             else:
                 # one shared position (qwen.py:481), read on the device
                 pos = cache.kv_len.to(torch.float32).reshape(1)
+                lens = cache.kv_len + 1
             cos, sin = rope_freqs(pos, c.head_dim, theta=c.rope_theta)
         x = params.embed[tokens.to(self.device)]
         for li, lp in enumerate(params.layers):
@@ -477,7 +479,7 @@ class Qwen3(nn.Module):
             if fused:
                 x = x + self._attn_decode_paged_fused(lp.attn, h, cache, li)
             else:
-                x = x + self._attn_decode(lp.attn, h, cache, li, cos, sin)
+                x = x + self._attn_decode(lp.attn, h, cache, li, cos, sin, lens)
             x = x + self._mlp_decode(lp.mlp, rms_norm(x, lp.ln2, c.rms_eps))
         return self._finish(params, x), advance(cache, 1)
 

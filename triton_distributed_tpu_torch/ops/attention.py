@@ -7,9 +7,10 @@ PyTorch version beside it (``*_ref``) and a hand-written CUDA kernel in
 ``csrc/`` that replaces a Pallas kernel of ``ops/attention.py``:
 
 - ``flash_attention``: ``flash_attention.cu``, replacing ``_attn_kernel``;
-- ``decode_attention``: ``decode_attention.cu``, replacing
-  ``_decode_fused_kernel``;
-- ``paged_decode_attention``: ``decode_attention.cu``, replacing
+- ``decode_attention``: ``decode_cluster.cu`` (bf16, D = 128: one
+  clustered launch) or ``decode_attention.cu`` (f32, D = 64: a split pass
+  and a combine), replacing ``_decode_fused_kernel``;
+- ``paged_decode_attention``: the same two, replacing
   ``_paged_decode_kernel`` with pages in q's type or int8 pages;
 - ``decode_attention_state`` and ``paged_decode_attention_state`` (K7):
   ``decode_attention.cu``, replacing ``_decode_kernel`` and the ``_state``
@@ -49,7 +50,9 @@ _NEG_INF = -1e30
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_GROUPS = (1, 2, 4, 8)       # query heads per kv head in the decode kernel
-DECODE_BLOCKS_PER_SM = 4           # split-count target of the decode kernel
+DECODE_BLOCKS_PER_SM = 4           # split-count target of the split + combine pass
+DECODE_PIECE = 16                  # rows of a piece in the clustered form: the mma's k-depth
+DECODE_CLUSTER = 8                 # blocks of the clustered form a (batch, kv head)
 
 
 # ---------------------------------------------------------------------------
@@ -317,6 +320,59 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
+def decode_pieces(length: int, cluster: int = DECODE_CLUSTER,
+                  page_size: int | None = None) -> list[list[tuple[int, int]]]:
+    """Each block's share of a sequence of ``length`` positions in the
+    clustered form of K2/K3 (``csrc/decode_cluster.cu``), as its pieces'
+    [start, end) ranges: the cdiv(length, 16) pieces of 16 rows (the last
+    one partial) cut into ``cluster`` even shares, block r taking pieces [r
+    n / cluster, (r + 1) n / cluster) (the kernel reads the length on the
+    device).  A page must hold a multiple of 16 rows, so that no piece
+    straddles one."""
+    if page_size is not None and page_size % DECODE_PIECE:
+        raise ValueError(f"page_size {page_size} is not a multiple of {DECODE_PIECE}")
+    n = cdiv(max(int(length), 0), DECODE_PIECE)
+    return [[(DECODE_PIECE * i, min(DECODE_PIECE * (i + 1), length))
+             for i in range(r * n // cluster, (r + 1) * n // cluster)]
+            for r in range(cluster)]
+
+
+def _clustered(q: torch.Tensor, d: int, page_size: int | None = None) -> bool:
+    """Whether the clustered form serves the call: bf16 queries at D = 128
+    over a contiguous cache or pages of a multiple of 16 rows."""
+    return (q.dtype == torch.bfloat16 and d == 128
+            and (page_size is None or page_size % DECODE_PIECE == 0))
+
+
+def _length_arg(kv_len, b: int, device) -> tuple[torch.Tensor | None, int, int]:
+    """The clustered form's lengths as (tensor, stride, int): an int goes in
+    as a kernel argument, a 0-d or one-element tensor with stride 0, a (B,)
+    tensor as it is.  Only a tensor of another dtype or device is copied."""
+    if not isinstance(kv_len, torch.Tensor):
+        return None, 0, int(kv_len)
+    if kv_len.dim() not in (0, 1) or kv_len.numel() not in (1, b):
+        raise ValueError(f"kv_len {tuple(kv_len.shape)} is not a scalar or (B,)")
+    if kv_len.dtype != torch.int32 or kv_len.device != device:
+        kv_len = kv_len.to(device=device, dtype=torch.int32)
+    return kv_len, (0 if kv_len.numel() == 1 else kv_len.stride(0)), 0
+
+
+def _launch_cluster(q, k, v, kv_len, table, capacity: int, page_size: int,
+                    max_pages: int, sm_scale: float, soft_cap: float, name: str,
+                    k_scale=None, v_scale=None) -> torch.Tensor:
+    b, h, _ = q.shape
+    lens, stride, const = _length_arg(kv_len, b, q.device)
+    out = torch.empty_like(q)
+    err = build.library().tdt_decode_cluster(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(lens), stride, const,
+        _ptr(table), _ptr(k_scale), _ptr(v_scale), out.data_ptr(), b, h,
+        k.shape[1], capacity, page_size, max_pages,
+        k.shape[0] if table is not None else 0, sm_scale, float(soft_cap),
+        _stream(q.device))
+    build.check(err, name)
+    return out
+
+
 def _launch_decode(q, k, v, lens, table, capacity: int, page_size: int,
                    max_pages: int, sm_scale: float, soft_cap: float,
                    name: str, k_scale=None, v_scale=None) -> torch.Tensor:
@@ -385,7 +441,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      soft_cap: float = 0.0) -> torch.Tensor:
     """Single-token decode over a contiguous cache.  ``q``: (B, H, D);
     ``k``/``v``: (B, Hkv, Smax, D); ``kv_len``: int, 0-d or (B,) tensor of
-    valid lengths (ragged).  Returns (B, H, D); a length-0 row is zeros."""
+    valid lengths (ragged).  Returns (B, H, D); a length-0 row is zeros.
+    bf16 at D = 128 is one clustered launch, the length read on the device
+    (an int32 tensor on q's device is not copied)."""
     b, h, d, hk = _check_decode_q(q, k, ("q", "k"))
     _check_tensors(("k", "v"), (k, v))
     if k.shape[0] != b or v.shape != k.shape:
@@ -396,9 +454,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return decode_attention_ref(q, k, v, kv_len, sm_scale=sm_scale,
                                     soft_cap=soft_cap)
     _check_kernel_shape(d, h // hk)
-    lens = _lens(kv_len, b, q.device)
-    out = _launch_decode(q, k, v, lens, None, k.shape[2], 0, 0, sm_scale,
-                         soft_cap, "decode_attention")
+    if _clustered(q, d):
+        out = _launch_cluster(q, k, v, kv_len, None, k.shape[2], 0, 0, sm_scale,
+                              soft_cap, "decode_attention")
+    else:
+        out = _launch_decode(q, k, v, _lens(kv_len, b, q.device), None,
+                             k.shape[2], 0, 0, sm_scale, soft_cap,
+                             "decode_attention")
     count("decode_attention")
     return out
 
@@ -443,8 +505,9 @@ def paged_decode_attention(q: torch.Tensor, pool_k: torch.Tensor,
     check_int32(block_table=block_table, seq_lens=seq_lens)
     ps, mp = pool_k.shape[2], block_table.shape[1]
     name = "paged_decode_attention_int8" if quantized else "paged_decode_attention"
-    out = _launch_decode(q, pool_k, pool_v, seq_lens, block_table, mp * ps,
-                         ps, mp, sm_scale, soft_cap, name, k_scale, v_scale)
+    launch = _launch_cluster if _clustered(q, d, ps) else _launch_decode
+    out = launch(q, pool_k, pool_v, seq_lens, block_table, mp * ps, ps, mp,
+                 sm_scale, soft_cap, name, k_scale, v_scale)
     count(name)
     return out
 
