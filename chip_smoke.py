@@ -277,6 +277,8 @@ def phase_build(tt) -> None:
 
     t0 = time.perf_counter()
     path, log = build.build()
+    if not log:   # built earlier: the log it saved beside the library
+        log = (path.parent / "nvcc.log").read_text()
     lines = [ln.strip() for ln in log.splitlines()]
     # ptxas -v: per kernel instantiation, "Compiling entry function '<name>'",
     # a spill line that should read 0 bytes, and "Used N registers"
@@ -305,10 +307,21 @@ def phase_build(tt) -> None:
         if "fused_attn_decode_kernel" in e or "grouped_gemm" in e or "flash_fwd_wgmma" in e
         or "ag_gemm_kernel" in e or "gemm_rs_kernel" in e or "product_kernel" in e
         or "fused_ar_kernel" in e or "persistent_decode_kernel" in e
-        or "decode_cluster" in e
+        or "stream_decode_kernel" in e or "decode_cluster" in e
         or re.search(r"decode_splitI(f|13__nv_bfloat16)a", e)]})
+    stream = [v for e, v in per_entry.items() if "stream_decode_kernel" in e]
+    check(len(stream) == 1, f"{len(stream)} instantiations of K16's served form, not 1")
+    spilled = [int(b) for b in re.findall(r"(\d+) bytes spill (?:stores|loads)", stream[0])]
+    check(len(spilled) == 2 and max(spilled) <= STREAM_SPILL_BYTES,
+          f"K16's served form spills more than {STREAM_SPILL_BYTES} bytes: {stream[0]}")
     build.library()
     phase_sass(build, path)
+
+
+# K16's served form runs two blocks an SM, which caps a thread at 128
+# registers: ptxas spills 4 bytes of it (stores and loads each; 112 before
+# its attention cell took two rows a step), and no more may spill
+STREAM_SPILL_BYTES = 4
 
 
 # K12's and K13's bf16 kernels (both rings, both output dtypes), their loop
@@ -2529,7 +2542,8 @@ def phase_overlap(tt, torch) -> dict:
 # persistent decode kernel)
 
 FUSED_AR_SOURCE = "triton_distributed_tpu_torch/csrc/fused_ar.cu"
-PERSISTENT_SOURCE = "triton_distributed_tpu_torch/csrc/persistent_decode.cu"
+# K16's served form (bf16, head dim 128)
+PERSISTENT_SOURCE = "triton_distributed_tpu_torch/csrc/persistent_decode_v2.cu"
 FUSED_SOURCE = "triton_distributed_tpu_torch/csrc/fused_decode.cu"
 FUSED_AR_ROWS = (1, 3, 4, 5)
 # (K, F / n, N / n): off the 64-column tile and the 64-row K granule
@@ -3207,6 +3221,9 @@ def persistent_case(tt, torch, c, n: int, dev) -> dict:
     sp = PD.stack_decode_params(params)
     kw = dict(rope_theta=c.rope_theta, rms_eps=c.rms_eps,
               qk_eps=c.rms_eps if c.qk_norm else None)
+    form = PD.served_form(c.dtype, c.head_dim, c.num_heads // c.num_kv_heads, b, c.hidden,
+                          c.intermediate // n)
+    order = plain_order(form)
     tol = PERSISTENT_TOL[str(c.dtype)[6:]]
     worst = {"x_vs_plain": 0.0, "pool_vs_plain": 0.0, "x_vs_fused": 0.0, "pool_vs_fused": 0.0}
     faults = {}
@@ -3220,7 +3237,7 @@ def persistent_case(tt, torch, c, n: int, dev) -> dict:
         check(pads_at_rest(), f"K16 n={n} L={c.num_layers}: a signal pad is not at rest")
         rk, rv = before[0].clone(), before[1].clone()
         want, _, _ = PD.reference_decode_step(x, sp, rk, rv, cache.block_table, cache.seq_lens,
-                                              mesh, **kw)
+                                              mesh, order=order, **kw)
         fk, fv = before[0].clone(), before[1].clone()
         fcache = dataclasses.replace(cache, k=fk, v=fv, seq_lens=cache.seq_lens.clone())
         link = fused_hidden(fused, params, fcache, x)
@@ -3239,37 +3256,48 @@ def persistent_case(tt, torch, c, n: int, dev) -> dict:
                                 c.num_layers)
             faults["token_one_slot_on"] = x_share(torch, moved, rk, tol["pool"])
             if n > 1:
-                bad = dropped_partial_step(PD, x, sp, before, cache, mesh, c.num_layers - 1, kw)
+                bad = dropped_partial_step(PD, x, sp, before, cache, mesh, c.num_layers - 1, kw,
+                                           order)
                 faults["o_partial_left_out"] = x_share(torch, bad, want, tol["x"])
             for key, v in faults.items():
                 check(v >= FAULT_MARGIN, f"K16 n={n} L={c.num_layers}: the planted fault {key} "
                                          f"is only {v:.3g} of the limit away")
         cache.seq_lens += 1
     del model, params, sp
-    return {"phase": "persistent_case", "n": n, "layers": c.num_layers, "hidden": c.hidden,
+    return {"phase": "persistent_case", "form": form, "plain_order": order, "n": n,
+            "layers": c.num_layers, "hidden": c.hidden,
             "head_dim": c.head_dim, "group": c.num_heads // c.num_kv_heads,
             "dtype": str(c.dtype), "qk_norm": c.qk_norm, "steps": 3,
             "lens_first": cache.seq_lens[:3].tolist(), "worst_share_of_limit": worst,
             "faulty_share_of_limit": faults, "tol": tol, "pads_at_rest": True}
 
 
-def dropped_partial_step(PD, x, sp, pools, cache, mesh, layer: int, kw):
-    """The plain step with rank 1's o-projection partial left out of layer
-    ``layer``'s sum (a planted fault): the plain version run with its K15
-    linear reference fed a zero for that rank at that layer."""
+def plain_order(form: str) -> str:
+    """The order of K16's plain version that matches ``form``: the served
+    form's one-shot exchange, or the f32 / head dim 64 body's ring."""
+    return "oneshot" if form == "stream" else "ring"
+
+
+def dropped_partial_step(PD, x, sp, pools, cache, mesh, layer: int, kw, order: str = "ring",
+                         rank: int = 1, scale: float = 0.0):
+    """The plain step with rank ``rank``'s o-projection partial left out of
+    layer ``layer``'s sum (a planted fault), or counted ``scale`` times: the
+    plain version (in ``order``) run with its K15 linear reference fed that
+    rank's input times ``scale`` at that layer."""
     real, calls = PD.fused_linear_ar_ref, [0]
 
     def faulty(h, w, mesh, axis="tp", **kws):
         if calls[0] == layer:
             h = h.clone()
-            h[1] = 0
+            h[rank] *= scale
         calls[0] += 1
         return real(h, w, mesh, axis, **kws)
 
     PD.fused_linear_ar_ref = faulty
     try:
         return PD.reference_decode_step(x, sp, pools[0].clone(), pools[1].clone(),
-                                        cache.block_table, cache.seq_lens, mesh, **kw)[0]
+                                        cache.block_table, cache.seq_lens, mesh, order=order,
+                                        **kw)[0]
     finally:
         PD.fused_linear_ar_ref = real
 
@@ -4301,7 +4329,8 @@ KERNEL_CLASSES = (("attention", ("flash_fwd", "decode_cluster", "decode_split",
                   ("grouped_gemm", ("grouped_gemm",)),   # K5, before "gemm"
                   ("overlap_gemm", ("ag_gemm_kernel", "gemm_rs_kernel")),   # K12-K14
                   ("fused_ar", ("fused_ar_kernel",)),                       # K15
-                  ("persistent", ("persistent_decode_kernel",)),            # K16
+                  ("persistent", ("persistent_decode_kernel",
+                                  "stream_decode_kernel")),                 # K16
                   ("collective", ("all_gather_kernel", "reduce_scatter_kernel",
                                   "all_reduce_kernel", "a2a_push_kernel")),  # K9-K11, K17
                   ("quant_pack", ("quant_pack_kernel",)),                   # K18
@@ -4613,6 +4642,22 @@ def phase_serve_tp(tt, torch) -> tuple[dict, dict]:
 # layer moves x_out by about one bf16 ulp of x, so no limit on x_out tells
 # the two apart (PERF.md gives the readings).
 PERSISTENT_MAIN_TOL = {"x": (2.0 ** -2, 2.0 ** -3), "pool": (2.0 ** -2, 2.0 ** -3)}
+# K16's limits on one full-width layer (Qwen3-8B's last, fed the plain
+# hidden state entering it): 3/8 of PERSISTENT_TOL's bf16 limits.  On an
+# H100 both forms' x_out came within 0.13-0.16 of PERSISTENT_TOL and their
+# pools within 0.013, while rank 1's o partial left out moved x_out 0.86-0.88
+# of it: this limit lies between the two (0.35-0.42 and 2.3-2.35 of it).  One
+# rank's partial at a late layer is a few bf16 ulps of the residual stream,
+# so no limit on x_out puts it FAULT_MARGIN limits away; the presence of
+# each rank's partial is checked on its own (PERSISTENT_PRESENCE_TOL).
+PERSISTENT_ONE_LAYER_TOL = {k: (0.375 * a, 0.375 * r)
+                            for k, (a, r) in PERSISTENT_TOL["bfloat16"].items()}
+# The presence of rank r's o-projection partial in a one-layer x_out: with
+# g_r = want - (the plain step without that partial), <got - want, g_r> /
+# <g_r, g_r> is 0 when the partial is counted once, -1 when it is left out
+# and about 1 when it is counted twice.  Rounding that flips does not line up
+# with g_r, so a sound kernel's reading is a small fraction of this limit.
+PERSISTENT_PRESENCE_TOL = 2.0 ** -5
 
 
 def device_kernel_ms(torch, thunk, steps: int) -> float:
@@ -4633,19 +4678,26 @@ def device_kernel_ms(torch, thunk, steps: int) -> float:
 
 def persistent_main_row(tt, torch, eng, fused_eng, mesh) -> dict:
     """One 36-layer K16 step of Qwen3-8B at tp = 4 (``mesh``) or 1 (None),
-    on the served engine's weights and cache (B = 4), within
-    PERSISTENT_MAIN_TOL of its plain
-    version (the ring's order, on the card), timed beside its bound (every
-    weight of the step, the K/V prefix of every rank and x read once, x and
-    the appended slots written), its plain version, and its chain: the
-    device kernel time of one "fused" step (K4, K15 and the norms and adds,
-    from a trace)."""
+    on the served engine's weights and cache (B = 4), in its served form,
+    within PERSISTENT_MAIN_TOL of its plain version in that form's order
+    (one-shot, on the card), timed beside its bound (every weight of the
+    step, the K/V prefix of every rank and x read once, x and the appended
+    slots written), its plain version, its chain (the device kernel time of
+    one "fused" step: K4, K15 and the norms and adds, from a trace); the
+    barriers a step counted from the form's schedule
+    (``ops/persistent_decode.py::step_stages``); and the one-layer check at
+    full width on both forms (:func:`persistent_one_layer`)."""
+    import types
+
     from triton_distributed_tpu_torch.core.utils import perf_func
     from triton_distributed_tpu_torch.obs import costs
     from triton_distributed_tpu_torch.ops import persistent_decode as PD
 
     c, params, cache = eng.model.config, eng.params, eng.cache
     n, b, L = 1 if mesh is None else mesh.shape["tp"], eng.batch, c.num_layers
+    form = PD.served_form(c.dtype, c.head_dim, c.num_heads // c.num_kv_heads, b, c.hidden,
+                          c.intermediate // n)
+    order = plain_order(form)
     sp = eng.stacked()
     tok = torch.randint(0, c.vocab, (b,), device=eng.device,
                         generator=torch.Generator(device=eng.device).manual_seed(SEED + 111))
@@ -4658,7 +4710,7 @@ def persistent_main_row(tt, torch, eng, fused_eng, mesh) -> dict:
     got, _, _ = PD.persistent_decode_step(x, sp, cache.k, cache.v, cache.block_table,
                                           cache.seq_lens, mesh, **kw)
     want, _, _ = PD.reference_decode_step(x, sp, rk, rv, cache.block_table, cache.seq_lens,
-                                          mesh, **kw)
+                                          mesh, order=order, **kw)
     link = fused_hidden(fused_eng.model, params, fcache, x)
     torch.cuda.synchronize()
     tol = PERSISTENT_MAIN_TOL
@@ -4684,14 +4736,25 @@ def persistent_main_row(tt, torch, eng, fused_eng, mesh) -> dict:
         cache.k.shape[-2], L), rk, tol["pool"])}
     if n > 1:
         for layer in (0, 1, L // 2, L - 1):
-            bad = dropped_partial_step(PD, x, sp, before, cache, mesh, layer, kw)
+            bad = dropped_partial_step(PD, x, sp, before, cache, mesh, layer, kw, order)
             faults[f"o_partial_left_out@{layer}"] = x_share(torch, bad, want, tol["x"])
     for key in ("token_one_slot_on", "o_partial_left_out@0"):
         if key in faults:
             check(faults[key] >= FAULT_MARGIN, f"K16 main row: the planted fault {key} is only "
                                                f"{faults[key]:.3g} of the limit away")
-    del rk, rv, before
+    del rk, rv
     check(pads_at_rest(), "a signal pad is not at rest after K16's main row")
+    # the one-layer check at full width: layer L - 1, fed the plain hidden
+    # state entering it
+    head = PD.stack_decode_params(types.SimpleNamespace(layers=params.layers[:L - 1]))
+    x_last = PD.reference_decode_step(x, head, before[0][:L - 1].clone(),
+                                      before[1][:L - 1].clone(), cache.block_table,
+                                      cache.seq_lens, mesh, order=order, **kw)[0]
+    last = PD.stack_decode_params(types.SimpleNamespace(layers=params.layers[L - 1:]))
+    one_layer = {f: persistent_one_layer(torch, PD, x_last, last, (before[0][L - 1:],
+                                                                   before[1][L - 1:]),
+                                         cache, mesh, f, kw) for f in ("stream", "ring")}
+    del head, last, before
     kern = lambda: PD.persistent_decode_step(x, sp, cache.k, cache.v, cache.block_table,  # noqa
                                              cache.seq_lens, mesh, **kw)
     _, ms = perf_func(kern, iters=10)
@@ -4699,7 +4762,7 @@ def persistent_main_row(tt, torch, eng, fused_eng, mesh) -> dict:
     def plain():
         pk, pv = cache.k.clone(), cache.v.clone()
         return PD.reference_decode_step(x, sp, pk, pv, cache.block_table, cache.seq_lens, mesh,
-                                        **kw)
+                                        order=order, **kw)
 
     _, plain_ms = perf_func(plain, iters=2, warmup_iters=1)
     # the chain is ~1000 launches a step, enqueued slower than they run: its
@@ -4715,12 +4778,13 @@ def persistent_main_row(tt, torch, eng, fused_eng, mesh) -> dict:
     cost = costs.persistent_decode(L, b, c.hidden, c.num_heads // n, c.num_kv_heads // n,
                                    pos // b, c.head_dim, c.intermediate // n, n, c.dtype)
     bound_ms, bound_by = bound(n * cost.flops, fn_bytes, H100_BF16_FLOPS)
-    joins = 1 + L * (10 + 2 * n)
+    joins = PD.step_joins(form, L, n)
     return dict(
         name=f"persistent_decode[tp{n}]", route="cuda", source=PERSISTENT_SOURCE,
         replaces="triton_distributed_tpu/ops/persistent_decode.py:368", max_abs_err=err,
+        k16_form=form, plain_order=order,
         share_of_limit=shares, yardstick_share_of_limit=yardstick,
-        faulty_share_of_limit=faults, tol=PERSISTENT_MAIN_TOL,
+        faulty_share_of_limit=faults, tol=PERSISTENT_MAIN_TOL, one_layer=one_layer,
         ms=ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None, library=None,
         chain_ms=chain_ms, chain=f"the device time of one tp = {n} 'fused' step",
@@ -4728,6 +4792,66 @@ def persistent_main_row(tt, torch, eng, fused_eng, mesh) -> dict:
         ms_beyond_bound_per_join=(ms - bound_ms) / joins,
         shape=f"Qwen3-8B n={n} B={b} L={L} position ~{pos // b} bf16",
         counter="persistent_decode", form=(n, L, b, c.hidden))
+
+
+def persistent_one_layer(torch, PD, x, sp, pools, cache, mesh, form: str, kw) -> dict:
+    """K16 in ``form`` on a one-layer table at full width (``sp``, the
+    layer's pools ``pools``, fed ``x``, the plain hidden state entering the
+    layer) within PERSISTENT_ONE_LAYER_TOL of the plain one-layer step in the
+    form's order; every token appended one slot on (a planted fault) at
+    least FAULT_MARGIN limits away.  At n > 1 rank 1's o partial left out
+    must fail that limit, and each rank's o partial must be present once in
+    x_out within PERSISTENT_PRESENCE_TOL, where rank 1's partial left out
+    and counted twice (planted faults) land FAULT_MARGIN limits away."""
+    tol = PERSISTENT_ONE_LAYER_TOL
+    order = plain_order(form)
+    n = 1 if mesh is None else mesh.shape["tp"]
+    pk, pv = pools[0].clone(), pools[1].clone()
+    rk, rv = pools[0].clone(), pools[1].clone()
+    got = PD._launch(x, sp, pk, pv, cache.block_table, cache.seq_lens,
+                     mesh or PD._one_rank_mesh(x.device), "tp", form=form,
+                     sm_scale=pk.shape[-1] ** -0.5, soft_cap=0.0, **kw)
+    want = PD.reference_decode_step(x, sp, rk, rv, cache.block_table, cache.seq_lens, mesh,
+                                    order=order, **kw)[0]
+    torch.cuda.synchronize()
+    check(pads_at_rest(), f"a signal pad is not at rest after K16's {form} one-layer check")
+    shares = {"x": x_share(torch, got, want, tol["x"]),
+              "pool": max(x_share(torch, pk, rk, tol["pool"]), x_share(torch, pv, rv, tol["pool"]))}
+    faults = {"token_one_slot_on": x_share(torch, moved_token(
+        torch, pk, pools[0], cache.block_table, cache.seq_lens, pk.shape[-2], 1), rk, tol["pool"])}
+    check(max(shares.values()) <= 1.0,
+          f"K16 {form} one layer at full width: {shares} of PERSISTENT_ONE_LAYER_TOL from plain")
+    check(faults["token_one_slot_on"] >= FAULT_MARGIN,
+          f"K16 {form} one layer: the planted fault token_one_slot_on is only "
+          f"{faults['token_one_slot_on']:.3g} of the limit away")
+    out = {"share_of_limit": shares, "faulty_share_of_limit": faults, "tol": tol}
+    if n > 1:
+        def step(rank, scale):
+            return dropped_partial_step(PD, x, sp, pools, cache, mesh, 0, kw, order,
+                                        rank=rank, scale=scale)
+
+        def presence(y, g):   # |<y - want, g> / <g, g>| over the limit
+            d = (y.float() - want.float()).flatten().double()
+            return abs(float(d @ g / (g @ g))) / PERSISTENT_PRESENCE_TOL
+
+        bad = step(1, 0.0)
+        faults["o_partial_left_out"] = x_share(torch, bad, want, tol["x"])
+        check(faults["o_partial_left_out"] > 1.0,
+              f"K16 {form} one layer: rank 1's o partial left out is within the limit "
+              f"({faults['o_partial_left_out']:.3g} of it)")
+        gs = [(want.float() - (bad if r == 1 else step(r, 0.0)).float()).flatten().double()
+              for r in range(n)]
+        out["presence_share_of_limit"] = [presence(got, g) for g in gs]
+        faults["presence_o_partial_left_out"] = presence(bad, gs[1])
+        faults["presence_o_partial_twice"] = presence(step(1, 2.0), gs[1])
+        check(max(out["presence_share_of_limit"]) <= 1.0,
+              f"K16 {form} one layer: a rank's o partial is not in x_out once: "
+              f"{out['presence_share_of_limit']} of PERSISTENT_PRESENCE_TOL")
+        for key in ("presence_o_partial_left_out", "presence_o_partial_twice"):
+            check(faults[key] >= FAULT_MARGIN, f"K16 {form} one layer: the planted fault {key} "
+                                               f"is only {faults[key]:.3g} of the limit away")
+        out["presence_tol"] = PERSISTENT_PRESENCE_TOL
+    return out
 
 
 def to_cpu(torch, obj):

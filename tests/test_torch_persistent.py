@@ -233,6 +233,95 @@ def test_persistent_schedule_equals_jax_recorder(n):
     walk([PD.persistent_program(_team(n), r, layers) for r in range(n)], None)
 
 
+@pytest.mark.parametrize("n", (2, 4))
+def test_oneshot_persistent_program_walks(n):
+    """The served form's schedule (two layers, four chained one-shot
+    instances): each instance is ``one_shot_program`` without its entry
+    barrier (the same puts, slots and credits, the same waits, the slot-order
+    f32 sum), into the landing of the instance's parity; every rank's walk
+    ends with every credit taken and no deadlock, and no put lands on a slot
+    not yet summed.  With one landing buffer the walk catches a fast rank's
+    push of the next instance onto a slot a slow rank has not read."""
+    team, layers = _team(n), 2
+    progs = [PD.persistent_program(team, r, layers, form="oneshot") for r in range(n)]
+    for r, prog in enumerate(progs):
+        want = [op for op in one_shot_program(team, r)
+                if not (isinstance(op, (Wait, Notify)) and op.flag[0] == "barrier")]
+        puts = [op for op in prog if isinstance(op, (Put, Wait, Reduce))]
+        assert len(puts) == 2 * layers * len(want)
+        for inst in range(2 * layers):
+            got = puts[inst * len(want):(inst + 1) * len(want)]
+            slots = f"slots{inst % 2}"
+            for g, w in zip(got, want):
+                if isinstance(w, Put):
+                    assert (g.dst, g.index, g.dst_rank, g.flag) == (slots, w.index, w.dst_rank,
+                                                                    w.flag)
+                elif isinstance(w, Wait):
+                    assert g == w
+                else:
+                    assert g.srcs == tuple((slots, i) for i in range(n)) and g.f32
+    walk(progs, None, unread=("slots0", "slots1"))
+    one = [PD.persistent_program(team, r, layers, form="oneshot", buffers=1) for r in range(n)]
+    with pytest.raises(RuntimeError, match="before it was read"):
+        walk(one, None, unread=("slots0",))
+
+
+def test_step_joins_from_the_schedules():
+    """The rank-wide barriers a step passes, counted from each form's stage
+    list: the served form 4 a layer and one at entry at any n (145 at 36
+    layers), the ring body 10 + 2n a layer (433 at n = 1, 649 at n = 4)."""
+    for n in (1, 2, 4):
+        assert PD.step_joins("stream", 36, n) == 145
+        assert PD.step_joins("ring", 36, n) == 1 + 36 * (10 + 2 * n)
+    assert PD.step_stages("stream", 1, 1) == ["copy_in", "rank_sync", "qkv", "attention",
+                                              "rank_sync", "o", "rank_sync", "gate_up",
+                                              "rank_sync", "down", "rank_sync", "copy_out"]
+
+
+@pytest.mark.parametrize("lanes", (132, 264, 528))
+@pytest.mark.parametrize("n", (1, 4))
+@pytest.mark.parametrize("width", ("8B", "narrow"))
+def test_stream_plan_covers_every_column_once(width, n, lanes):
+    """The served form's cut of the four products of Qwen3-8B at tp = n (and
+    of ``chip_smoke.py``'s narrow persistent cases, hidden 512, whose
+    products have fewer passes than the card has lanes) over a card of
+    ``lanes`` lanes: every output column of every product in exactly one
+    tile, a gate/up tile's 64 gate columns and the 64 up columns that match
+    them, a qkv tile one head's 128 columns; the lanes' runs cover every
+    pass once, in order, and differ by at most one pass; the lanes that sum
+    a tile are exactly those whose runs hold its passes (the empty runs
+    left out), and their partial slots (tile + lane) are distinct and
+    inside the region."""
+    k_dim, f, hk, g = (4096, 12288 // n, 8 // n, 4) if width == "8B" else (512, 1024 // n,
+                                                                          4 // n, 4)
+    per_rank = lanes // n
+    ncols = {"qkv": (hk * g + 2 * hk) * 128, "o": k_dim, "gate_up": 2 * f, "down": k_dim}
+    for product in PD.STREAM_PRODUCTS:
+        geo = PD.stream_geometry(product, k_dim, f, hk, g, per_rank)
+        cols = [c for t in range(geo["tiles"]) for c in PD.stream_tile_columns(geo, t)]
+        assert sorted(cols) == list(range(ncols[product])), product
+        for t in range(geo["tiles"]):
+            tc = PD.stream_tile_columns(geo, t)
+            if product == "gate_up":
+                assert [c + f for c in tc[:64]] == tc[64:]
+            elif product == "qkv":
+                assert tc == list(range(t * 128, (t + 1) * 128))
+        runs = geo["runs"]
+        assert runs[0][0] == 0 and runs[-1][1] == geo["passes"]
+        assert all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
+        sizes = [q1 - q0 for q0, q1 in runs]
+        assert max(sizes) - min(sizes) <= 1
+        slots = set()
+        for t in range(geo["tiles"]):
+            holders = [ln for ln, (q0, q1) in enumerate(runs)
+                       if q0 < q1 and q0 < (t + 1) * geo["ppt"] and q1 > t * geo["ppt"]]
+            assert holders == PD.stream_tile_lanes(geo, t)
+            slots |= {t + ln for ln in holders}
+        assert len(slots) == sum(len(PD.stream_tile_lanes(geo, t)) for t in range(geo["tiles"]))
+        tiles_max = max(hk * g + 2 * hk, k_dim // 128, f // 64)
+        assert max(slots) < tiles_max + per_rank
+
+
 # ---------------------------------------------------------------------------
 # the ops' plain versions vs the XLA references
 
@@ -384,13 +473,17 @@ def _random_paged(rng, jm, n_layers):
         seq_lens=jnp.asarray(lens))
 
 
-@pytest.mark.parametrize("n", (1, 4))
-def test_reference_step_matches_jax(jax_tp, n):
+@pytest.mark.parametrize("n, orders", [(1, ("jax", "ring")), (4, ("jax", "ring")),
+                                       (1, ("oneshot",)), (4, ("oneshot",))],
+                         ids=["1", "4", "oneshot-1", "oneshot-4"])
+def test_reference_step_matches_jax(jax_tp, n, orders):
     """The port's reference_decode_step in JAX's order (and, at n = 1, the
     CPU persistent step, which is it) on the rank-folded pools, against
     JAX's reference_decode_step on the same weights, pools and lengths:
     x_out and the unsharded pools within 1e-5 (f32).  The ring's order
-    (the plain version of K16) is within 1e-5 as well."""
+    (the plain version of K16's f32 and head dim 64 body) and the one-shot
+    order (both reductions in K15's one-shot form: the plain version of its
+    served form) are within 1e-5 as well."""
     rng = np.random.default_rng(60 + n)
     jparams = jax_tp["params"] if n == N else jax_tp["params1"]
     jm = jax_mesh({"tp": n}, devices=jax.devices()[:n])
@@ -403,7 +496,7 @@ def test_reference_step_matches_jax(jax_tp, n):
     tmesh = tt.make_mesh({"tp": n}, device="cpu") if n > 1 else None
     tparams = tt.from_jax_params(jparams, TCFG, "cpu", mesh=tmesh)
     sp = PD.stack_decode_params(tparams)
-    for order in ("jax", "ring"):
+    for order in orders:
         cache = tt.from_jax_cache(jcache, "cpu", mesh=tmesh)
         if n == 1 and order == "jax":
             got, _, _ = tt.persistent_decode_step(_t(x), sp, cache.k, cache.v, cache.block_table,

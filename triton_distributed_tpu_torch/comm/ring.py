@@ -215,7 +215,17 @@ def _apply(op, r: int, bufs: list[dict]) -> None:
         bufs[r][op.dst[0]][op.dst[1]].copy_(src[0] + src[1])
 
 
-def walk(programs: list[list], bufs: list[dict[str, list[torch.Tensor]]] | None) -> None:
+def _reads(op) -> tuple:
+    """The (buffer, index) entries an op reads."""
+    if isinstance(op, Matmul):
+        return (op.src, op.w)
+    if isinstance(op, Swiglu):
+        return (op.g, op.u)
+    return op.srcs
+
+
+def walk(programs: list[list], bufs: list[dict[str, list[torch.Tensor]]] | None,
+         unread: tuple[str, ...] = ()) -> None:
     """Run the programs of one team's ranks on tensors: ``bufs[r][name][i]``
     is entry ``i`` (a chunk or a slot; a list index or a dict key) of rank
     ``r``'s buffer ``name``
@@ -224,10 +234,16 @@ def walk(programs: list[list], bufs: list[dict[str, list[torch.Tensor]]] | None)
 
     Each rank runs until a :class:`Wait` finds its flag short, then the next
     rank runs; a round in which no rank moves is a deadlock and raises, as
-    does a flag left non-zero at the end (every credit must be taken)."""
+    does a flag left non-zero at the end (every credit must be taken).
+
+    ``unread``: landing buffers whose entries must be read (by a Reduce, a
+    Put or a compute) between two puts into them; a put onto an entry still
+    unread raises, which is how a landing that should be double-buffered is
+    caught with one buffer."""
     n = len(programs)
     pcs = [0] * n
     flags: collections.Counter = collections.Counter()
+    full: set = set()
     while any(pc < len(p) for pc, p in zip(pcs, programs)):
         moved = False
         for r, prog in enumerate(programs):
@@ -240,6 +256,15 @@ def walk(programs: list[list], bufs: list[dict[str, list[torch.Tensor]]] | None)
                 elif isinstance(op, Notify):
                     flags[op.target, op.flag] += 1
                 else:
+                    if unread:
+                        full.difference_update((r, b, i) for b, i in _reads(op))
+                        if isinstance(op, Put) and op.dst in unread:
+                            key = (op.dst_rank, op.dst, op.index)
+                            if key in full:
+                                raise RuntimeError(
+                                    f"schedule overwrites {op.dst}[{op.index}] of rank "
+                                    f"{op.dst_rank} before it was read (rank {r}: {op})")
+                            full.add(key)
                     if bufs is not None:
                         _apply(op, r, bufs)
                     if isinstance(op, Put) and op.flag is not None:

@@ -69,6 +69,9 @@ SIGNATURES = {
     "tdt_fused_ar_lanes": [_I, _I, _I, _I, _I],
     "tdt_persistent_decode": [_P, _I, _I, _P],
     "tdt_persistent_lanes": [_I, _I, _I, _I],
+    # K16's served form (bf16, head dim 128) takes a pointer to its StreamArgs
+    "tdt_persistent_v2": [_P, _I, _P],
+    "tdt_persistent_v2_lanes": [_I, _I],
     # K17 takes a pointer to its A2aArgs (core/symm.py)
     "tdt_all_to_all": [_P, _P],
     "tdt_quant_pack": [_P, _P, _L, _I, _I, _I, _F, _P],

@@ -225,6 +225,30 @@ class PersistentArgs(ctypes.Structure):
                 ("qk_norm", ctypes.c_int)]
 
 
+# each rank's scratch regions of K16's served form (csrc/persistent_decode_v2.cuh)
+STREAM_REGIONS = ("x", "att", "act", "q_buf", "k_tok", "v_tok", "part", "part_acc", "part_ml",
+                  "land")
+
+
+class StreamArgs(ctypes.Structure):
+    """The launch arguments of K16's served form (csrc/persistent_decode_v2.cuh
+    StreamArgs): the team's :class:`CollArgs` (its pad), the layer table and
+    each weight kind's per-rank stride, the step's tensors, each rank's
+    scratch base and the regions' offsets in it (:data:`STREAM_REGIONS`)."""
+
+    _fields_ = [("c", CollArgs), ("layers", ctypes.c_void_p),
+                ("w_stride", ctypes.c_longlong * 8),
+                ("x_in", ctypes.c_void_p), ("x_out", ctypes.c_void_p),
+                ("pool_k", ctypes.c_void_p), ("pool_v", ctypes.c_void_p),
+                ("table", ctypes.c_void_p), ("lens", ctypes.c_void_p),
+                ("inv_freq", ctypes.c_void_p), ("scratch", _Peers),
+                ("off", ctypes.c_longlong * len(STREAM_REGIONS)),
+                ("layer_pool_elems", ctypes.c_longlong),
+                *[(f, ctypes.c_int) for f in ("L", "B", "K", "F", "hk", "ps", "mp", "n_split")],
+                *[(f, ctypes.c_float) for f in ("sm_scale", "soft_cap", "qk_eps", "rms_eps")],
+                ("qk_norm", ctypes.c_int)]
+
+
 def peers(ptrs) -> _Peers:
     """A peer table of the given addresses (one per mesh slot; none: all null)."""
     p = _Peers()

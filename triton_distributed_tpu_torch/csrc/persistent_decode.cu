@@ -65,6 +65,8 @@ cudaError_t dispatch(int D, int G, PersistentArgs* a, cudaStream_t st, long long
 
 using tdt::far::PersistentArgs;
 
+TDT_STAMPS_ENTRY(tdt_persistent_stamps)
+
 // K16.  One decode step of every layer for every rank (n = a->c.n >= 1, one
 // team).  D: head dim (64, 128); G: query heads per kv head (1, 2, 4, 8).
 // The host sizes the plans (ops/persistent_decode.py) from

@@ -4,6 +4,7 @@
 #pragma once
 
 #include "fused_ar.cuh"
+#include "stamps.cuh"
 
 namespace tdt {
 namespace far {
@@ -147,8 +148,11 @@ __global__ void __launch_bounds__(kThreads) persistent_decode_kernel(
   int instance = 0;
   for (int l = 0; l < a.L; ++l) {
     // -- attention side --------------------------------------------------
+    TDT_STAMP(l, 0);
     rms_rows<T>(a, X, weight<T>(a, l, kLn1, 0), H);
+    TDT_STAMP(l, 1);
     dl::rank_sync(c0, gen);
+    TDT_STAMP(l, 2);
     fa.wqkv = weight<T>(a, l, kWqkv, r);
     fa.q_norm = a.qk_norm ? weight<T>(a, l, kQNorm, 0) : nullptr;
     fa.k_norm = a.qk_norm ? weight<T>(a, l, kKNorm, 0) : nullptr;
@@ -158,10 +162,14 @@ __global__ void __launch_bounds__(kThreads) persistent_decode_kernel(
       const int h = it / per_head, tile = (it % per_head) / a.proj_nks;
       project_tile<T, D, true>(fa, N, column0<D, G>(tile, h, a.hk), it % a.proj_nks);
     }
+    TDT_STAMP(l, 3);
     dl::rank_sync(c0, gen);
+    TDT_STAMP(l, 4);
     for (int it = blockIdx.x; it < a.hk * (G + 2); it += gridDim.x)
       finalize_tile<T, T, D, G>(fa, N, it / (G + 2), it % (G + 2));
+    TDT_STAMP(l, 5);
     dl::rank_sync(c0, gen);
+    TDT_STAMP(l, 6);
     for (int it = blockIdx.x; it < a.hk * a.B * a.n_split; it += gridDim.x) {
       const int h = it / (a.B * a.n_split);
       const int b = (it / a.n_split) % a.B, split = it % a.n_split;
@@ -175,10 +183,14 @@ __global__ void __launch_bounds__(kThreads) persistent_decode_kernel(
           fa.table + static_cast<size_t>(b) * a.mp, h, a.hk, capacity, a.ps, start, end,
           a.sm_scale, a.soft_cap, fa.part_acc + state * G * D, fa.part_ml + state * G * 2);
     }
+    TDT_STAMP(l, 7);
     dl::rank_sync(c0, gen);
+    TDT_STAMP(l, 8);
     for (int it = blockIdx.x; it < a.B * a.hk; it += gridDim.x)
       combine_fold<T, D, G>(fa, it / a.hk, it % a.hk);
+    TDT_STAMP(l, 9);
     dl::rank_sync(c0, gen);
+    TDT_STAMP(l, 10);
     // -- o-projection + AllReduce (instance 2l), residual ------------------
     for (int s = 0; s < n; ++s)
       ca.out.p[a.c.slot[c0.group * n + s]] =
@@ -191,12 +203,18 @@ __global__ void __launch_bounds__(kThreads) persistent_decode_kernel(
       residual<T>(c, a, X, cn);
     }
     ++instance;
+    TDT_STAMP(l, 11);
     dl::rank_sync(c0, gen);
+    TDT_STAMP(l, 12);
     // -- MLP + AllReduce (instance 2l + 1), residual -----------------------
     rms_rows<T>(a, X, weight<T>(a, l, kLn2, 0), H);
+    TDT_STAMP(l, 13);
     dl::rank_sync(c0, gen);
+    TDT_STAMP(l, 14);
     gemv_lane<T, T>(H, a.K, weight<T>(a, l, kGateUp, r), 2LL * a.F, a.up, part);
+    TDT_STAMP(l, 15);
     dl::rank_sync(c0, gen);
+    TDT_STAMP(l, 16);
     {
       const long long plane = static_cast<long long>(a.B) * a.up.cols,
                       total = static_cast<long long>(a.B) * a.F;
@@ -212,7 +230,9 @@ __global__ void __launch_bounds__(kThreads) persistent_decode_kernel(
         ACT[e] = from_f32<T>(gv / (1.f + expf(-gv)) * uv);
       }
     }
+    TDT_STAMP(l, 17);
     dl::rank_sync(c0, gen);
+    TDT_STAMP(l, 18);
     for (int s = 0; s < n; ++s)
       ca.out.p[a.c.slot[c0.group * n + s]] =
           a.c.out.p[a.c.slot[c0.group * n + s]] +
@@ -224,7 +244,9 @@ __global__ void __launch_bounds__(kThreads) persistent_decode_kernel(
       residual<T>(c, a, X, cn);
     }
     ++instance;
+    TDT_STAMP(l, 19);
     dl::rank_sync(c0, gen);
+    TDT_STAMP(l, 20);
   }
   if (n > 1) dl::rs_ack_drain(c0);
   // rank 0's residual stream is the step's output

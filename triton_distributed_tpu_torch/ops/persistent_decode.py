@@ -7,12 +7,20 @@ cell of K4 (qkv product, qk-RMSNorm, RoPE, the in-place append into layer
 l's pages, block-table flash decode with the token folded in), the
 o-projection's AllReduce instance, the residual, RMSNorm, the SwiGLU MLP's
 AllReduce instance and the residual, for every rank of a mesh of co-located
-ranks, in one cooperative launch of ``csrc/persistent_decode.cu`` (K16),
-which replaces the Pallas ``_persistent_decode_kernel`` (``:368``).  The
-2L AllReduce instances are K15's ring, chained on one set of flags
-(``comm/ring.py::chunk_ar_phase`` with ``armed``; :func:`persistent_program`
-is the whole launch's schedule).  Embed, final norm, lm_head and argmax stay
-outside, as in JAX's ``_persistent_step``.
+ranks, in one cooperative launch of K16, which replaces the Pallas
+``_persistent_decode_kernel`` (``:368``).  K16 has two forms.  The served
+form (bf16, head dim 128, :func:`served_form`) is
+``csrc/persistent_decode_v2.cu``: one stream of weight loads per thread over
+every product of the step, the products cut stream-K into equal runs per
+lane (:func:`stream_geometry`), the norms, SwiGLU, the residual and the
+merges folded into the products, 4 rank-wide barriers a layer
+(:func:`step_stages`), and each o and down tile reduced across ranks by one
+device-scope one-shot exchange (``persistent_program(..., form="oneshot")``).
+The f32 and head dim 64 forms are ``csrc/persistent_decode.cu``: K4's
+stages between barriers and 2L instances of K15's ring, chained on one set
+of flags (``comm/ring.py::chunk_ar_phase`` with ``armed``;
+:func:`persistent_program` is the whole launch's schedule).  Embed, final
+norm, lm_head and argmax stay outside, as in JAX's ``_persistent_step``.
 
 Port decisions:
 
@@ -27,8 +35,10 @@ Port decisions:
 - :func:`reference_decode_step` is the plain version, on those pools.  By
   default its reductions take the ring's order and rounding (each rank's
   chunk product rounded, each hop added in f32 and rounded once: K15's
-  plain versions) and its attention K4's (the scaled q and p rounded to x's
-  dtype), so that on the card it stands within a stated limit of K16.
+  plain versions), with ``order="oneshot"`` the served form's (each rank's
+  partial rounded, the slots summed in f32 and rounded once), and its
+  attention K4's (the scaled q and p rounded to x's dtype), so that on the
+  card it stands within a stated limit of K16.
   ``order="jax"`` is JAX's ``reference_decode_step`` (one rounding per
   product, the attention in f32 over the pages with the token): the n == 1
   step on the CPU, as in JAX, and the form the tests hold to JAX's.
@@ -54,16 +64,28 @@ from ..core.launches import count
 from ..core.mesh import TP_AXIS, Mesh, make_mesh
 from ..core.utils import cdiv
 from ..lang import primitives as dl
-from ..lang.primitives import Matmul, Swiglu, Team
+from ..lang.primitives import Matmul, Reduce, Swiglu, Team
 from ..layers.norm import rms_norm
 from .attention import KERNEL_DTYPES, KERNEL_GROUPS, KERNEL_HEAD_DIMS, check_int32
 from .fused_decode import (_fused_attn_folded_ref, _inv_freq, fused_attn_decode_ref,
                            fused_linear_ar_ref, fused_mlp_ar_ref, gemv_plan)
 from .rope import apply_rope_at
 
-# K16 chains K15's ring instances (csrc/fused_ar.cuh ar_instance) whatever the
-# partial's size, so its plain version walks the ring form
+# K16's f32 and head dim 64 forms chain K15's ring instances (csrc/fused_ar.cuh
+# ar_instance) whatever the partial's size, so their plain version walks the
+# ring form; the served form (bf16, head dim 128) exchanges each o and down
+# tile once, K15's one-shot form
 RING = AllReduceMethod.TWO_SHOT
+ONE_SHOT = AllReduceMethod.ONE_SHOT
+# K16's served form (csrc/persistent_decode_v2.cu): query heads a kv head it is
+# built for, the most rows of A, a product tile's output columns, the rows
+# of a pass over a tile, and its products in the order a layer runs them
+STREAM_GROUPS = (4,)
+STREAM_MAX_B = 4
+STREAM_TILE = 128
+STREAM_ROWS = 16
+STREAM_PRODUCTS = ("qkv", "o", "gate_up", "down")
+ORDERS = {"ring": RING, "oneshot": ONE_SHOT}
 LAYER_KINDS = ("ln1", "wqkv", "q_norm", "k_norm", "wo", "ln2", "gate_up", "down")
 RANK_STACKED = ("wqkv", "wo", "gate_up", "down")
 
@@ -123,15 +145,33 @@ def stack_decode_params(params) -> StackedDecodeParams:
 # the schedule
 
 
-def persistent_program(team: Team, me: int, layers: int) -> list:
-    """JAX ``_persistent_decode_kernel``'s schedule (``:368-502``) as far as
-    ranks meet: the entry barrier; per layer the o-projection's instance
-    (the first unarmed, every later one armed: it takes the previous
-    instance's outstanding ACK credits), then the MLP's gate/up products,
-    SwiGLU and its instance, into the reduced chunks of the instance's
-    parity ("red0", "red1"); one ACK drain at exit.  The local stages
-    between (norms, the attention cell, the residual adds) are
-    :func:`reference_decode_step`'s arithmetic."""
+def persistent_program(team: Team, me: int, layers: int, form: str = "ring",
+                       buffers: int = 2) -> list:
+    """The schedule of a K16 launch as far as ranks meet.
+
+    ``form="ring"`` (the f32 and head dim 64 forms): JAX
+    ``_persistent_decode_kernel``'s schedule (``:368-502``): the entry
+    barrier; per layer the o-projection's instance (the first unarmed, every
+    later one armed: it takes the previous instance's outstanding ACK
+    credits), then the MLP's gate/up products, SwiGLU and its instance, into
+    the reduced chunks of the instance's parity ("red0", "red1"); one ACK
+    drain at exit.
+
+    ``form="oneshot"`` (the served form): per layer two instances of
+    ``comm/allreduce.py::one_shot_program`` without its entry barrier (the
+    ranks meet through the arrivals alone), instance j = 2l (o) and 2l + 1
+    (down, after the gate/up products and SwiGLU): the rank's partial
+    ("x", j), rounded once, put into slot ``me`` of every rank's landing
+    ``f"slots{j % buffers}"`` (each peer's credited on its ``recv[me]``), the
+    n - 1 arrivals, and the slots summed in slot order in f32 into ("red",
+    j).  The kernel double-buffers the landing by instance parity
+    (``buffers=2``); with one buffer :func:`comm.ring.walk` finds a put that
+    lands on a slot not yet summed.
+
+    The local stages between (norms, the attention cell, the residual adds)
+    are :func:`reference_decode_step`'s arithmetic."""
+    if form == "oneshot":
+        return _oneshot_program(team, me, layers, buffers)
     prog = []
     dl.collective_prologue(prog, team, me, neighbors_only=True)
     for l in range(layers):
@@ -141,6 +181,134 @@ def persistent_program(team: Team, me: int, layers: int) -> list:
         ring.chunk_ar_phase(prog, team, me, ("act", 0), "red1", armed=True)
     ring.rs_ack_drain(prog, team.size)
     return prog
+
+
+def _oneshot_program(team: Team, me: int, layers: int, buffers: int) -> list:
+    n = team.size
+    prog = []
+    for l in range(layers):
+        for j, (src, w) in enumerate(((("att", l), ("wo", l)), (("act", l), ("wd", l)))):
+            inst = 2 * l + j
+            if j == 1:
+                prog += [Matmul(("g", l), ("h", l), ("wg", l)),
+                         Matmul(("u", l), ("h", l), ("wu", l)),
+                         Swiglu(("act", l), ("g", l), ("u", l))]
+            prog.append(Matmul(("x", inst), src, w))
+            slots = f"slots{inst % buffers}"
+            dl.put(prog, slots, me, me, [("x", inst)])
+            for off in range(1, n):
+                dl.put(prog, slots, me, (me + off) % n, [("x", inst)], ("recv", me))
+            for off in range(1, n):
+                dl.wait(prog, ("recv", (me + n - off) % n))
+            prog.append(Reduce(("red", inst), tuple((slots, i) for i in range(n)), True))
+    return prog
+
+
+def step_stages(form: str, layers: int, n: int) -> list[str]:
+    """The stages one rank's lanes pass through in a K16 launch of ``form``
+    (``"stream"``: csrc/persistent_decode_v2.cuh; ``"ring"``:
+    persistent_decode.cuh), in order, each rank-wide barrier
+    (``dl.cuh::rank_sync``) as ``"rank_sync"``: the kernels' layer loops
+    written out."""
+    out = ["copy_in", "rank_sync"]
+    for _ in range(layers):
+        if form == "stream":
+            out += ["qkv", "attention", "rank_sync", "o", "rank_sync", "gate_up", "rank_sync",
+                    "down", "rank_sync"]
+            continue
+        for stage in ("rms1", "qkv_partials", "qkv_finalize", "attn_splits", "attn_combine"):
+            out += [stage, "rank_sync"]
+        out += ["o_chunk", "rank_sync"] * n + ["residual", "rank_sync", "rms2", "rank_sync",
+                                              "gate_up", "rank_sync", "swiglu", "rank_sync"]
+        out += ["down_chunk", "rank_sync"] * n + ["residual", "rank_sync"]
+    return out + ["copy_out"]
+
+
+def step_joins(form: str, layers: int, n: int) -> int:
+    """Rank-wide barriers a launch of ``form`` passes (:func:`step_stages`)."""
+    return step_stages(form, layers, n).count("rank_sync")
+
+
+# ---------------------------------------------------------------------------
+# the served form's cut of the products
+
+
+def served_form(dtype, d: int, g: int, b: int, k_dim: int, f: int) -> str:
+    """``"stream"`` where K16's served form takes the step (bf16, head dim
+    128, G in STREAM_GROUPS, B <= 4, hidden a multiple of 128 and a rank's
+    intermediate of 64), else ``"ring"`` (PRs 7-14's body)."""
+    if (dtype == torch.bfloat16 and d == STREAM_TILE and g in STREAM_GROUPS
+            and b <= STREAM_MAX_B and k_dim % STREAM_TILE == 0 and f % 64 == 0):
+        return "stream"
+    return "ring"
+
+
+def stream_geometry(product: str, k_dim: int, f: int, hk: int, g: int, lanes: int) -> dict:
+    """One product of the served form as ``csrc/persistent_decode_v2.cuh``
+    ``geo`` cuts it for a rank of ``lanes`` lanes: ``tiles`` tiles of 128
+    output columns over the whole depth ``kd`` in ``ppt`` passes of 16 rows
+    each, the passes of all tiles laid end to end and cut into one run a
+    lane (``runs[l] = (q0, q1)``); ``ldw`` the weight's row length and
+    ``half`` gate/up's first up column (else 0)."""
+    hq = hk * g
+    kd, tiles, ldw = {"qkv": (k_dim, hq + 2 * hk, (hq + 2 * hk) * STREAM_TILE),
+                      "o": (hq * STREAM_TILE, k_dim // STREAM_TILE, k_dim),
+                      "gate_up": (k_dim, f // 64, 2 * f),
+                      "down": (f, k_dim // STREAM_TILE, k_dim)}[product]
+    ppt = kd // STREAM_ROWS
+    passes = tiles * ppt
+    runs = [(passes * l // lanes, passes * (l + 1) // lanes) for l in range(lanes)]
+    return dict(kd=kd, tiles=tiles, ppt=ppt, ldw=ldw, passes=passes, runs=runs,
+                half=f if product == "gate_up" else 0)
+
+
+def stream_tile_columns(geom: dict, tile: int) -> list[int]:
+    """The weight columns of a tile (``col_of`` for its 16 lanes of 8)."""
+    if geom["half"]:
+        f = geom["half"]
+        return ([tile * 64 + c for c in range(64)] + [f + tile * 64 + c for c in range(64)])
+    return [tile * STREAM_TILE + c for c in range(STREAM_TILE)]
+
+
+def stream_tile_lanes(geom: dict, tile: int) -> list[int]:
+    """The lanes whose runs hold a pass of ``tile``, as the kernel finds them
+    (``lane_of`` of the tile's first and last pass, less the empty runs
+    between): the lanes that sum it, the last to arrive finishing it."""
+    lanes, passes, ppt = len(geom["runs"]), geom["passes"], geom["ppt"]
+
+    def lane_of(q):
+        return ((q + 1) * lanes - 1) // passes
+
+    first, last = lane_of(tile * ppt), lane_of((tile + 1) * ppt - 1)
+    held = [j for j in range(first, last + 1)
+            if passes * (j + 1) // lanes != passes * j // lanes]
+    assert len(held) == (last - first + 1 if passes >= lanes else ppt)
+    return held
+
+
+def stream_splits(b: int, hk: int, capacity: int, lanes: int) -> int:
+    """Attention splits a (sequence, kv head): about one item a lane, at most
+    32 (the fold reads the splits' (m, l) a lane each)."""
+    return max(1, min(lanes // max(1, b * hk), cdiv(capacity, STREAM_ROWS), 32))
+
+
+def stream_regions(b: int, k_dim: int, f: int, hk: int, g: int, n: int, lanes: int,
+                   n_split: int) -> tuple[list[int], int]:
+    """Byte offsets of each rank's scratch regions of the served form
+    (``core/symm.py::STREAM_REGIONS``) and the total, 256-byte aligned; the
+    partials hold a (4, 128) f32 slot for each tile + lane."""
+    hq = hk * g
+    tiles = max(hq + 2 * hk, k_dim // STREAM_TILE, f // 64)
+    sizes = [b * k_dim * 2, b * hq * STREAM_TILE * 2, b * f * 2, b * hq * STREAM_TILE * 2,
+             b * hk * STREAM_TILE * 2, b * hk * STREAM_TILE * 2,
+             (tiles + lanes) * STREAM_MAX_B * STREAM_TILE * 4,
+             b * hk * n_split * g * STREAM_TILE * 4, b * hk * n_split * g * 2 * 4,
+             2 * n * b * k_dim * 2]
+    offs, at = [], 0
+    for size in sizes:
+        offs.append(at)
+        at += cdiv(size, 256) * 256
+    return offs, at
 
 
 # ---------------------------------------------------------------------------
@@ -253,16 +421,20 @@ def reference_decode_step(x: torch.Tensor, sp: StackedDecodeParams, pool_k: torc
     """Plain version of one persistent step on the rank-folded pools:
     returns ``(x_out, pool_k, pool_v)``, the pools appended in place.
 
-    ``order="ring"`` (default): K16's arithmetic: per rank K4's attention
-    (``fused_attn_decode_ref``), the o-projection and the MLP through K15's
-    plain versions (the ring's schedule walked; at n == 1 one product
-    rounded once), each residual added in x's dtype.  ``order="jax"``: JAX's
+    ``order="ring"`` (default): the arithmetic of K16's f32 and head dim 64
+    forms: per rank K4's attention (``fused_attn_decode_ref``), the
+    o-projection and the MLP through K15's plain versions (the ring's
+    schedule walked; at n == 1 one product rounded once), each residual
+    added in x's dtype.  ``order="oneshot"``: the served form's: the same,
+    but both reductions in K15's one-shot form (each rank's partial rounded
+    once, the n partials summed in slot order in f32 and rounded once); at
+    n == 1 the two orders are one.  ``order="jax"``: JAX's
     ``reference_decode_step`` (``persistent_decode.py:660``) on these pools."""
     n = 1 if mesh is None else mesh.shape[axis]
     layers, b, k_dim, hk, h, d, f = _check_step(x, sp, pool_k, pool_v, block_table, seq_lens, n)
     sm = d ** -0.5 if sm_scale is None else float(sm_scale)
-    if order not in ("ring", "jax"):
-        raise ValueError(f"order {order!r} not in ('ring', 'jax')")
+    if order not in ("ring", "oneshot", "jax"):
+        raise ValueError(f"order {order!r} not in ('ring', 'oneshot', 'jax')")
     for l in range(layers):
         hn = rms_norm(x, sp.weight(l, "ln1"), rms_eps)
         wo, gate_up, down = sp.weight(l, "wo"), sp.weight(l, "gate_up"), sp.weight(l, "down")
@@ -287,14 +459,14 @@ def reference_decode_step(x: torch.Tensor, sp: StackedDecodeParams, pool_k: torc
         if n == 1:
             o = torch.matmul(att.float(), _rank_weight(wo, 0).float()).to(x.dtype)
         else:
-            o = fused_linear_ar_ref(att, wo, mesh, axis, method=RING)
+            o = fused_linear_ar_ref(att, wo, mesh, axis, method=ORDERS[order])
         x = x + o
         h2 = rms_norm(x, sp.weight(l, "ln2"), rms_eps)
         if n == 1:
             act = _mlp_act(h2, _rank_weight(gate_up, 0))
             m = torch.matmul(act.float(), _rank_weight(down, 0).float()).to(x.dtype)
         else:
-            m = fused_mlp_ar_ref(h2, gate_up, down, mesh, axis, method=RING)
+            m = fused_mlp_ar_ref(h2, gate_up, down, mesh, axis, method=ORDERS[order])
         x = x + m
     return x, pool_k, pool_v
 
@@ -352,16 +524,38 @@ def _regions(b, k_dim, f, hk, g, d, n, plan, itemsize) -> tuple[list[int], int]:
     return offs, at
 
 
+@functools.lru_cache(maxsize=None)
+def _stream_lanes(g: int, n: int) -> int:
+    lanes = build.library().tdt_persistent_v2_lanes(g, n)
+    if lanes <= 0:
+        raise RuntimeError(f"persistent_decode: no co-resident lanes for the served form at G={g} "
+                           f"n={n} ({lanes})")
+    return lanes
+
+
+def form_lanes(form: str, dtype, d: int, g: int, n: int) -> int:
+    """The lanes a rank gets in a K16 launch of ``form``."""
+    if form == "stream":
+        return _stream_lanes(g, n)
+    return _lanes(d, g, KERNEL_DTYPES[dtype], n)
+
+
 def _launch(x, sp, pool_k, pool_v, block_table, seq_lens, mesh: Mesh, axis: str, *, rope_theta,
-            rms_eps, qk_eps, sm_scale, soft_cap, stall_rank: int = -1):
-    """K16 on every rank of the mesh; returns x_out.  A ``stall_rank`` of 0
-    or more (tests of the bounded waits only) makes that rank credit none
-    of its ring puts."""
+            rms_eps, qk_eps, sm_scale, soft_cap, stall_rank: int = -1, form: str | None = None):
+    """K16 on every rank of the mesh; returns x_out.  ``form`` None takes
+    :func:`served_form`'s; ``"ring"`` forces PRs 7-14's body (the parent's
+    K16 at the served shapes, for comparisons).  A ``stall_rank`` of 0 or
+    more (tests of the bounded waits only) makes that rank credit none of
+    its puts."""
     layers, b, k_dim, hk, h, d, f = _check_step(x, sp, pool_k, pool_v, block_table, seq_lens,
                                                 mesh.shape[axis])
     team = Team.of(mesh, axis)
     n = team.size
     g = h // hk
+    form = form or served_form(x.dtype, d, g, b, k_dim, f)
+    if form == "stream" and served_form(x.dtype, d, g, b, k_dim, f) != "stream":
+        raise ValueError(f"K16's served form does not take {x.dtype}, head_dim {d}, G={g}, "
+                         f"B={b}, hidden {k_dim}, intermediate / tp {f}")
     if d not in KERNEL_HEAD_DIMS or g not in KERNEL_GROUPS:
         raise ValueError(f"head_dim {d} / {g} query heads per kv head: K16 is built for "
                          f"{KERNEL_HEAD_DIMS} / {KERNEL_GROUPS}")
@@ -377,6 +571,11 @@ def _launch(x, sp, pool_k, pool_v, block_table, seq_lens, mesh: Mesh, axis: str,
     _, _, _, ps, _ = pool_k.shape
     mp = block_table.shape[1]
     dev = x.device
+    if form == "stream":
+        return _launch_stream(x, sp, pool_k, pool_v, block_table, seq_lens, mesh, axis, team,
+                              layers, b, k_dim, hk, g, f, ps, mp, rope_theta=rope_theta,
+                              rms_eps=rms_eps, qk_eps=qk_eps, sm_scale=sm_scale,
+                              soft_cap=soft_cap, stall_rank=stall_rank)
     es = x.element_size()
     lanes = _lanes(d, g, KERNEL_DTYPES[x.dtype], n)
     plan = persistent_plan(b, k_dim, f, hk, g, d, mp * ps, ps, n, lanes)
@@ -414,6 +613,40 @@ def _launch(x, sp, pool_k, pool_v, block_table, seq_lens, mesh: Mesh, axis: str,
     return x_out
 
 
+def _launch_stream(x, sp, pool_k, pool_v, block_table, seq_lens, mesh: Mesh, axis: str,
+                   team: Team, layers, b, k_dim, hk, g, f, ps, mp, *, rope_theta, rms_eps, qk_eps,
+                   sm_scale, soft_cap, stall_rank: int):
+    """K16's served form (``csrc/persistent_decode_v2.cu``) on every rank."""
+    n = team.size
+    dev = x.device
+    lanes = _stream_lanes(g, n)
+    n_split = stream_splits(b, hk, mp * ps, lanes)
+    offs, total = stream_regions(b, k_dim, f, hk, g, n, lanes, n_split)
+    scratch = symm.landing(mesh, axis, "persistent_stream", (total,), torch.uint8).data
+    x_out = torch.empty_like(x)
+    coll = symm.coll_args(team, mesh, x=scratch, out=scratch, land=None,
+                          pad=symm.signal_pad(mesh, axis, "persistent"), chunk_elems=0, method=0,
+                          stall_rank=stall_rank)
+    coll.dtype = coll.out_dtype = KERNEL_DTYPES[x.dtype]
+    x_in = x.contiguous()
+    args = symm.StreamArgs(
+        c=coll, layers=sp.table.data_ptr(), w_stride=(ctypes.c_longlong * 8)(*sp.w_stride),
+        x_in=x_in.data_ptr(), x_out=x_out.data_ptr(), pool_k=pool_k.data_ptr(),
+        pool_v=pool_v.data_ptr(), table=block_table.data_ptr(), lens=seq_lens.data_ptr(),
+        inv_freq=_inv_freq(dev, STREAM_TILE, float(rope_theta)).data_ptr(),
+        scratch=symm.peers(symm.slot_ptrs(scratch, mesh)),
+        off=(ctypes.c_longlong * len(offs))(*offs), layer_pool_elems=pool_k[0].numel(),
+        L=layers, B=b, K=k_dim, F=f, hk=hk, ps=ps, mp=mp, n_split=n_split,
+        sm_scale=sm_scale, soft_cap=float(soft_cap),
+        qk_eps=float(qk_eps) if qk_eps is not None else 0.0, rms_eps=float(rms_eps),
+        qk_norm=int(qk_eps is not None))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    build.check(build.library().tdt_persistent_v2(ctypes.byref(args), g, stream),
+                "persistent_decode")
+    count("persistent_decode", (n, layers, b, k_dim))
+    return x_out
+
+
 def persistent_decode_step(x: torch.Tensor, sp: StackedDecodeParams, pool_k: torch.Tensor,
                            pool_v: torch.Tensor, block_table: torch.Tensor,
                            seq_lens: torch.Tensor, mesh: Mesh | None = None,
@@ -429,18 +662,22 @@ def persistent_decode_step(x: torch.Tensor, sp: StackedDecodeParams, pool_k: tor
     (n B,) the rank-folded ones; ``mesh`` None or one rank for tp = 1.
     Returns ``(x_out, pool_k, pool_v)``, ``x_out`` the hidden state after the
     last layer (before the final norm).  CUDA tensors launch K16 (at any n,
-    one launch); CPU tensors take the plain version: at n == 1 JAX's
-    reference step, else :func:`reference_decode_step` in the ring's order.
-    int8 pools raise, as JAX's."""
+    one launch; :func:`served_form` picks its form); CPU tensors take the
+    plain version: at n == 1 JAX's reference step, else
+    :func:`reference_decode_step` in the order of the form the card would
+    launch ("oneshot" for the served form, else "ring").  int8 pools raise,
+    as JAX's."""
     check_config(config)
     n = 1 if mesh is None else mesh.shape[axis]
-    _, _, _, _, h, d, f = _check_step(x, sp, pool_k, pool_v, block_table, seq_lens, n)
+    _, b, k_dim, hk, h, d, f = _check_step(x, sp, pool_k, pool_v, block_table, seq_lens, n)
     sm = d ** -0.5 if sm_scale is None else float(sm_scale)
     kw = dict(rope_theta=rope_theta, rms_eps=rms_eps, qk_eps=qk_eps, sm_scale=sm,
               soft_cap=soft_cap)
     if not x.is_cuda:
+        stream = served_form(x.dtype, d, h // hk, b, k_dim, f) == "stream"
+        order = "jax" if n == 1 else ("oneshot" if stream else "ring")
         return reference_decode_step(x, sp, pool_k, pool_v, block_table, seq_lens, mesh, axis,
-                                     order="jax" if n == 1 else "ring", **kw)
+                                     order=order, **kw)
     if mesh is None:
         mesh, axis = _one_rank_mesh(x.device), TP_AXIS
     kw.pop("sm_scale")
