@@ -11,9 +11,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
 2. build    -- nvcc builds the kernels from ``triton_distributed_tpu_torch/csrc``;
                the library's SASS must show HGMMA on UTMALDG (TMA) loads in
                every bf16 instantiation of K12, K13, their loop alone, K5's
-               prefill form and K1's served form, and HMMA on UTMALDG loads
-               in every instantiation of K2/K3's clustered form; K5's, K1's
-               and K2/K3's with no local memory (no spill).
+               prefill form, K1's served form, K8's D = 128 fold and K6, and
+               HMMA on UTMALDG loads in every instantiation of K2/K3's
+               clustered form; K5's, K1's, K8's, K6's and K2/K3's with no
+               local memory (no spill).
 3. kernels  -- each kernel against its plain PyTorch version on the card:
                small edge cases (f32 and bf16, GQA 1-8, soft cap, qk-norm on
                and off, ragged and empty rows, a position on a page boundary
@@ -56,7 +57,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
                4096; outputs held to BF16_TOL rms(row) + 2**-7 |plain|, shown
                to reject a state with one chunk's or split's V from the
                neighbouring kv head and one with a 64-key tile left out),
-               timed beside its bound and torch.matmul or SDPA.
+               timed beside its bound and torch.matmul or SDPA.  K8's edges
+               (bf16, D = 128) from a carried state: a chunk wholly in the
+               future (the state back bitwise), a partly visible one (delta
+               -700), the soft cap on, G = 8, Sq and the chunk off every
+               tile; each held to the plain fold, rows with no visible key
+               bitwise, int and 0-d device offsets bitwise equal.
    collectives -- K9-K11 (AllGather, ReduceScatter, AllReduce) on ranks
                co-located on the card, one cooperative launch per call:
                every method at n 2, 3, 4, 8, f32 and bf16, shards of 1, 3
@@ -81,8 +87,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
                of 1, 37 and 130 rows by K 136-1032 by N 136-264, off the tile
                on every edge; each call bitwise equal to its chain (K9 then
                K12/K13's wgmma main loop run alone as a rank-stacked product,
-               that loop then K10, K6 then K11's two-shot for K14's ring,
-               which keeps K6's loop; K14's one-shot: the
+               that loop then K10, K14's ring loop alone (gemm_tile.cuh's
+               tiles) then K11's two-shot for its ring; K14's one-shot: the
                slot-order f32 sum of its own rounded partials), within a
                stated limit of its plain version (the schedule walked with
                PyTorch ops; overlap_limit charges each rounding at the size of
@@ -146,7 +152,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
                too, both scopes (each must fail by name).
    serve_tp -- Qwen3-8B at tp = 4 on four ranks co-located on the card, full
                width and depth (the tp = 1 engines freed first), batch 4,
-               prompts of 1024, 32 new tokens, in contiguous psum and paged
+               prompts of 1024, 64 new tokens, in contiguous psum and paged
                psum, ar and gemm_ar: per prefill K1 +36, K12 +72, K13 +72; per
                step K2 or K3 +36, K11 +72 (ar), K14 +72 (gemm_ar), nothing
                else; two requests a mode, a profile, peak memory; the tp = 4
@@ -305,6 +311,7 @@ def phase_build(tt) -> None:
     emit({"phase": "build_new_kernels", "instantiations": [
         f"{names[e]}: {per_entry[e]}" for e in per_entry
         if "fused_attn_decode_kernel" in e or "grouped_gemm" in e or "flash_fwd_wgmma" in e
+        or "matmul_wgmma" in e
         or "ag_gemm_kernel" in e or "gemm_rs_kernel" in e or "product_kernel" in e
         or "fused_ar_kernel" in e or "persistent_decode_kernel" in e
         or "stream_decode_kernel" in e or "decode_cluster" in e
@@ -325,23 +332,26 @@ STREAM_SPILL_BYTES = 4
 
 
 # K12's and K13's bf16 kernels (both rings, both output dtypes), their loop
-# alone, K5's prefill form (both output dtypes) and K1's served form: each
-# must issue wgmma (HGMMA) on TMA loads (UTMALDG); the last two, redesigned
-# since, must also touch no local memory (no spill: LDL / STL)
+# alone, K5's prefill form (both output dtypes), K1's served form and K8's
+# bf16 D = 128 fold (flash_fwd_wgmma<false> and <true>), and K6's bf16 form
+# (both output dtypes): each must issue wgmma (HGMMA) on TMA
+# loads (UTMALDG); the last four, redesigned since, must also touch no
+# local memory (no spill: LDL / STL)
 SASS_KERNELS = {"ag_gemm_kernelI13__nv_bfloat16": 4, "gemm_rs_kernelI13__nv_bfloat16": 2,
                 "product_kernelI13__nv_bfloat16": 2, "grouped_gemm_wgmmaI": 2,
-                "flash_fwd_wgmma": 1}
+                "flash_fwd_wgmma": 2, "matmul_wgmma": 2}
 # K2/K3's clustered form (G 1, 2, 4, 8 over a contiguous cache, bf16 pages
 # and int8 pages): mma.sync (HMMA) on TMA loads (UTMALDG)
 SASS_MMA_KERNELS = {"decode_cluster": 12}
-NO_LOCAL = ("grouped_gemm_wgmmaI", "flash_fwd_wgmma", "decode_cluster")
+NO_LOCAL = ("grouped_gemm_wgmmaI", "flash_fwd_wgmma", "matmul_wgmma", "decode_cluster")
 
 
 def phase_sass(build, lib: Path) -> None:
     """The library's SASS (cuobjdump -sass): every bf16 instantiation of
-    K12, K13, their loop alone, K5's prefill form and K1's served form runs
-    HGMMA on UTMALDG loads, K2/K3's clustered form HMMA on UTMALDG loads;
-    K5's, K1's and K2/K3's touch no local memory."""
+    K12, K13, their loop alone, K5's prefill form, K1's served form, K8's
+    D = 128 fold and K6 runs HGMMA on UTMALDG loads, K2/K3's clustered form
+    HMMA on UTMALDG loads; K5's, K1's, K8's, K6's and K2/K3's touch no local
+    memory."""
     import subprocess
 
     tool = Path(build.find_nvcc()).parent / "cuobjdump"
@@ -1312,7 +1322,9 @@ def local_ops_path(tt, torch, at, ins) -> dict:
     tile) and the call that serves each crown; K7 over the contiguous cache
     and over bf16 and int8 pages, merged; K8 folding the four chunks of the
     ring's last rank."""
-    tile = (128, 128, 32)
+    from triton_distributed_tpu_torch.ops.matmul import DEFAULT_TILES
+
+    tile = DEFAULT_TILES[torch.bfloat16]
     calls: dict = {}
     out: dict = {"tunes": {}}
     q, (k, v), lens, table = ins["q"], ins["kv"], ins["lens"], ins["table"]
@@ -1424,8 +1436,8 @@ def matmul_rows(tt, torch, ins, path) -> dict:
             del got
             _, ms = perf_func(lambda: M.matmul(a, b, config=tile), iters=10)
             tiles[str(tile)] = dict(ms=ms, max_abs_err=err, worst_share_of_tol=share)
-        default = path[label]
-        tiles["(128, 128, 32)"]["path_share_of_tol"] = k5_share(default, want, BF16_TOL, K6_RTOL)
+        default = str(M.DEFAULT_TILES[torch.bfloat16])
+        tiles[default]["path_share_of_tol"] = k5_share(path[label], want, BF16_TOL, K6_RTOL)
         faulty = {
             "k_tile_left_out": k5_share(M.matmul_ref(a[:, 32:], b[32:]), want, BF16_TOL, K6_RTOL),
             "neighbour_n_tile": k5_share(want.roll(-128, dims=1), want, BF16_TOL, K6_RTOL)}
@@ -1440,7 +1452,7 @@ def matmul_rows(tt, torch, ins, path) -> dict:
             max_abs_err=max(t["max_abs_err"] for t in tiles.values()),
             tol=[BF16_TOL, K6_RTOL],
             worst_share_of_tol=max(max(t["worst_share_of_tol"] for t in tiles.values()),
-                                   tiles["(128, 128, 32)"]["path_share_of_tol"]),
+                                   tiles[default]["path_share_of_tol"]),
             faulty_share_of_tol=faulty, ms=tiles[best]["ms"], tile=best, tiles=tiles,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
             library="torch.matmul", counter="matmul", form=(m, n, k),
@@ -1644,6 +1656,71 @@ def fold_rows(tt, torch, ins, path) -> dict:
         shape=f"q ({b},{h},{sq},{d}) bf16 at {(RING - 1) * sq}, {RING} chunks kv ({b},{kr.shape[1]},{sq},{d})")}
 
 
+# K8's edge cases, bf16 at D = 128 (the wgmma body): (label, q heads, kv
+# heads, q rows, chunk keys, q_offset, kv_offset, soft_cap).  A chunk wholly
+# in the future; a partly visible one (delta -700, no multiple of 64); the
+# diagonal chunk with the soft cap on; the Qwen3-30B-A3B heads (G = 8); Sq
+# and the chunk off every tile (delta 300)
+FOLD_CASES = (
+    ("future", 32, 8, 1024, 1024, 0, 1024, 0.0),
+    ("partly visible", 32, 8, 1024, 1024, 1000, 1700, 0.0),
+    ("soft cap", 32, 8, 1024, 1024, 3072, 3072, 5.0),
+    ("G = 8", 32, 4, 1024, 1024, 3072, 2048, 0.0),
+    ("ragged", 32, 8, 1000, 700, 1300, 1000, 0.0),
+)
+
+
+def phase_fold_cases(tt, torch) -> None:
+    """K8 at its edges (FOLD_CASES), each from a carried state (one random
+    chunk folded by the plain version, some rows left fresh): the fold held
+    to the plain fold (STATE_TOL), every row with no visible key holding its
+    state bitwise (all of them in the future chunk), and the same fold with
+    int offsets and with 0-d device offsets bitwise equal."""
+    from triton_distributed_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    bf, d = torch.bfloat16, 128
+    for label, h, hk, sq, sc, q_off, kv_off, cap in FOLD_CASES:
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(bf)
+
+        q, k0, v0, k, v = rnd(1, h, sq, d), rnd(1, hk, 256, d), rnd(1, hk, 256, d), \
+            rnd(1, hk, sc, d), rnd(1, hk, sc, d)
+        fresh = A.init_attention_state(1, h, sq, d)
+        state = A.flash_attention_chunk_ref(q, k0, v0, fresh, q_off, q_off - 256, sm_scale=d ** -0.5,
+                                            soft_cap=cap)
+        keep = (torch.arange(sq, device="cuda") % 7 == 3)[None, None]   # fresh rows
+        state = tuple(torch.where(keep[..., None] if x.dim() == 4 else keep, f, x).contiguous()
+                      for x, f in zip(state, fresh))
+        dev = (torch.tensor(q_off, dtype=torch.int32, device="cuda"),
+               torch.tensor(kv_off, dtype=torch.int32, device="cuda"))
+        got = A.flash_attention_chunk(q, k, v, state, q_off, kv_off, soft_cap=cap)
+        got_dev = A.flash_attention_chunk(q, k, v, state, *dev, soft_cap=cap)
+        want = A.flash_attention_chunk_ref(q, k, v, state, q_off, kv_off, sm_scale=d ** -0.5,
+                                           soft_cap=cap)
+        torch.cuda.synchronize()
+        shares = state_shares(torch, (got[2], got[0], got[1]), (want[2], want[0], want[1]))
+        unseen = torch.arange(sq, device="cuda") + q_off - kv_off < 0   # rows that see no key
+        kept = all(torch.equal(x[:, :, unseen], y[:, :, unseen]) for x, y in zip(got, state))
+        same = all(torch.equal(x, y) for x, y in zip(got, got_dev))
+        future = label == "future"
+        whole = all(torch.equal(x, y) for x, y in zip(got, state)) if future else None
+        emit({"phase": "kernel_case", "kernel": "flash_attention_chunk", "dtype": str(bf),
+              "case": [label, f"H {h} Hkv {hk} Sq {sq} Sc {sc}", f"q_offset {q_off}",
+                       f"kv_offset {kv_off}", f"soft_cap {cap}"],
+              "share_of_limits": shares, "tol": STATE_TOL, "rows_unseen": int(unseen.sum()),
+              "unseen_rows_bitwise": kept, "device_offsets_bitwise": same,
+              "future_state_bitwise": whole,
+              "ok": worst(shares) <= 1.0 and shares["same_empty"] and kept and same
+              and whole is not False})
+        check(shares["same_empty"] and worst(shares) <= 1.0,
+              f"K8 {label}: disagrees with the plain fold: {shares}")
+        check(kept, f"K8 {label}: a row with no visible key changed its state")
+        check(same, f"K8 {label}: int and device offsets give different folds")
+        check(whole is not False, "K8: a chunk wholly in the future changed the state")
+        del q, k0, v0, k, v, state, got, got_dev, want
+
+
 def phase_local_ops(tt, torch) -> tuple[dict, dict, dict]:
     """K6, K7 and K8: edge cases, then the path (counted), then each
     kernel at the main shapes against its plain version and timed.
@@ -1653,6 +1730,7 @@ def phase_local_ops(tt, torch) -> tuple[dict, dict, dict]:
 
     t0 = time.perf_counter()
     phase_matmul_cases(tt, torch)
+    phase_fold_cases(tt, torch)
     ins = local_inputs(tt, torch)
     path = local_ops_path(tt, torch, at, ins)
     launches, forms = path["launches"], path["forms"]
@@ -2192,23 +2270,18 @@ def overlap_calls(torch, mesh, a, b, a_rs, b_rs, out_dtype) -> list:
     every overlapped GEMM on these operands: K12 both rings (C and the
     gathered A), K13 and K14 in both forms, each forced through the private
     entry.  The chains: K9 then K12/K13's main loop alone (the rank-stacked
-    product of ``comm/launch.py::loop_product``); that loop then K10; K6 per
-    rank then K11's two-shot (K14's ring, which keeps K6's loop); for K14's
-    one-shot, the slot-order f32 sum of the kernel's own rounded partials
-    (its product entries, read back), so "bitwise to its chain" holds its
-    exchange."""
+    product of ``comm/launch.py::loop_product``); that loop then K10; K14's
+    ring loop alone (``ring_loop_product``, gemm_tile.cuh's tiles) then
+    K11's two-shot; for K14's one-shot, the slot-order f32 sum of the
+    kernel's own rounded partials (its product entries, read back), so
+    "bitwise to its chain" holds its exchange."""
     from triton_distributed_tpu_torch import comm
-    from triton_distributed_tpu_torch.comm.launch import loop_product
+    from triton_distributed_tpu_torch.comm.launch import loop_product, ring_loop_product
     from triton_distributed_tpu_torch.ops import ag_gemm as AG
     from triton_distributed_tpu_torch.ops import gemm_ar as AR
     from triton_distributed_tpu_torch.ops import gemm_rs as RS
-    from triton_distributed_tpu_torch.ops.matmul import DEFAULT_TILES, matmul
 
     n = mesh.shape["tp"]
-    tile = dict(zip(("bm", "bn", "bk"), DEFAULT_TILES[a.dtype]))
-
-    def k6(x, w):   # K6 per rank, at the tile K14's ring runs
-        return torch.stack([matmul(x[r], w[r], out_dtype=out_dtype, **tile) for r in range(n)])
 
     def ag_chain(m):
         g = comm.all_gather(a, mesh, method=m)
@@ -2230,7 +2303,8 @@ def overlap_calls(torch, mesh, a, b, a_rs, b_rs, out_dtype) -> list:
     ring, one = comm.AllReduceMethod.TWO_SHOT, comm.AllReduceMethod.ONE_SHOT
     calls.append(("gemm_ar/ring", lambda: AR._gemm_ar(a_rs, b_rs, mesh, "tp", out_dtype, ring),
                   lambda: AR.gemm_ar_ref(a_rs, b_rs, mesh, out_dtype=out_dtype, method=ring),
-                  lambda: comm.all_reduce(k6(a_rs, b_rs), mesh, method=ring),
+                  lambda: comm.all_reduce(ring_loop_product(a_rs, b_rs, out_dtype), mesh,
+                                          method=ring),
                   *rs_check(torch, a_rs, b_rs, out_dtype, replicated=True)))
     m, cols = a_rs.shape[-2], b_rs.shape[-1]
     calls.append(("gemm_ar/one_shot", lambda: AR._gemm_ar(a_rs, b_rs, mesh, "tp", out_dtype, one),
@@ -2353,14 +2427,14 @@ def overlap_main_rows(tt, torch) -> dict:
     one-shot (``ring_ms``); at the o-projection, whose weights fit in the
     L2, both are also timed cycling through four weight copies."""
     from triton_distributed_tpu_torch import comm
-    from triton_distributed_tpu_torch.comm.launch import loop_product
+    from triton_distributed_tpu_torch.comm.launch import loop_product, ring_loop_product
     from triton_distributed_tpu_torch.core.mesh import make_mesh
     from triton_distributed_tpu_torch.core.utils import perf_func
     from triton_distributed_tpu_torch.obs import costs
     from triton_distributed_tpu_torch.ops import ag_gemm as AG
     from triton_distributed_tpu_torch.ops import gemm_ar as AR
     from triton_distributed_tpu_torch.ops import gemm_rs as RS
-    from triton_distributed_tpu_torch.ops.matmul import matmul
+    from triton_distributed_tpu_torch.ops.matmul import DEFAULT_TILES, matmul
 
     n, bf = COLL_TP, torch.bfloat16
     one, ring = comm.AllReduceMethod.ONE_SHOT, comm.AllReduceMethod.TWO_SHOT
@@ -2371,8 +2445,8 @@ def overlap_main_rows(tt, torch) -> dict:
         def rnd(*shape, scale=1.0):
             return (torch.randn(shape, generator=gen, device="cuda") * scale).to(bf)
 
-        def k6(x, w):
-            return torch.stack([matmul(x[r], w[r], bm=128, bn=128, bk=32) for r in range(n)])
+        def k6(x, w):   # K6 per rank at its default tile
+            return torch.stack([matmul(x[r], w[r], config=DEFAULT_TILES[bf]) for r in range(n)])
 
         if kind == "ag_gemm":
             a, b = rnd(n, m // n, k), rnd(n, k, cols // n, scale=k ** -0.5)
@@ -2420,11 +2494,11 @@ def overlap_main_rows(tt, torch) -> dict:
             extra.update(reduction_bitwise=True, faulty_share_of_limit=bad,
                          worst_share_vs_chain=overlap_share(torch, got, link, limit))
             check(extra["worst_share_vs_chain"] <= 1.0, f"{name}: beyond its limit of its chain")
-            # the ring form, forced: bitwise its chain (K6 then K11's two-shot),
-            # within its limit of its plain version
+            # the ring form, forced: bitwise its chain (its loop alone then
+            # K11's two-shot), within its limit of its plain version
             ring_kern = lambda a=a, b=b: AR._gemm_ar(a, b, mesh, "tp", bf, ring)  # noqa: E731
             got_r, want_r = ring_kern(), AR.gemm_ar_ref(a, b, mesh, method=ring)
-            link_r = comm.all_reduce(k6(a, b), mesh, method=ring)
+            link_r = comm.all_reduce(ring_loop_product(a, b), mesh, method=ring)
             torch.cuda.synchronize()
             check(torch.equal(got_r, link_r), f"{name}: the ring form differs from its chain")
             r_limit, _ = rs_check(torch, a, b, bf, replicated=True)
@@ -2461,7 +2535,7 @@ def overlap_main_rows(tt, torch) -> dict:
         _, plain_ms = perf_func(plain, iters=3)
         _, chain_ms = perf_func(chain, iters=20)
         _, lib_ms = perf_func(lambda w=whole: torch.matmul(*w), iters=20)
-        if kind == "ag_gemm":   # the chain of PRs 6-10, on K6's loop
+        if kind == "ag_gemm":   # the chain of PRs 6-10, on K6 (its default tile)
             k6_chain = lambda a=a, b=b: k6(comm.all_gather(  # noqa: E731
                 a, mesh, method=comm.AllGatherMethod.RING_BIDIR), b)
         elif kind == "gemm_rs":
@@ -2497,7 +2571,7 @@ def loop_main_rows(tt, torch) -> None:
     launch counter), so it is not in the kernels line."""
     from triton_distributed_tpu_torch.comm.launch import loop_product
     from triton_distributed_tpu_torch.core.utils import perf_func
-    from triton_distributed_tpu_torch.ops.matmul import matmul
+    from triton_distributed_tpu_torch.ops.matmul import DEFAULT_TILES, matmul
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 63)
     atol, rtol = k6_limits(torch, torch.bfloat16)
@@ -2510,7 +2584,7 @@ def loop_main_rows(tt, torch) -> None:
         check(share <= 1.0, f"the new loop at {label}: {share:.3g} of K6's limit")
         t = interleaved_ms(torch, {"loop": lambda: loop_product(x, w),
                                    "library": lambda: torch.matmul(a, b),
-                                   "k6": lambda: matmul(a, b, bm=128, bn=128, bk=32)})
+                                   "k6": lambda: matmul(a, b, config=DEFAULT_TILES[a.dtype])})
         bound_ms, bound_by = bound(2 * m * k * n, nbytes(a, b) + m * n * 2, H100_BF16_FLOPS)
         emit({"phase": "kernel_main", "name": f"wgmma_loop[{label}]", "route": "cuda",
               "source": "triton_distributed_tpu_torch/csrc/wgmma_tile.cuh",
@@ -5171,7 +5245,7 @@ def probe_main_rows(tt, torch) -> tuple[dict, dict]:
     from triton_distributed_tpu_torch.core.mesh import make_mesh
     from triton_distributed_tpu_torch.core.utils import perf_func
     from triton_distributed_tpu_torch.ops import ag_gemm as AG
-    from triton_distributed_tpu_torch.ops.matmul import matmul
+    from triton_distributed_tpu_torch.ops.matmul import DEFAULT_TILES, matmul
     from triton_distributed_tpu_torch.tools import overlap as OV
 
     s = PROBE_MAIN
@@ -5185,7 +5259,7 @@ def probe_main_rows(tt, torch) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     forms = {key: n for key, n in tt.launch_forms().items() if key[0] == "overlap_probe"}
     pct = OV.hidden_pct(times["fused"], times["dma"], times["mxu"])
-    _, k6_ms = perf_func(lambda: matmul(a, b, bm=128, bn=128, bk=32), iters=10)
+    _, k6_ms = perf_func(lambda: matmul(a, b, config=DEFAULT_TILES[a.dtype]), iters=10)
     _, lib_ms = perf_func(lambda: torch.matmul(a, b), iters=10)
     # each input read once and the output written once; the products' operations
     # (dma runs none); the dma probe's own stream (A read n / bn times, B

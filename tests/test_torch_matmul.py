@@ -89,7 +89,7 @@ def test_matmul_bf16_matches_jax_and_out_dtype():
     # an f32 result of bf16 operands: the f32 sum itself
     want = np.asarray(jax_matmul(ja, jb, bm=64, bn=64, bk=64,
                                  out_dtype=jnp.float32))
-    for cfg in ((128, 128, 32), tt.LibraryBackend()):
+    for cfg in ((128, 256, 64), tt.LibraryBackend()):
         got = tt.matmul(ta, tb, config=cfg, out_dtype=torch.float32)
         assert got.dtype == torch.float32
         np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
@@ -202,7 +202,7 @@ def test_k6_failure_in_sweep_raises_and_crowns_nothing(monkeypatch, failure):
     cands = at.matmul_candidates_pruned(64, 64, 64, a.dtype)
     assert at.lookup_winner("matmul", key, cands) is None
     with pytest.raises(expect):   # an explicit tile on the card: K6 or raise
-        tt.matmul(a, a, bm=128, bn=128, bk=32)
+        tt.matmul(a, a, bm=128, bn=256, bk=64)
 
 
 def test_persistence_round_trip(tmp_path):
@@ -269,23 +269,38 @@ def test_fresh_fine_margin_crown_demotes_stale_disk_winner(tmp_path, monkeypatch
 
 def test_prune_infeasible_drops_over_budget_tiles(monkeypatch):
     """Built tiles fit; a tile over the shared-memory or register budget,
-    or one K6 is not built for, is dropped before measuring; the default
-    and the library pass through."""
+    or one K6 is not built for, is dropped before measuring (a ring one
+    stage deeper than the built one included); the default and the library
+    pass through."""
     bf16 = torch.bfloat16
     dims = dict(m=8192, n=8192, k=8192, dtype=bf16)
-    for tile in mm.KERNEL_TILES[bf16]:
+    assert mm.DEFAULT_TILES[bf16] in mm.KERNEL_TILES[bf16]
+    for tile, spec in mm.KERNEL_TILES[bf16].items():
+        assert spec.acc_threads == 256
+        assert spec.smem_bytes(*tile) <= footprint.SMEM_PER_BLOCK
         assert footprint.config_feasible("matmul", tile, dims) == []
+    # the wgmma ring: four 48 KB stages and 1 KB of alignment, an m64n256
+    # accumulator a consumer thread
+    assert mm.KERNEL_TILES[bf16][(128, 256, 64)].smem_bytes(128, 256, 64) == 4 * 48 * 1024 + 1024
+    assert footprint.matmul((128, 256, 64), **dims).acc_regs == 128
+    f32 = mm.KERNEL_TILES[torch.float32][(64, 64, 16)]
+    assert f32.acc_threads == 256
+    assert footprint.matmul((64, 64, 16), 64, 64, 64, torch.float32).acc_regs == 16
     tiles = dict(mm.KERNEL_TILES[bf16])
-    tiles[(256, 256, 128)] = mm.TileSpec(2, 4, 4)   # ~400 KB of stages
-    tiles[(256, 256, 32)] = mm.TileSpec(1, 1, 2)    # 2048 accumulators a thread
+    tiles[(256, 256, 128)] = mm.TileSpec(2, 4)   # ~513 KB of stages
+    tiles[(256, 256, 32)] = mm.TileSpec(1, 2)    # 512 accumulators a thread
     monkeypatch.setitem(mm.KERNEL_TILES, bf16, tiles)
     default = tt.LibraryBackend()
-    cands = [default, (128, 128, 32), (256, 256, 128), (256, 256, 32),
+    cands = [default, (128, 256, 64), (256, 256, 128), (256, 256, 32),
              (32, 32, 32)]
     kept = at.prune_infeasible("matmul", cands, default, dims)
-    assert kept == [default, (128, 128, 32)]
+    assert kept == [default, (128, 256, 64)]
     assert "shared memory" in footprint.config_feasible("matmul", (256, 256, 128), dims)[0]
     assert "accumulator registers" in footprint.config_feasible("matmul", (256, 256, 32), dims)[0]
+    # one stage more than the ring holds does not fit 227 KB
+    tiles[(128, 256, 64)] = mm.TileSpec(2, 5)
+    assert tiles[(128, 256, 64)].smem_bytes(128, 256, 64) > footprint.SMEM_PER_BLOCK
+    assert at.prune_infeasible("matmul", cands, default, dims) == [default]
     # the default is never pruned, unknown families never prune
     assert at.prune_infeasible("matmul", [(32, 32, 32)], (32, 32, 32), dims) == [(32, 32, 32)]
     assert at.prune_infeasible("no_such_family", [(9, 9, 9)], None, {}) == [(9, 9, 9)]
@@ -296,7 +311,7 @@ def test_prune_infeasible_drops_over_budget_tiles(monkeypatch):
 def test_all_matmul_resolve_paths_share_the_pruned_list(monkeypatch):
     monkeypatch.setattr(
         at, "matmul_backend_candidates",
-        lambda m, n, k, dtype=None: [at.LibraryBackend(), (128, 128, 32),
+        lambda m, n, k, dtype=None: [at.LibraryBackend(), (128, 256, 64),
                                      (32, 32, 32)])
     monkeypatch.setenv("TDT_AUTOTUNE", "0")
     seen = []

@@ -4,9 +4,10 @@ matmul family only).
 
 The JAX calculator checks a tile's VMEM working set against Mosaic's scoped
 budget (``:102``, ``:349``).  A Hopper block has no VMEM; what bounds a
-tile is the shared memory of its pipeline stages (227 KB a block) and the
-registers of its accumulators (255 a thread at most, with room left for the
-operand fragments and addresses).  A tile must also be one the kernel is
+tile is the shared memory of its pipeline stages (227 KB a block: K6's
+bf16 ring of TMA stages and its alignment slack) and the registers of its
+accumulators (255 a thread of the consumer warpgroups at most, with room
+left for addresses and loop state).  A tile must also be one the kernel is
 built for: K6 instantiates a fixed set (``ops.matmul.KERNEL_TILES``).  The
 tuner drops a candidate this finds a problem with before measuring anything
 (``tune.autotuner.prune_infeasible``).
@@ -41,7 +42,7 @@ def matmul(cfg, m: int, n: int, k: int, dtype, out_dtype=None) -> Footprint | No
     if spec is None:
         return None
     return Footprint(smem_bytes=spec.smem_bytes(*tile),
-                     acc_regs=tile[0] * tile[1] // spec.threads)
+                     acc_regs=tile[0] * tile[1] // spec.acc_threads)
 
 
 def _tile3(cfg) -> tuple[int, int, int]:

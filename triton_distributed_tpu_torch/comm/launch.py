@@ -162,18 +162,31 @@ def loop_product(x: torch.Tensor, w: torch.Tensor, out_dtype=None) -> torch.Tens
     K) and ``w`` (..., K, N) with the same leading dims, K and N multiples of
     8.  It counts no launch: no path runs it; ``chip_smoke.py`` builds the
     chains that K12 and K13 are held to bitwise on it."""
+    return _stacked_product("tdt_wgmma_product", x, w, out_dtype)
+
+
+def ring_loop_product(x: torch.Tensor, w: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """K14's ring loop run alone (``csrc/overlap_gemm.cu``
+    ``tdt_ring_product``: gemm_tile.cuh's tiles as the ring's lanes run
+    them), with :func:`loop_product`'s arguments.  It counts no launch: no
+    path runs it; ``chip_smoke.py`` builds the chain that K14's ring is held
+    to bitwise on it."""
+    return _stacked_product("tdt_ring_product", x, w, out_dtype)
+
+
+def _stacked_product(entry: str, x: torch.Tensor, w: torch.Tensor, out_dtype) -> torch.Tensor:
     out_dtype = out_dtype or x.dtype
     (m, k), n_cols = x.shape[-2:], w.shape[-1]
     lead = x.shape[:-2]
     if w.shape[:-2] != lead or w.shape[-2] != k or not x.is_cuda or x.dtype != w.dtype or (
             x.dtype, out_dtype) not in GEMM_DTYPES:
-        raise ValueError(f"loop_product takes CUDA x (..., M, K) and w (..., K, N) of one "
+        raise ValueError(f"{entry} takes CUDA x (..., M, K) and w (..., K, N) of one "
                          f"dtype: got {tuple(x.shape)} {x.dtype}, {tuple(w.shape)} {w.dtype}")
     check_tile_dims(k, n_cols)
     x, w = x.contiguous(), w.contiguous()
     y = torch.empty((*lead, m, n_cols), dtype=out_dtype, device=x.device)
-    fn = build.library().tdt_wgmma_product
+    fn = getattr(build.library(), entry)
     build.check(fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), x.numel() // (m * k), m, k, n_cols,
                    symm.DTYPE_CODES[x.dtype], symm.DTYPE_CODES[out_dtype],
-                   torch.cuda.current_stream(x.device).cuda_stream), "tdt_wgmma_product")
+                   torch.cuda.current_stream(x.device).cuda_stream), entry)
     return y

@@ -64,6 +64,8 @@ SIGNATURES = {
     # K12's and K13's main loop alone, a rank-stacked product (x, w, y, R, M,
     # K, N, dtype, out_dtype, stream): chip_smoke.py's chains only
     "tdt_wgmma_product": [_P, _P, _P, *[_I] * 6, _P],
+    # K14's ring loop alone, with the same arguments: chip_smoke.py's chain
+    "tdt_ring_product": [_P, _P, _P, *[_I] * 6, _P],
     # K15 and K16 take a pointer to their FusedArArgs / PersistentArgs
     "tdt_fused_ar": [_P, _I, _P],
     "tdt_fused_ar_lanes": [_I, _I, _I, _I, _I],

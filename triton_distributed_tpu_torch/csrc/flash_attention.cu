@@ -8,21 +8,24 @@
 // given instead of (-1e30, 0, 0), applies causality by absolute position
 // (query q_offset + i against key kv_offset + j, the offsets read on the
 // device from int32 tensors or passed as ints), and writes the state back
-// unnormalized.  A query tile whose rows all precede the chunk reads no K/V
-// and copies its state through, so a chunk wholly in the future does no
-// work; a row with no visible key keeps its state exactly (its masked
-// scores give p = 0 and a rescale of exp(0) = 1), never NaN.  It computes
-// what that kernel computes, not block for block: q is scaled in f32 and cast
-// to the storage type before the q.k dot, scores and the online-softmax state
-// (m, l, acc) are f32, p is cast to the V type before the p.v dot, a masked
-// score is -1e30 with p = 0 (never NaN), and the causal kv loop stops at the
-// diagonal tile.
+// unnormalized, in f32, into new tensors.  A unit of query rows that all
+// precede the chunk reads no K/V and copies its state through, so a chunk
+// wholly in the future does no work; a row with no visible key keeps its
+// state bitwise (its masked scores give p = 0 and a rescale of exp(0) = 1),
+// never NaN.  It computes what that kernel computes, not block for block: q
+// is scaled in f32 and cast to the storage type before the q.k dot, scores
+// and the online-softmax state (m, l, acc) are f32, p is cast to the V type
+// before the p.v dot, a masked score is -1e30 with p = 0 (never NaN), and the
+// causal kv loop stops at the diagonal tile.
 //
 // Bound on the H100 at the Qwen3-8B prefill shape (B = 4, H = 32, Hkv = 8,
 // S = 1024, D = 128): about 34 GFLOP of causal q.k and p.v products against
 // about 84 MB of q, k, v and o, so the tensor cores bound it (0.035 ms).
+// K8's fold at the last rank of a 4-way ring (q 1024 rows at 3072, four
+// 1024-key chunks) is 60 GFLOP against 17 MB of f32 state in and out a
+// chunk: operations again (0.061 ms).
 //
-// The served form (bf16, D = 128, not the chunk fold) runs a wgmma body
+// bf16 at D = 128 (K1's served form and K8's fold) runs a wgmma body
 // (namespace fa) on wgmma_tile.cuh's mbarriers, TMA and descriptors.  A
 // unit of work is 64 query rows of two q heads of one kv head (GQA is 4 or
 // 8 on the served models): one 64-row K and V tile in shared memory serves
@@ -31,41 +34,51 @@
 // causal mask and the same number of kv tiles (with 128 rows of one head
 // they would not).  An odd group's last pair has one head; its second
 // warpgroup computes that head again and stores nothing, so every
-// warpgroup runs the same code.  Units are numbered heaviest q tile first;
-// one persistent block an SM takes them in rounds, every other round walked
+// warpgroup runs the same code.  Units are numbered heaviest q tile first
+// (for K8 too: a row's visible keys never decrease with the row, whatever
+// q_offset - kv_offset is, so the order needs no offset on the host); one
+// persistent block an SM takes them in rounds, every other round walked
 // backwards, which evens out the blocks' causal work.  Warpgroup 2's first
 // warp is the producer: one thread keeps TMA loads in flight, running ahead
 // across units, of each unit's two q tiles (two slots, one a unit in turn)
 // and of its K and V tiles, each in a three-stage ring with its own
 // full/empty mbarriers, so K_{j+1} lands while P V_{j-1} still holds
 // V_{j-1}; its three spare warps scale each q tile in f32 and round it to
-// bf16 in shared memory as it lands, off the consumers' path.  Boxes are 64
-// columns (the 128-byte swizzle).  S = Q K^T is wgmma m64n64k16 with both
-// operands K-major in shared memory (q and k rows run along D); the soft
-// cap, the mask (only on tiles that reach the diagonal or the ragged kv
-// edge) and the online softmax run in f32 registers, exp as ex2 of a
-// scaled argument, a row with no visible key subtracting +inf so that its
-// p is 0 with no select; p is rounded to bf16 in registers, where a
-// 16-column slice of the m64n64 accumulator already has the layout of one
-// k-step's A fragment, and O += P V is wgmma m64n128k16 with A from
-// registers and V from shared memory, MN-major (the transpose bit).  Tile
-// j's S is issued before tile j - 1's P V, so that product runs behind tile
-// j's softmax.  S (32 registers), O (64) and P (16) fit the 168 registers
-// a thread of a 384-thread block is compiled to, with no spill.  ptxas
-// serializes register-operand wgmmas that follow a trap on a divergent
-// path, so the consumers' stage waits are plain spins and the producer
-// thread is the watchdog: after its last load it waits, bounded, for every
-// stage to be released, and traps if one is not.  The tensor maps travel
-// as __grid_constant__ parameters, so a captured CUDA graph replays them.
+// bf16 in shared memory as it lands, off the consumers' path.  K8's units
+// with no visible key are skipped by all three roles alike (each reads the
+// offsets and derives the unit's kv tiles itself), and their consumers copy
+// the state through.  Boxes are 64 columns (the 128-byte swizzle).  S = Q
+// K^T is wgmma m64n64k16 with both operands K-major in shared memory (q and
+// k rows run along D); the soft cap, the mask (only on tiles that reach the
+// diagonal or the ragged kv edge) and the online softmax run in f32
+// registers, exp as ex2 of a scaled argument, a row with no visible key
+// subtracting +inf so that its p is 0 with no select; p is rounded to bf16
+// in registers, where a 16-column slice of the m64n64 accumulator already
+// has the layout of one k-step's A fragment, and O += P V is wgmma
+// m64n128k16 with A from registers and V from shared memory, MN-major (the
+// transpose bit).  Tile j's S is issued before tile j - 1's P V, so that
+// product runs behind tile j's softmax.  K8 loads each unit's carried O (the
+// accumulator's own layout: float pairs, a quad's four threads on 32
+// contiguous bytes of a row) and its rows' (m, l) into registers before the
+// unit's waits, so their latency hides behind the q tile's landing and the
+// first S; after tile 0's softmax it rescales that O to the new running max;
+// its epilogue writes O, m and l back unscaled.  S (32 registers), O (64) and
+// P (16) fit the 168 registers a thread of a 384-thread block is compiled
+// to, with no spill.  ptxas serializes register-operand wgmmas that follow a
+// trap on a divergent path, so the consumers' stage waits are plain spins
+// and the producer thread is the watchdog: after its last load it waits,
+// bounded, for every stage to be released, and traps if one is not.  The
+// tensor maps travel as __grid_constant__ parameters, so a captured CUDA
+// graph replays them.
 
-// The other forms keep the first design: one block owns 64 query rows of
-// one (batch, head), four warps own 16 rows each, and 64-row K/V tiles of
-// the head's kv head stream through shared memory with cp.async,
-// double-buffered; QK^T and PV are mma.sync m16n8k16 bf16 -> f32 with the
-// K and V^T fragments read by ldmatrix, the score fragment reused in
-// registers as the A operand of the PV product.  That serves D = 64 and
-// K8's chunk fold.  The f32 storage path is plain scalar FMA: it serves
-// parity checks, not the serving path.
+// The other forms (D = 64, f32 storage, K1 and K8 alike) keep the first
+// design: one block owns 64 query rows of one (batch, head), four warps own
+// 16 rows each, and 64-row K/V tiles of the head's kv head stream through
+// shared memory with cp.async, double-buffered; QK^T and PV are mma.sync
+// m16n8k16 bf16 -> f32 with the K and V^T fragments read by ldmatrix, the
+// score fragment reused in registers as the A operand of the PV product.
+// The f32 storage path is plain scalar FMA: it serves parity checks, not
+// the serving path.
 #include "wgmma_tile.cuh"
 
 namespace tdt {
@@ -106,13 +119,14 @@ __device__ __forceinline__ int causal_tiles(int last, int bk, int n_kt) {
   return last < 0 ? 0 : min(n_kt, last / bk + 1);
 }
 
-// Copy the state of rows [r0, r1) of (batch * head) bh through unchanged.
+// Copy the state of rows [r0, r1) of (batch * head) bh through unchanged,
+// thread t of `threads` (the whole block by default).
 template <int D>
-__device__ void copy_state(const ChunkState& cs, int bh, int Sq, int r0,
-                           int r1) {
+__device__ __forceinline__ void copy_state(const ChunkState& cs, int bh, int Sq, int r0, int r1,
+                                           int t = threadIdx.x, int threads = blockDim.x) {
   r1 = min(r1, Sq);
   const size_t base = static_cast<size_t>(bh) * Sq;
-  for (int i = threadIdx.x; i < (r1 - r0) * D; i += blockDim.x) {
+  for (int i = t; i < (r1 - r0) * D; i += threads) {
     const size_t row = base + r0 + i / D;
     cs.acc_out[row * D + i % D] = cs.acc_in[row * D + i % D];
     if (i % D == 0) {
@@ -524,9 +538,10 @@ struct Bars {
 // innermost first, 128-byte swizzle; o (B, H, Sq, D).
 struct Args {
   CUtensorMap mq, mk, mv;
-  bf16* o;
+  bf16* o;  // K1's output; null in K8's fold, which writes cs's state
   int B, H, Hkv, Sq, Skv, causal;
   float sm_scale, soft_cap;
+  ChunkState cs;  // K8's carried state and offsets; unused by K1
 };
 
 // d (64 x 64 f32) = (scale_d ? d : 0) + A (64 x 16) @ B (16 x 64), A and B
@@ -609,18 +624,21 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // Unit u's work: q tile qt (heaviest first: the last tiles of a causal row
-// read the most kv tiles), batch b, kv head hk, and the pair of q heads
+// read the most kv tiles, whatever delta is: a row's visible keys never
+// decrease with the row), batch b, kv head hk, and the pair of q heads
 // 2 pair, 2 pair + 1 of that kv head's group (one when the group is odd
-// and this is its last pair); and the kv tiles it reads.
+// and this is its last pair); and the kv tiles it reads, none when all its
+// rows precede the chunk (K8: delta = q_offset - kv_offset; K1: 0).
 struct Item {
   int qt, b, hk, pair, n_kt;
 };
 
-__device__ __forceinline__ Item item(const Args& a, int u) {
+__device__ __forceinline__ Item item(const Args& a, int u, int delta) {
   const int pairs = (a.H / a.Hkv + 1) / 2, per = a.B * a.Hkv * pairs;
   const int nqt = (a.Sq + BQ - 1) / BQ, r = u % per, qt = nqt - 1 - u / per;
   int n_kt = (a.Skv + BKV - 1) / BKV;
-  if (a.causal) n_kt = min(n_kt, (qt * BQ + BQ - 1) / BKV + 1);  // stop at the diagonal
+  if (a.causal)  // stop at the diagonal of the tile's last row inside Sq
+    n_kt = causal_tiles(min(qt * BQ + BQ - 1, a.Sq - 1) + delta, BKV, n_kt);
   return Item{qt, r / (a.Hkv * pairs), (r / pairs) % a.Hkv, r % pairs, n_kt};
 }
 
@@ -635,10 +653,14 @@ __device__ __forceinline__ int unit_of(int n) {
   return n * gridDim.x + ((n & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
 }
 
+// K1 (CHUNK false) and K8's fold (CHUNK true): the same body, K8's units
+// starting from the carried state and writing it back unnormalized.
+template <bool CHUNK>
 __global__ void __launch_bounds__(THREADS, 1) flash_fwd_wgmma(const __grid_constant__ Args a) {
   extern __shared__ __align__(16) unsigned char dyn[];
   __shared__ Bars bars;
   const int U = units(a), g = a.H / a.Hkv;
+  const int delta = CHUNK ? chunk_delta(a.cs) : 0;
   unsigned char* sq = wg::stages(dyn);          // two slots of the two warpgroups' q tiles
   unsigned char* sk = sq + 4 * Q_BYTES;         // STAGES K tiles
   unsigned char* sv = sk + STAGES * KV_BYTES;   // STAGES V tiles
@@ -670,7 +692,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_wgmma(const __grid_const
       for (int n = 0; n * static_cast<int>(gridDim.x) < U; ++n) {
         const int u = unit_of(n);
         if (u >= U) continue;
-        const Item it = item(a, u);
+        const Item it = item(a, u, delta);
+        if (CHUNK && it.n_kt == 0) continue;  // copied through by the consumers: no loads
         const int h0 = it.hk * g + 2 * it.pair, heads = min(2, g - 2 * it.pair);
         const int kv_slab = it.b * a.Hkv + it.hk, slot = nu & 1;
         // warpgroup hw's q tile is head h0 + hw's; where the pair has one
@@ -709,7 +732,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_wgmma(const __grid_const
       const int t = threadIdx.x - (kProducerWarp + 1) * 32;
       int nu = 0;
       for (int n = 0; n * static_cast<int>(gridDim.x) < U; ++n) {
-        if (unit_of(n) >= U) continue;
+        if (unit_of(n) >= U || (CHUNK && item(a, unit_of(n), delta).n_kt == 0)) continue;
         const int slot = nu & 1;
         wg::mbar_wait(&bars.qfull[slot], (nu >> 1) & 1);
         uint4* qs = reinterpret_cast<uint4*>(sq + 2 * slot * Q_BYTES);
@@ -742,17 +765,45 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_wgmma(const __grid_const
   for (int n = 0; n * static_cast<int>(gridDim.x) < U; ++n) {
     const int u = unit_of(n);
     if (u >= U) continue;
-    const Item it = item(a, u);
+    const Item it = item(a, u, delta);
     const int h0 = it.hk * g + 2 * it.pair, heads = min(2, g - 2 * it.pair);
     const int q0 = it.qt * BQ, n_kt = it.n_kt, slot = nu & 1;
     const int row0 = q0 + r0, row1 = row0 + 8;  // this thread's query positions
+    // K8: the first state row of this warpgroup's head (the pair's first
+    // head again where the pair has one: computed, not stored)
+    const size_t srow = static_cast<size_t>(it.b * a.H + h0 + min(w, heads - 1)) * a.Sq;
+    if constexpr (CHUNK) {
+      if (n_kt == 0) {  // every row precedes the chunk: the state goes through
+        if (w < heads) copy_state<D>(a.cs, it.b * a.H + h0 + w, a.Sq, q0, q0 + BQ, t, 128);
+        continue;
+      }
+      // the carried state, loaded before the waits so that its latency
+      // hides behind them and behind the first S (rows past Sq: a fresh one)
+      const bool in0 = row0 < a.Sq, in1 = row1 < a.Sq;
+      m0 = in0 ? a.cs.m_in[srow + row0] : kNegInf;
+      l0 = in0 ? a.cs.l_in[srow + row0] : 0.f;
+      m1 = in1 ? a.cs.m_in[srow + row1] : kNegInf;
+      l1 = in1 ? a.cs.l_in[srow + row1] : 0.f;
+      const float* acc0 = a.cs.acc_in + (srow + row0) * D + c0;
+      const float* acc1 = a.cs.acc_in + (srow + row1) * D + c0;
+#pragma unroll
+      for (int j = 0; j < kAcc / 4; ++j) {
+        const float2 v0 = in0 ? *reinterpret_cast<const float2*>(acc0 + 8 * j) : float2{0.f, 0.f};
+        const float2 v1 = in1 ? *reinterpret_cast<const float2*>(acc1 + 8 * j) : float2{0.f, 0.f};
+        o[4 * j] = v0.x;
+        o[4 * j + 1] = v0.y;
+        o[4 * j + 2] = v1.x;
+        o[4 * j + 3] = v1.y;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) o[i] = 0.f;
+      m0 = m1 = kNegInf;
+      l0 = l1 = 0.f;
+    }
     wait_full(&bars.qready[slot], (nu >> 1) & 1);  // landed and scaled
 
     const uint32_t qa = smem_u32(sq + (2 * slot + w) * Q_BYTES);
-#pragma unroll
-    for (int i = 0; i < kAcc; ++i) o[i] = 0.f;
-    m0 = m1 = kNegInf;
-    l0 = l1 = 0.f;
 
     // S = Q K^T of the tile in ring stage st: 8 k-steps over D, both
     // operands K-major in shared memory
@@ -782,12 +833,12 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_wgmma(const __grid_const
         for (int i = 0; i < kS; ++i) s[i] = tanhf(s[i] / a.soft_cap) * a.soft_cap;
       }
       const int k0 = j * BKV;
-      if (k0 + BKV > a.Skv || (a.causal && k0 + BKV - 1 > q0)) {
+      if (k0 + BKV > a.Skv || (a.causal && k0 + BKV - 1 > q0 + delta)) {
 #pragma unroll
         for (int i = 0; i < kS; ++i) {
           const int col = k0 + 8 * (i / 4) + c0 + (i & 1);
           const int row = (i & 2) ? row1 : row0;
-          if (col >= a.Skv || (a.causal && col > row)) s[i] = kNegInf;
+          if (col >= a.Skv || (a.causal && col > row + delta)) s[i] = kNegInf;
         }
       }
       // the four threads of a quad share a row
@@ -838,7 +889,8 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_wgmma(const __grid_const
       }
     };
 
-    // tile 0 alone (O is still zero: no rescale, no P V behind it)
+    // tile 0 alone (K1: O is still zero: no rescale, no P V behind it; K8:
+    // the carried O is rescaled to tile 0's running max)
     wait_full(&bars.kfull[kv % STAGES], (kv / STAGES) & 1);
     fence_acc(s);
     wg::wgmma_fence();
@@ -847,6 +899,15 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_wgmma(const __grid_const
     fence_acc(s);
     if (signal) wg::mbar_arrive(&bars.kempty[kv % STAGES]);
     softmax(0);
+    if constexpr (CHUNK) {
+#pragma unroll
+      for (int i = 0; i < kAcc; i += 4) {
+        o[i] *= r0_;
+        o[i + 1] *= r0_;
+        o[i + 2] *= r1_;
+        o[i + 3] *= r1_;
+      }
+    }
     pack();
     // tile j: S_j is issued, then P_{j-1} V_{j-1}, which runs behind S_j's
     // softmax; both tiles have landed before the first wgmma is issued
@@ -896,6 +957,30 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_wgmma(const __grid_const
       wg::mbar_arrive(&bars.qempty[slot]);  // this unit's q tiles are read
     }
 
+    if constexpr (CHUNK) {  // the unnormalized state; one thread of a quad writes m, l
+      if (w < heads) {
+        float* out0 = a.cs.acc_out + (srow + row0) * D + c0;
+        float* out1 = a.cs.acc_out + (srow + row1) * D + c0;
+#pragma unroll
+        for (int j = 0; j < kAcc / 4; ++j) {
+          if (row0 < a.Sq)
+            *reinterpret_cast<float2*>(out0 + 8 * j) = make_float2(o[4 * j], o[4 * j + 1]);
+          if (row1 < a.Sq)
+            *reinterpret_cast<float2*>(out1 + 8 * j) = make_float2(o[4 * j + 2], o[4 * j + 3]);
+        }
+        if ((t & 3) == 0 && row0 < a.Sq) {
+          a.cs.m_out[srow + row0] = m0;
+          a.cs.l_out[srow + row0] = l0;
+        }
+        if ((t & 3) == 0 && row1 < a.Sq) {
+          a.cs.m_out[srow + row1] = m1;
+          a.cs.l_out[srow + row1] = l1;
+        }
+      }
+      kv += n_kt;
+      ++nu;
+      continue;
+    }
     // o / l (one reciprocal a row), rounded once, out in 16-byte row
     // pieces; a row with no visible key (l = 0) is zeros
     const float inv0 = l0 > 0.f ? __frcp_rn(l0) : 0.f, inv1 = l1 > 0.f ? __frcp_rn(l1) : 0.f;
@@ -917,14 +1002,26 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_wgmma(const __grid_const
   }
 }
 
+template <bool CHUNK>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv,
                    int Sq, int Skv, int causal, float sm_scale, float soft_cap,
-                   cudaStream_t stream) {
+                   const ChunkState& cs, cudaStream_t stream) {
+  const uintptr_t outs = CHUNK ? (reinterpret_cast<uintptr_t>(cs.acc_in) |
+                                  reinterpret_cast<uintptr_t>(cs.acc_out))
+                               : reinterpret_cast<uintptr_t>(o);
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
+       reinterpret_cast<uintptr_t>(v) | outs) % 16)
     return cudaErrorInvalidValue;
-  if (Skv < 1)  // no key: every row is zeros
-    return cudaMemsetAsync(o, 0, static_cast<size_t>(B) * H * Sq * D * 2, stream);
+  const size_t rows = static_cast<size_t>(B) * H * Sq;
+  if (Skv < 1) {  // no key: K1's rows are zeros, K8's state goes through
+    if (!CHUNK) return cudaMemsetAsync(o, 0, rows * D * 2, stream);
+    cudaError_t e = cudaMemcpyAsync(cs.m_out, cs.m_in, rows * 4, cudaMemcpyDeviceToDevice, stream);
+    if (e == cudaSuccess)
+      e = cudaMemcpyAsync(cs.l_out, cs.l_in, rows * 4, cudaMemcpyDeviceToDevice, stream);
+    if (e == cudaSuccess)
+      e = cudaMemcpyAsync(cs.acc_out, cs.acc_in, rows * D * 4, cudaMemcpyDeviceToDevice, stream);
+    return e;
+  }
   Args a{};
   const uint64_t row = 2ull * D;
   cudaError_t e = wg::make_map(&a.mq, q, D, Sq, static_cast<uint64_t>(B) * H, row, row * Sq, BQ);
@@ -936,15 +1033,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   a.o = static_cast<bf16*>(o);
   a.B = B, a.H = H, a.Hkv = Hkv, a.Sq = Sq, a.Skv = Skv, a.causal = causal;
   a.sm_scale = sm_scale, a.soft_cap = soft_cap;
+  a.cs = cs;
   const long long U = static_cast<long long>(B) * Hkv * ((H / Hkv + 1) / 2) *
                       ((Sq + BQ - 1) / BQ);
   if (U < 1) return cudaSuccess;
   if (U >= (1LL << 31)) return cudaErrorInvalidValue;
+  auto kernel = flash_fwd_wgmma<CHUNK>;
   long long fit = 0;  // one block an SM
-  if ((e = dl::resident_lanes(flash_fwd_wgmma, 1, THREADS, SMEM_BYTES, &fit)) != cudaSuccess)
-    return e;
+  if ((e = dl::resident_lanes(kernel, 1, THREADS, SMEM_BYTES, &fit)) != cudaSuccess) return e;
   const unsigned grid = static_cast<unsigned>(max(1LL, min(fit, U)));
-  flash_fwd_wgmma<<<grid, THREADS, SMEM_BYTES, stream>>>(a);
+  kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -991,13 +1089,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
              int H, int Hkv, int Sq, int Skv, int D, int causal,
              float sm_scale, float soft_cap, int dtype, const ChunkState& cs,
              cudaStream_t st) {
-  if (dtype == 1 && D == 128) {
-    if constexpr (!CHUNK)  // the served form: the wgmma body
-      return fa::launch(q, k, v, o, B, H, Hkv, Sq, Skv, causal, sm_scale, soft_cap, st);
-    else
-      return launch_bf16<128, CHUNK>(q, k, v, o, B, H, Hkv, Sq, Skv, causal, sm_scale, soft_cap,
-                                     cs, st);
-  }
+  if (dtype == 1 && D == 128)  // K1's served form and K8's fold: the wgmma body
+    return fa::launch<CHUNK>(q, k, v, o, B, H, Hkv, Sq, Skv, causal, sm_scale, soft_cap, cs, st);
   if (dtype == 1 && D == 64)
     return launch_bf16<64, CHUNK>(q, k, v, o, B, H, Hkv, Sq, Skv, causal, sm_scale, soft_cap, cs, st);
   if (dtype == 0 && D == 128)

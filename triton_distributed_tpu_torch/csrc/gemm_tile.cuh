@@ -2,8 +2,9 @@
 // for one block, bf16 operands, f32 accumulation, on mma.sync tensor-core
 // tiles.  It is the Hopper form of triton_distributed_tpu/ops/blocks.py
 // ::matmul_body (the MXU loop that the JAX matmul and every fused GEMM run
-// per tile): K6 (matmul.cu) runs it as a kernel of its own, and the ports of
-// the fused and overlapped GEMMs (B6-B8, B14-B16) are to call it per tile.
+// per tile): K14's ring form (overlap_gemm.cu) and K19 (overlap_probe.cu)
+// run it per tile.  K6's bf16 form moved to wgmma_tile.cuh's loop; its f32
+// form (matmul.cu) keeps f32_tile here.
 //
 // Operands are row-major, A (M, K) and B (K, N), with K and N multiples of 8
 // so that every 16-byte chunk of a row lies wholly inside or outside the

@@ -733,6 +733,17 @@ __global__ void __launch_bounds__(kThreads) gemm_ar_kernel(const __grid_constant
   rank_sync_exit(c);
 }
 
+// K14's ring loop alone: every rank's product y[r] = x[r] @ w[r] by
+// lane_tiles, one block a tile, grid (tiles, R).  Not a step of any path:
+// chip_smoke.py's chain of K14's ring is built on it.
+template <typename T, typename OT>
+__global__ void __launch_bounds__(kThreads)
+ring_loop_kernel(const T* x, const T* w, OT* y, int M, int K, int N) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const long long r = blockIdx.y;
+  lane_tiles<T, OT>(x + r * M * K, w + r * K * N, y + r * M * N, M, N, K, smem);
+}
+
 // ---------------------------------------------------------------------------
 // host side
 
@@ -841,6 +852,24 @@ cudaError_t product_as(ProductArgs* p, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+template <typename T, typename OT>
+cudaError_t ring_product_as(const void* x, const void* w, void* y, int R, int M, int K, int N,
+                            cudaStream_t st) {
+  auto kernel = ring_loop_kernel<T, OT>;
+  constexpr int smem = TileOf<T>::SMEM;
+  cudaError_t e;
+  if (smem > 48 * 1024 &&
+      (e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
+          cudaSuccess)
+    return e;
+  const long long tiles = static_cast<long long>((M + TileOf<T>::BM - 1) / TileOf<T>::BM) *
+                          ((N + TileOf<T>::BN - 1) / TileOf<T>::BN);
+  if (tiles >= (1LL << 31) || R > 65535) return cudaErrorInvalidValue;
+  kernel<<<dim3(static_cast<unsigned>(tiles), R), kThreads, smem, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<OT*>(y), M, K, N);
+  return cudaGetLastError();
+}
+
 template <typename T> struct Ty { typedef T type; };
 
 // (dtype, out_dtype) codes: 0 f32, 1 bf16.  Built: bf16 -> bf16, bf16 -> f32,
@@ -918,5 +947,21 @@ extern "C" int tdt_wgmma_product(const void* x, const void* w, void* y, int R, i
   return static_cast<int>(by_dtype(dtype, out_dtype, [&](auto t, auto ot) {
     return product_as<typename decltype(t)::type, typename decltype(ot)::type>(
         &p, static_cast<cudaStream_t>(stream));
+  }));
+}
+
+// K14's ring loop alone (gemm_tile.cuh's tiles as the ring's lanes run
+// them), as a rank-stacked product with tdt_wgmma_product's arguments.  Not
+// a step of any path: chip_smoke.py's chain of K14's ring is built on it.
+extern "C" int tdt_ring_product(const void* x, const void* w, void* y, int R, int M, int K,
+                                int N, int dtype, int out_dtype, void* stream) {
+  using namespace tdt::dl;
+  if (R < 1 || M < 1 || K < 8 || K % 8 || N < 8 || N % 8 ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+       reinterpret_cast<uintptr_t>(y)) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(by_dtype(dtype, out_dtype, [&](auto t, auto ot) {
+    return ring_product_as<typename decltype(t)::type, typename decltype(ot)::type>(
+        x, w, y, R, M, K, N, static_cast<cudaStream_t>(stream));
   }));
 }

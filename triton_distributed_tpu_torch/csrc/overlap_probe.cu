@@ -30,8 +30,9 @@
 // under the other, fused takes max(dma, mxu); if it serializes them, their
 // sum (tools/overlap.py::hidden_pct).
 //
-// Tiles: the corner needs BK >= 128 and BN >= 128, which K6's tiles (BK 32)
-// do not have, so K19 instantiates its own: 128 x 128 x 128 (2 x 2 warps, 3
+// Tiles: the corner needs BK >= 128 and BN >= 128, which no tile of
+// gemm_tile.cuh's other users has (K6's first design had BK 32), so K19
+// instantiates its own: 128 x 128 x 128 (2 x 2 warps, 3
 // stages, 204 KB), the tile of the JAX test, and 128 x 256 x 128 (2 x 4
 // warps, 2 stages, 200 KB), the default.  f32 operands take K6's scalar f32
 // form (gemm_tile.cuh f32_tile, 64 x 64 sub-tiles of a 128 x 128 x 128

@@ -1,11 +1,11 @@
-// The Hopper main loop of the overlapped GEMMs K12 and K13 (overlap_gemm.cu)
-// and of K5's prefill form (group_gemm.cu): acc = A[m0:m0+128, :] @
-// B[:, n0:n0+256] for bf16 operands, f32 sums, on wgmma with TMA loads, in a
-// block that walks many tiles in turn.  It is the Hopper form of
-// triton_distributed_tpu/ops/blocks.py::matmul_body, which gemm_tile.cuh's
-// mma.sync loop (K6) also runs; later redesigns of K6 and K19 are to take
-// this one.  K1's wgmma body (flash_attention.cu) takes its barriers, TMA,
-// descriptors and register moves, not its loop.
+// The Hopper main loop of the overlapped GEMMs K12 and K13 (overlap_gemm.cu),
+// of K5's prefill form (group_gemm.cu) and of K6, the tiled GEMM
+// (matmul.cu): acc = A[m0:m0+128, :] @ B[:, n0:n0+256] for bf16 operands,
+// f32 sums, on wgmma with TMA loads, in a block that walks many tiles in
+// turn.  It is the Hopper form of triton_distributed_tpu/ops/blocks.py::
+// matmul_body, which gemm_tile.cuh's mma.sync loop (K14's ring, K19) also
+// runs.  K1's and K8's wgmma body (flash_attention.cu) takes its barriers,
+// TMA, descriptors and register moves, not its loop.
 //
 // The block is three warpgroups (384 threads).  Warpgroup 2's first warp
 // is the producer: one thread keeps TMA loads of A and B tiles in flight

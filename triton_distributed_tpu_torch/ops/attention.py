@@ -223,13 +223,15 @@ FLASH_BQ, FLASH_BKV = 64, 64   # K1's wgmma body: q rows a head, kv rows a tile
 
 
 def flash_work_items(b: int, h: int, hk: int, sq: int, skv: int,
-                     causal: bool) -> list[tuple[int, int, tuple, int]]:
-    """The units of K1's served form (bf16, D = 128) in their order, as
-    ``fa::item`` in ``csrc/flash_attention.cu`` numbers them: (q tile,
-    batch, q heads, kv tiles read).  A unit is 64 query rows of two q heads
-    of one kv head (one where the group is odd and this is its last pair),
-    heaviest q tile first; a causal tile reads the kv tiles up to its
-    diagonal."""
+                     causal: bool, delta: int = 0) -> list[tuple[int, int, tuple, int]]:
+    """The units of K1's served form and K8's fold (bf16, D = 128) in their
+    order, as ``fa::item`` in ``csrc/flash_attention.cu`` numbers them: (q
+    tile, batch, q heads, kv tiles read).  A unit is 64 query rows of two q
+    heads of one kv head (one where the group is odd and this is its last
+    pair), heaviest q tile first; a causal tile reads the kv tiles up to its
+    diagonal, K8's at ``delta = q_offset - kv_offset`` (key j is visible to
+    query i when j <= i + delta): none when every row precedes the chunk,
+    and then the unit copies its state through."""
     g = h // hk
     pairs = cdiv(g, 2)
     per, nqt = b * hk * pairs, cdiv(sq, FLASH_BQ)
@@ -238,9 +240,9 @@ def flash_work_items(b: int, h: int, hk: int, sq: int, skv: int,
         r, qt = u % per, nqt - 1 - u // per
         bb, kh, pair = r // (hk * pairs), (r // pairs) % hk, r % pairs
         heads = tuple(kh * g + 2 * pair + w for w in range(min(2, g - 2 * pair)))
-        n_kt = cdiv(skv, FLASH_BKV)
+        n_kt, last = cdiv(skv, FLASH_BKV), min(qt * FLASH_BQ + FLASH_BQ, sq) - 1 + delta
         if causal:
-            n_kt = min(n_kt, (qt * FLASH_BQ + FLASH_BQ - 1) // FLASH_BKV + 1)
+            n_kt = 0 if last < 0 else min(n_kt, last // FLASH_BKV + 1)
         items.append((qt, bb, heads, n_kt))
     return items
 

@@ -17,6 +17,10 @@ Port decisions:
   (a ``ValueError``).  JAX's ``clip_block`` to a divisor of each dimension
   would name tiles that were never built; K6 predicates its edges instead,
   so M needs no divisor and K and N need only be multiples of 8.
+- bf16 tiles run ``wgmma_tile.cuh``'s loop (wgmma + TMA, a 4-stage ring)
+  in one persistent block an SM that walks the output tiles in grouped
+  order (:func:`tile_walk` mirrors it); f32 runs one block a tile of scalar
+  FMA.
 - One launch a call, counted under ``"matmul"`` with (m, n, k) as its form
   (``core/launches.py``).  The plain version :func:`matmul_ref` serves CPU
   tensors only; a CUDA tensor launches K6 or raises.
@@ -34,42 +38,63 @@ import torch
 
 from ..core import build
 from ..core.launches import count
+from ..core.utils import cdiv
 from ..tune.autotuner import LibraryBackend, TileInfeasible
 from .attention import KERNEL_DTYPES, _stream
 
 
 @dataclasses.dataclass(frozen=True)
 class TileSpec:
-    """How K6 runs one (bm, bn, bk) tile: its warp grid and the depth of its
-    shared-memory ring (``csrc/matmul.cu``; the f32 tile is one stage of
-    scalar FMA)."""
+    """How K6 runs one (bm, bn, bk) tile (``csrc/matmul.cu``).  bf16 tiles:
+    ``warpgroups`` consumer warpgroups of 64 rows each on wgmma, beside the
+    producer's warpgroup, and a ring of ``stages`` TMA stages of bm x bk of A
+    and bk x bn of B, plus 1 KB to align them; the f32 tile: 256 threads of
+    scalar FMA on one stage."""
 
-    warps_m: int
-    warps_n: int
+    warpgroups: int
     stages: int
     f32: bool = False
 
     @property
-    def threads(self) -> int:
-        return 32 * self.warps_m * self.warps_n
+    def acc_threads(self) -> int:
+        """The threads that hold the tile's f32 sums."""
+        return 256 if self.f32 else 128 * self.warpgroups
 
     def smem_bytes(self, bm: int, bn: int, bk: int) -> int:
         if self.f32:
             return (bk * (bm + 4) + bk * bn) * 4
-        return self.stages * (bm * (bk + 8) + bk * (bn + 8)) * 2
+        return self.stages * (bm * bk + bk * bn) * 2 + 1024
 
 
 # the tiles K6 is built for, by operand dtype (csrc/matmul.cu::tdt_matmul)
 KERNEL_TILES = {
     torch.bfloat16: {
-        (128, 128, 32): TileSpec(2, 2, 4),
-        (128, 256, 32): TileSpec(2, 4, 4),
-        (256, 128, 32): TileSpec(4, 2, 4),
-        (64, 128, 64): TileSpec(2, 2, 3),
+        (128, 256, 64): TileSpec(2, 4),
     },
-    torch.float32: {(64, 64, 16): TileSpec(2, 4, 1, f32=True)},
+    torch.float32: {(64, 64, 16): TileSpec(0, 1, f32=True)},
 }
-DEFAULT_TILES = {torch.bfloat16: (128, 128, 32), torch.float32: (64, 64, 16)}
+DEFAULT_TILES = {torch.bfloat16: (128, 256, 64), torch.float32: (64, 64, 16)}
+GROUP_M = 8   # m-tiles a group of the walk takes down one n-column (kGroupM)
+
+
+def grouped_tile(t: int, tiles_m: int, tiles_n: int) -> tuple[int, int]:
+    """(m-tile, n-tile) of tile ``t`` in K6's grouped order
+    (``csrc/matmul.cu::tile_of``): groups of :data:`GROUP_M` m-tiles, each
+    walked down its n-columns, the m-tile fastest."""
+    per_group = GROUP_M * tiles_n
+    first = t // per_group * GROUP_M
+    rows = min(tiles_m - first, GROUP_M)
+    return first + t % per_group % rows, t % per_group // rows
+
+
+def tile_walk(m: int, n: int, tile, blocks: int) -> list[list[tuple[int, int]]]:
+    """The (m-tile, n-tile)s each persistent block of K6's bf16 form takes,
+    in turn (``matmul_wgmma``): block b takes tiles b, b + blocks, ... of
+    the grouped order."""
+    bm, bn = tile[0], tile[1]
+    tiles_m, tiles_n = cdiv(m, bm), cdiv(n, bn)
+    return [[grouped_tile(t, tiles_m, tiles_n) for t in range(b, tiles_m * tiles_n, blocks)]
+            for b in range(blocks)]
 
 
 def _check(a: torch.Tensor, b: torch.Tensor, out_dtype):

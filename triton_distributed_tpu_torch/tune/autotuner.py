@@ -27,7 +27,7 @@ Port decisions:
   the card, so an op called on the CPU resolves to a cached winner or the
   default.
 - The obs counters and the resilience suppression of the JAX sweep come
-  with the ports of ``obs/`` and ``resilience/`` (ROADMAP A17-A18).
+  with the ports of ``obs/`` and ``resilience/`` (ROADMAP A15 and A14).
 """
 
 from __future__ import annotations
