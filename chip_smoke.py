@@ -11,10 +11,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
 2. build    -- nvcc builds the kernels from ``triton_distributed_tpu_torch/csrc``;
                the library's SASS must show HGMMA on UTMALDG (TMA) loads in
                every bf16 instantiation of K12, K13, their loop alone, K5's
-               prefill form, K1's served form, K8's D = 128 fold and K6, and
-               HMMA on UTMALDG loads in every instantiation of K2/K3's
-               clustered form; K5's, K1's, K8's, K6's and K2/K3's with no
-               local memory (no spill).
+               prefill form, K1's served form, K8's D = 128 fold, K6 and
+               K19's fused and mxu modes, UTMALDG and no HGMMA in K19's dma
+               mode (its consumers run no product), and HMMA on UTMALDG loads
+               in every instantiation of K2/K3's clustered form; K5's, K1's,
+               K8's, K6's, K19's and K2/K3's with no local memory (no
+               spill).
 3. kernels  -- each kernel against its plain PyTorch version on the card:
                small edge cases (f32 and bf16, GQA 1-8, soft cap, qk-norm on
                and off, ragged and empty rows, a position on a page boundary
@@ -78,7 +80,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
                of 4096 x 4096 partials, one-shot AR 4 x 4096, two-shot AR
                4096 x 4096), counted, timed beside the HBM bound of all the
                ranks' bytes, the NVLink time four cards would take (not
-               measured), the plain version and one PyTorch call; K11's
+               measured), the plain version and one PyTorch call; K9 (which
+               runs at device scope without an entry barrier) in its
+               system-scope form at its main rows' shapes, each form bitwise
+               and timed in turns with the device-scope form; K11's
                one-shot in its system-scope form (the multi-card host's) at
                4 x 4096, bitwise, timed in turns with the device-scope form.
    overlap  -- K12-K14 (AllGather-GEMM both rings, GEMM-ReduceScatter,
@@ -118,11 +123,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
                paged + int8, paged + int8 + fused); the launch counters must
                rise by 36 per prefill (K1) and by 36 per decode step for the
                mode's decode kernel (K2, K3, K4, K3-int8, K4-int8), and by
-               nothing for any other kernel.  Then Qwen3-30B-A3B (48 layers,
-               128 experts, top-8; the dense model freed first) in two modes
-               (paged, paged + fused): K1 +48 and K5 +96 per prefill, the
-               mode's kernel +48 and K5 +96 per decode step, K5's counted by
-               form as well (+48 each for up and down); before it, one
+               nothing for any other kernel.  Then Qwen3-30B-A3B (full width,
+               24 of its 48 layers: MOE_SERVE_LAYERS; 128 experts, top-8; the
+               dense model freed first) in two modes (paged, paged + fused):
+               K1 +24 and K5 +48 per prefill, the mode's kernel +24 and K5
+               +48 per decode step, K5's counted by form as well (+24 each
+               for up and down); before it, one
                MoE layer's prefill and decode forward under
                ``torch.cuda.set_sync_debug_mode("error")``.  Then a
                torch.profiler trace of one prefill and eight decode steps
@@ -158,7 +164,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
                else; two requests a mode, a profile, peak memory; the tp = 4
                decode step of each mode under the sync check.
    serve_ep -- Qwen3-30B-A3B at tp = 4 under expert parallelism
-               (moe_strategy="ep"), full width and 48 layers, from the tp = 1
+               (moe_strategy="ep"), full width and 24 layers, from the tp = 1
                draw of the MoE serve (the experts' tensors shared, its engines freed
                first).  First the main rows at its prefill (8192 routed rows a
                rank, splits from a real routing): K17 dispatch and combine on
@@ -169,9 +175,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
                with the codec applied, within one bf16 ulp, a limit the bf16
                wire misses by FAULT_MARGIN).  Then paged
                psum, paged fused and paged fused with moe_fp8_wire, two requests
-               each: per prefill K1 +48, K12 +48, K13 +48, K17 +96, K5 +96 (and
-               K18 +96 with the fp8 wire), per step K3 or K4 + K15 +48 and K5
-               +96, exact and by form; an EP prefill and step under the sync
+               each: per prefill K1 +24, K12 +24, K13 +24, K17 +48, K5 +48 (and
+               K18 +48 with the fp8 wire), per step K3 or K4 + K15 +24 and K5
+               +48, exact and by form; an EP prefill and step under the sync
                check on each wire; a profile per mode; peak memory.
    aot_serving -- tutorial 14's path.  K19 (the overlap probe) against its
                plain versions: fused, dma and mxu at m = n = 1000, k = bk and
@@ -314,7 +320,7 @@ def phase_build(tt) -> None:
         or "matmul_wgmma" in e
         or "ag_gemm_kernel" in e or "gemm_rs_kernel" in e or "product_kernel" in e
         or "fused_ar_kernel" in e or "persistent_decode_kernel" in e
-        or "stream_decode_kernel" in e or "decode_cluster" in e
+        or "stream_decode_kernel" in e or "decode_cluster" in e or "probe_wgmma" in e
         or re.search(r"decode_splitI(f|13__nv_bfloat16)a", e)]})
     stream = [v for e, v in per_entry.items() if "stream_decode_kernel" in e]
     check(len(stream) == 1, f"{len(stream)} instantiations of K16's served form, not 1")
@@ -333,25 +339,33 @@ STREAM_SPILL_BYTES = 4
 
 # K12's and K13's bf16 kernels (both rings, both output dtypes), their loop
 # alone, K5's prefill form (both output dtypes), K1's served form and K8's
-# bf16 D = 128 fold (flash_fwd_wgmma<false> and <true>), and K6's bf16 form
-# (both output dtypes): each must issue wgmma (HGMMA) on TMA
-# loads (UTMALDG); the last four, redesigned since, must also touch no
-# local memory (no spill: LDL / STL)
+# bf16 D = 128 fold (flash_fwd_wgmma<false> and <true>), K6's bf16 form
+# (both output dtypes) and K19's fused and mxu modes (probe_wgmma<BN, mode>,
+# both tiles): each must issue wgmma (HGMMA) on TMA loads (UTMALDG); the
+# last five, redesigned since, must also touch no local memory (no spill:
+# LDL / STL)
 SASS_KERNELS = {"ag_gemm_kernelI13__nv_bfloat16": 4, "gemm_rs_kernelI13__nv_bfloat16": 2,
                 "product_kernelI13__nv_bfloat16": 2, "grouped_gemm_wgmmaI": 2,
-                "flash_fwd_wgmma": 2, "matmul_wgmma": 2}
+                "flash_fwd_wgmma": 2, "matmul_wgmma": 2,
+                "probe_wgmmaILi128ELi0E": 1, "probe_wgmmaILi256ELi0E": 1,
+                "probe_wgmmaILi128ELi2E": 1, "probe_wgmmaILi256ELi2E": 1}
 # K2/K3's clustered form (G 1, 2, 4, 8 over a contiguous cache, bf16 pages
 # and int8 pages): mma.sync (HMMA) on TMA loads (UTMALDG)
 SASS_MMA_KERNELS = {"decode_cluster": 12}
-NO_LOCAL = ("grouped_gemm_wgmmaI", "flash_fwd_wgmma", "matmul_wgmma", "decode_cluster")
+# K19's dma mode (both tiles): the same TMA loads (UTMALDG) and no product
+# (no HGMMA: its consumers only wait on and release the stages)
+SASS_TMA_KERNELS = {"probe_wgmmaILi128ELi1E": 1, "probe_wgmmaILi256ELi1E": 1}
+NO_LOCAL = ("grouped_gemm_wgmmaI", "flash_fwd_wgmma", "matmul_wgmma", "decode_cluster",
+            "probe_wgmma")
 
 
 def phase_sass(build, lib: Path) -> None:
     """The library's SASS (cuobjdump -sass): every bf16 instantiation of
     K12, K13, their loop alone, K5's prefill form, K1's served form, K8's
-    D = 128 fold and K6 runs HGMMA on UTMALDG loads, K2/K3's clustered form
-    HMMA on UTMALDG loads; K5's, K1's, K8's, K6's and K2/K3's touch no local
-    memory."""
+    D = 128 fold, K6 and K19's fused and mxu modes runs HGMMA on UTMALDG
+    loads, K19's dma mode UTMALDG loads and no HGMMA, K2/K3's clustered form
+    HMMA on UTMALDG loads; K5's, K1's, K8's, K6's, K19's and K2/K3's touch
+    no local memory."""
     import subprocess
 
     tool = Path(build.find_nvcc()).parent / "cuobjdump"
@@ -364,7 +378,8 @@ def phase_sass(build, lib: Path) -> None:
     for ln in res.stdout.splitlines():
         if "Function :" in ln:
             name = ln.split("Function :")[1].strip()
-            fn = name if any(k in name for k in (*SASS_KERNELS, *SASS_MMA_KERNELS)) else None
+            fn = name if any(k in name for k in (*SASS_KERNELS, *SASS_MMA_KERNELS,
+                                                 *SASS_TMA_KERNELS)) else None
             if fn:
                 counts[fn] = dict.fromkeys(ops, 0)
         elif fn:
@@ -373,13 +388,18 @@ def phase_sass(build, lib: Path) -> None:
                 counts[fn][op] += op in words
     names = demangle(list(counts))
     emit({"phase": "build_sass", "kernels": {names[f]: c for f, c in counts.items()}})
-    for key, want in (*SASS_KERNELS.items(), *SASS_MMA_KERNELS.items()):
+    for key, want in (*SASS_KERNELS.items(), *SASS_MMA_KERNELS.items(),
+                      *SASS_TMA_KERNELS.items()):
         found = [c for f, c in counts.items() if key in f]
-        mma = "HMMA" if key in SASS_MMA_KERNELS else "HGMMA"
         check(len(found) == want, f"{len(found)} instantiations of {key} in the SASS, not {want}")
-        check(all(c[mma] and c["UTMALDG"] for c in found),
-              f"an instantiation of {key} issues no {mma} or no UTMALDG")
-        if key in NO_LOCAL:
+        if key in SASS_TMA_KERNELS:
+            check(all(c["UTMALDG"] and not c["HGMMA"] for c in found),
+                  f"an instantiation of {key} issues no UTMALDG, or a product (HGMMA)")
+        else:
+            mma = "HMMA" if key in SASS_MMA_KERNELS else "HGMMA"
+            check(all(c[mma] and c["UTMALDG"] for c in found),
+                  f"an instantiation of {key} issues no {mma} or no UTMALDG")
+        if any(k in key for k in NO_LOCAL):
             check(all(c["LDL"] + c["STL"] == 0 for c in found),
                   f"an instantiation of {key} touches local memory (spills): {found}")
 
@@ -2133,14 +2153,49 @@ def k11_system_scope(torch) -> None:
           "pads_at_rest": True, "timed": "in turns, median of 5 rounds of 10 calls"})
 
 
+def k9_system_scope(torch) -> None:
+    """K9's system-scope form (kept for the multi-card host: the push's hub
+    barrier and the rings' neighbours' barrier, system-scope flags, lanes of
+    at least two units a thread) at the main rows' shapes, 1 x 4096 and
+    1024 x 4096 bf16 a rank at n = 4, each form: bitwise the plain version,
+    like the device-scope form, every pad at rest after each; both timed in
+    turns (kernel_main lines; no path runs the system-scope form, so it is
+    not in the kernels line)."""
+    from triton_distributed_tpu_torch import comm
+    from triton_distributed_tpu_torch.comm.allgather import _all_gather
+    from triton_distributed_tpu_torch.core.mesh import make_mesh
+
+    n, w, bf = COLL_TP, COLL_WIDTH, torch.bfloat16
+    mesh = make_mesh({"tp": n})
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 43)
+    for rows in (1, BATCH * PROMPT // n):
+        x = torch.randn((n, rows, w), generator=gen, device="cuda").to(bf)
+        for m in list(comm.AllGatherMethod)[1:]:
+            forms = {"device": lambda m=m: _all_gather(x, mesh, "tp", m, -1),
+                     "system": lambda m=m: _all_gather(x, mesh, "tp", m, -1, system_scope=True)}
+            want = comm.all_gather_ref(x, mesh, "tp", m)
+            for scope, fn in forms.items():
+                got = fn()
+                torch.cuda.synchronize()
+                check(torch.equal(got, want), f"K9 {m.value} {rows}x{w}, {scope} scope: differs "
+                                              "from the plain version")
+                check(pads_at_rest(), f"K9 {m.value} {rows}x{w}, {scope} scope: a signal pad is "
+                                      "not at rest")
+            ms = interleaved_ms(torch, forms)
+            emit({"phase": "kernel_main", "name": f"all_gather[{m.value} {rows}x{w}, system scope]",
+                  "ms": ms["system"], "device_scope_ms": ms["device"], "bitwise": True,
+                  "pads_at_rest": True, "timed": "in turns, median of 5 rounds of 10 calls"})
+
+
 def phase_collectives(tt, torch) -> tuple[dict, dict, dict]:
     """K9-K11: edge cases, the timeout child, then the main rows (counted and
-    timed) and K11's one-shot at system scope.  Returns the kernel rows and
-    the path's launches, total and by form."""
+    timed), K9 and K11's one-shot at system scope.  Returns the kernel rows
+    and the path's launches, total and by form."""
     t0 = time.perf_counter()
     phase_collective_cases(tt, torch)
     phase_wait_bound(torch)
     rows, launches, forms = collective_main_rows(tt, torch)
+    k9_system_scope(torch)
     k11_system_scope(torch)
     emit({"phase": "collectives_path",
           "launches": {k: v for k, v in launches.items() if v},
@@ -3414,6 +3469,10 @@ def phase_sync_check(tt, torch, params) -> None:
           "calls": {n: list(x.shape) for n, x in xs.items()}})
 
 
+# the 30B-A3B serve phases (tp = 1 and EP) run 24 of the model's 48 layers,
+# every width as published: the depth is cut so that the whole script keeps
+# room under its time limit on a slow machine
+MOE_SERVE_LAYERS = 24
 MOE_SERVE_MODES = (
     ("moe paged", "paged", "psum", None, "paged_decode_attention"),
     ("moe paged+fused", "paged", "fused", None, "fused_attn_decode"),
@@ -3422,16 +3481,17 @@ MOE_REQUESTS = 2
 
 
 def phase_serve_moe(tt, torch) -> tuple[dict, dict, dict]:
-    """Qwen3-30B-A3B at full width and depth in two modes (paged K3, paged +
-    fused K4), with the launch counters set to 0 before each mode's
-    requests and read after: per prefill K1 +48 and K5 +96, per decode step
-    the mode's kernel +48 and K5 +96, nothing else.  Then the sync check
+    """Qwen3-30B-A3B at full width and MOE_SERVE_LAYERS (24) of its 48 layers
+    in two modes (paged K3, paged + fused K4), with the launch counters set
+    to 0 before each mode's requests and read after: per prefill K1 and two
+    K5 a layer, per decode step the mode's kernel and two K5 a layer,
+    nothing else.  Then the sync check
     and a profile of each mode; then, its engines freed, the same draw
     serves the EP model at tp = 4 (phase_serve_ep).  Returns the launches
     summed over the modes and the EP modes, the launches by form (K5's
     (T, K, N), K17's and K18's forms), summed likewise, and the EP kernel
     rows."""
-    c = dataclasses.replace(tt.QWEN3_30B_A3B, max_length=MAX_LEN)
+    c = dataclasses.replace(tt.QWEN3_30B_A3B, max_length=MAX_LEN, num_layers=MOE_SERVE_LAYERS)
     dev = torch.device("cuda")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4163,7 +4223,7 @@ def phase_sync_check_ep(tt, torch, model, params, mesh) -> None:
 
 def phase_serve_ep(tt, torch, params1) -> tuple[dict, dict, dict]:
     """Qwen3-30B-A3B at tp = 4 under expert parallelism on four ranks
-    co-located on the card, full width and depth, its weights the tp = 1
+    co-located on the card, full width at MOE_SERVE_LAYERS, its weights the tp = 1
     draw of ``params1`` (the experts' tensors shared, the attention sharded):
     first the EP main rows (K17, K18) on layer 0's experts, then per mode
     (paged psum, paged fused, paged fused with the fp8 wire) the launches of
@@ -4174,7 +4234,8 @@ def phase_serve_ep(tt, torch, params1) -> tuple[dict, dict, dict]:
     kernel rows."""
     t0 = time.perf_counter()
     rows = ep_main_rows(tt, torch, params1.layers[0].mlp)
-    c = dataclasses.replace(tt.QWEN3_30B_A3B, max_length=MAX_LEN, moe_strategy="ep")
+    c = dataclasses.replace(tt.QWEN3_30B_A3B, max_length=MAX_LEN, num_layers=MOE_SERVE_LAYERS,
+                            moe_strategy="ep")
     mesh = tt.make_mesh({"tp": EP_TP})
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()

@@ -1,4 +1,4 @@
-"""K17's and K11's one-shot lane protocols on the card, walked on the CPU.
+"""K17's, K11's one-shot and K9's lane protocols on the card, walked on the CPU.
 
 ``triton_distributed_tpu_torch/comm/lanes.py`` mirrors what
 ``csrc/all_to_all.cu`` and ``csrc/ring.cuh::one_shot_phase`` do lane by
@@ -19,6 +19,14 @@ barrier, and must
 
 A dropped credit, a wait on the wrong source, a lane that skips the credit
 of a zero-row share and a rank that credits nothing must each fail by name.
+
+K9's device-scope forms (the push, the one-way and the two-way ring, no
+entry barrier; ``comm/lanes.py`` ``push_agents``/``ring_agents``) and their
+system-scope forms are walked likewise at n = 2, 3, 4 over 1, 3 and 7
+lanes, on shards moved in 16-, 4- and 1-byte units: every rank's copy
+equals JAX's ``all_gather(..., tiled=True)`` and the port's plain version
+bitwise, every flag back at zero; a dropped credit and a stalled rank fail
+by name; the lanes' byte shares tile each chunk once.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 from triton_distributed_tpu.resilience import fallbacks
@@ -189,3 +198,66 @@ def test_lane_shares_tile_each_count():
         assert cuts[0][0] == 0 and cuts[-1][1] == units
         assert all(hi == lo2 for (_, hi), (lo2, _) in zip(cuts, cuts[1:]))
         assert all(hi >= lo for lo, hi in cuts)
+
+
+# (dtype, shard): 288 bytes (16-byte units), 10 bytes (1-byte units), 36
+# bytes (4-byte units) a rank
+GATHER_SHARDS = ((torch.float32, (3, 24)), (torch.bfloat16, (1, 5)), (torch.bfloat16, (3, 6)))
+GATHER_METHODS = {"push": comm.AllGatherMethod.PUSH_1SHOT, "ring": comm.AllGatherMethod.RING_1D,
+                  "bidir": comm.AllGatherMethod.RING_BIDIR}
+
+
+@pytest.mark.parametrize("form", lanes.GATHER_FORMS)
+@pytest.mark.parametrize("lane_count", (1, 3, 7))
+@pytest.mark.parametrize("n", (2, 3, 4))
+def test_gather_lanes_match_jax_all_gather(n, lane_count, form):
+    """K9 walked lane by lane, at device scope and (the second seed) in the
+    system-scope form: every rank's copy equals ``jax.lax.all_gather(...,
+    tiled=True)`` and the plain version bitwise, f32 and bf16, shards of
+    16-, 4- and 1-byte units (7 lanes over 2 units: idle lanes)."""
+    rng = np.random.default_rng(500 + 10 * n + lane_count)
+    mesh = tt.make_mesh({"tp": n}, device="cpu")
+    gather = jax.vmap(lambda v: jax.lax.all_gather(v, "i", tiled=True), axis_name="i")
+    for dtype, shard in GATHER_SHARDS:
+        jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+        jx = jnp.asarray(rng.standard_normal((n, *shard)).astype(np.float32)).astype(jdt)
+        want = np.asarray(gather(jx).astype(jnp.float32))
+        x = torch.from_numpy(np.array(jx.astype(jnp.float32))).to(dtype)
+        plain = comm.all_gather_ref(x, mesh, "tp", GATHER_METHODS[form])
+        for seed in SEEDS:
+            got = lanes.walk_gather(x, lane_count, form, seed=seed, system_scope=seed == 1)
+            assert torch.equal(got, plain)
+            np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+@pytest.mark.parametrize("fault", ("dropped_credit", "stalled_rank"))
+@pytest.mark.parametrize("form", lanes.GATHER_FORMS)
+def test_gather_faults_are_caught(form, fault):
+    """K9 at n = 4 over 3 lanes with one credit left out (rank 2, lane 1,
+    its first) or a rank that credits nothing deadlocks, and the walk names
+    the lanes and flags."""
+    x = torch.randn((4, 2, 16), generator=torch.Generator().manual_seed(13))
+    kw = {"dropped_credit": dict(drop_credit=(2, 1, 0)), "stalled_rank": dict(stall_rank=3)}
+    with pytest.raises(tiles.ProtocolError, match="deadlock.*recv"):
+        lanes.walk_gather(x, 3, form, seed=5, **kw[fault])
+
+
+def test_gather_lanes_tile_each_chunk_once():
+    """K9's lanes cut every shard into byte shares at its unit that tile it
+    exactly once, in lane order: one unit a thread at device scope (two
+    lanes at the decode width, 1 x 4096 bf16), the card's lanes for a large
+    shard, at least two units a thread at system scope."""
+    for nbytes in (1, 10, 36, 288, 8192, 1024 * 4096 * 2, 4104 * 17 * 4):
+        unit = lanes.gather_unit(nbytes)
+        assert nbytes % unit == 0
+        for fit in (1, 3, 165, 264):
+            for system_scope in (False, True):
+                count = lanes.gather_lanes(nbytes, fit, system_scope)
+                assert 1 <= count <= fit
+                cuts = [tiles.lane_slice(nbytes, count, ln, unit) for ln in range(count)]
+                assert cuts[0][0] == 0 and cuts[-1][1] == nbytes
+                assert all(hi == lo2 for (_, hi), (lo2, _) in zip(cuts, cuts[1:]))
+                assert all(hi >= lo and lo % unit == 0 for lo, hi in cuts)
+    assert lanes.gather_lanes(4096 * 2, 165) == 2
+    assert lanes.gather_lanes(1024 * 4096 * 2, 165) == 165
+    assert lanes.gather_lanes(4096 * 2, 165, system_scope=True) == 1

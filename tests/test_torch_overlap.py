@@ -1,7 +1,8 @@
 """The port's measured infrastructure of tutorial 14 against the JAX package,
 on the CPU: the overlap probe's plain versions (K19's) against JAX's Pallas
-probe kernels in interpret mode, and the link calibration's derivations
-(thresholds, method choice, agreement, persistence) against JAX's."""
+probe kernels in interpret mode, the probe's persistent tile walk, and the
+link calibration's derivations (thresholds, method choice, agreement,
+persistence) against JAX's."""
 
 import json
 
@@ -18,6 +19,7 @@ from triton_distributed_tpu.tools import overlap as jax_overlap
 
 from triton_distributed_tpu_torch.comm import allgather as t_ag
 from triton_distributed_tpu_torch.comm import allreduce as t_ar
+from triton_distributed_tpu_torch.ops.matmul import tile_walk
 from triton_distributed_tpu_torch.tools import calibrate as t_cal
 from triton_distributed_tpu_torch.tools import overlap as t_overlap
 
@@ -44,6 +46,32 @@ def test_probe_plain_versions_match_jax(m, n, k):
     # the fused probe is the product; the dma probe is no product
     np.testing.assert_allclose(t_fns[0](ta, tb).numpy(), a @ b, atol=2e-3, rtol=1e-5)
     assert not np.allclose(t_fns[1](ta, tb).numpy(), a @ b, atol=1.0)
+
+
+def _grouped_order(tiles_m: int, tiles_n: int) -> list[tuple[int, int]]:
+    """Groups of 8 m-tiles, each walked down its n-columns (K6's order)."""
+    return [(tm, tn) for g in range(-(-tiles_m // 8)) for tn in range(tiles_n)
+            for tm in range(8 * g, min(8 * g + 8, tiles_m))]
+
+
+@pytest.mark.parametrize("blocks", [132, 7, 1000])
+@pytest.mark.parametrize("m,n", [(1000, 1000), (4096, 4096)])
+@pytest.mark.parametrize("tile", t_overlap.BUILT_TILES[torch.bfloat16])
+def test_probe_walk_takes_each_tile_once_in_grouped_order(tile, m, n, blocks):
+    """K19's bf16 modes walk the (bm, bn) tiles as K6 does
+    (``ops/matmul.py::tile_walk`` mirrors ``probe_wgmma`` too): one
+    persistent block an SM (132 on an H100; fewer and more blocks than tiles
+    too), block b taking tiles b, b + blocks, ... of the grouped order, every
+    tile of both built tiles exactly once, off the tile (1000) and on it
+    (4096)."""
+    tiles_m, tiles_n = -(-m // tile[0]), -(-n // tile[1])
+    walk = tile_walk(m, n, tile, blocks)
+    order = _grouped_order(tiles_m, tiles_n)
+    assert len(walk) == blocks
+    assert sorted(t for share in walk for t in share) == sorted(
+        (tm, tn) for tm in range(tiles_m) for tn in range(tiles_n))
+    for b, share in enumerate(walk):
+        assert share == order[b::blocks]
 
 
 def test_probe_refusals_and_hidden_pct():

@@ -8,6 +8,16 @@ overlapped AG-GEMM will consume chunk by chunk.  On the card one launch of
 K9 (``csrc/collectives.cu``) runs every rank of every team; CPU tensors
 walk the same schedule on tensors (``comm/ring.py::walk``).
 
+On the card K9 runs at device scope without JAX's entry barrier (every
+rank is a block of the one launch, and the previous call finished on the
+same stream), one 16-byte unit a thread on as many lanes as that asks for,
+up to what the card holds at once: the push puts its shard into every
+rank's output in one pass, then credits and waits once per peer; the rings'
+first put reads ``x`` straight into the own and the neighbours' outputs.
+``comm/lanes.py`` walks that protocol lane by lane.  The system-scope form
+with the barriers (``_all_gather(..., system_scope=True)``) is kept for the
+multi-card host.  The results are the same bytes.
+
 Port decisions:
 
 - Input and output are rank-stacked (``core/mesh.py``): ``x`` is
@@ -130,18 +140,20 @@ def all_gather_ref(x: torch.Tensor, mesh: Mesh, axis: str = TP_AXIS,
 
 
 def _all_gather(x: torch.Tensor, mesh: Mesh, axis: str, method: AllGatherMethod,
-                stall_rank: int, out: torch.Tensor | None = None) -> torch.Tensor:
+                stall_rank: int, out: torch.Tensor | None = None, *,
+                system_scope: bool = False) -> torch.Tensor:
     """The gather with a concrete method, into ``out`` when given: K9 for a
     CUDA tensor, the plain version for a CPU one.  A ``stall_rank`` of 0 or
     more (tests of the bounded waits only; the public entry passes -1) makes
     that team rank skip the arrival credit of every put, so its peers' waits
-    run out."""
+    run out.  ``system_scope``: K9's system-scope form (the entry barriers,
+    system-scope flags), kept for the multi-card host (ROADMAP A11)."""
     if not x.is_cuda:
         return all_gather_ref(x, mesh, axis, method, out=out)
     team, x, out, chunk_elems = _setup(x, mesh, axis, out)
     if chunk_elems:
         launch("tdt_all_gather", "allgather", team, mesh, x, out, None, chunk_elems,
-               _CODES[method], stall_rank)
+               _CODES[method], stall_rank, system_scope)
         count("all_gather", (method.value, team.size, tuple(x.shape[len(mesh.axes):])))
     return out
 

@@ -1,13 +1,14 @@
-"""K17's and K11's one-shot lanes on the card, as a walk.
+"""K17's, K11's one-shot and K9's lanes on the card, as a walk.
 
-The rank-level schedules (``comm/ring.py``: ``a2a_push_phase``, ``push_phase``)
-say what goes where; the plain versions walk them.  On the card a rank is
-many lanes (blocks), and since their redesign ``csrc/all_to_all.cu`` and
-``csrc/ring.cuh::one_shot_phase`` credit and wait lane by lane in a way
-those schedules do not show.  This module mirrors that protocol, and
-:func:`comm.tiles.walk` runs it on tensors under a seeded random
-interleaving of the lanes, checking that no lane reads (K11) or is told
-of (K17) a share that has not arrived, that no lane blocks forever, and that
+The rank-level schedules (``comm/ring.py``: ``a2a_push_phase``, ``push_phase``,
+the AllGather rings) say what goes where; the plain versions walk them.  On
+the card a rank is many lanes (blocks), and since their redesign
+``csrc/all_to_all.cu``, ``csrc/ring.cuh::one_shot_phase`` and K9's
+device-scope forms credit and wait lane by lane in a way those schedules do
+not show.  This module mirrors that protocol, and :func:`comm.tiles.walk`
+runs it on tensors under a seeded random interleaving of the lanes,
+checking that no lane reads, forwards (K9's rings, K11) or is told of (K9,
+K17) a slice that has not arrived, that no lane blocks forever, and that
 every flag of the pads is back at zero.
 
 - **K17** (``a2a_push_kernel``): each lane takes a contiguous share of the
@@ -21,13 +22,25 @@ every flag of the pads is back at zero.
   the partial into slot ``me`` of every peer, credits each peer's
   ``recv[me]``, waits once on each peer's, then sums the n slices in slot
   order in f32 (its own from ``x``), rounded once.
+- **K9** (``csrc/collectives.cu`` ``all_gather_kernel`` at device scope):
+  the push (``push_each_phase``) copies its lane's slice of the shard into
+  out-chunk ``me`` of every rank, itself included, credits each peer's
+  ``recv[me]`` once and waits once on each peer's; the one-way ring's first
+  put reads ``x`` into out-chunk ``me`` here and on the right neighbour at
+  once, and each later hop forwards the chunk that just arrived behind its
+  own credit (``ag_ring_phase`` with ``FROM_X``); the two-way ring sends its
+  shard both ways in that first pass (``bidir_ring_phase``).  Every slice of
+  every peer's chunk must be here when the lane ends.
 
-The system-scope forms (the multi-card host) add JAX's hub barrier first,
-lane by lane.  Shares are in 16-byte units (K17: ``unit`` elements of a row
+The system-scope forms (the multi-card host) add JAX's entry barrier first,
+lane by lane: the hub barrier (K17, K11's one-shot, K9's push, which copies
+its own chunk before it), the neighbours' barrier (K9's rings, after the
+own chunk).  Shares are in 16-byte units (K17: ``unit`` elements of a row
 of a multiple of 16 bytes), slices are ``dl.cuh``'s ``Rank::slice``
-(:func:`comm.tiles.lane_slice`).  The lanes are a parameter: on the card
-K17 takes as many as the card holds at once, capped by a full zone at four
-16-byte vectors a thread, and K11's one-shot one 16-byte unit a thread.
+(:func:`comm.tiles.lane_slice`; K9 cuts bytes at its unit, 16, 4 or 1
+bytes).  The lanes are a parameter: on the card K17 takes as many as the
+card holds at once, capped by a full zone at four 16-byte vectors a thread,
+and K11's one-shot and K9 one unit a thread (:func:`gather_lanes`).
 """
 
 from __future__ import annotations
@@ -36,8 +49,12 @@ import dataclasses
 
 import torch
 
-from .tiles import (Agent, Copy, Credit, ProtocolError, Wait, _covered, _State, lane_slice,
-                    walk)
+from .tiles import (Agent, Copy, Credit, ProtocolError, Wait, _barrier, _covered, _State,
+                    lane_slice, walk)
+
+# csrc/dl.cuh kThreads: K9's and K11's one-shot device-scope forms move one
+# unit a thread
+THREADS = 256
 
 
 def share(units: int, lanes: int, lane: int) -> tuple[int, int]:
@@ -190,4 +207,136 @@ def walk_one_shot(x: torch.Tensor, lanes: int, out_dtype=None, *, quantum: int =
              "slots": list(torch.full((n, *x.shape[1:]), float("nan"), dtype=x.dtype))}
             for r in range(n)]
     walk(one_shot_agents(n, lanes, elems, quantum, **kw), _LaneState(bufs, n, lanes), seed)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K9
+
+
+def gather_unit(chunk_bytes: int) -> int:
+    """The bytes K9 moves a load (``tdt_all_gather``): 16 where the shard's
+    bytes allow (the card's bases are 16-byte aligned), else 4, else 1."""
+    return 16 if chunk_bytes % 16 == 0 else 4 if chunk_bytes % 4 == 0 else 1
+
+
+def gather_lanes(chunk_bytes: int, fit: int, system_scope: bool = False) -> int:
+    """K9's lanes a rank (``collectives.cu`` ``gather_scoped``): one unit a
+    thread at device scope, at least two at system scope, at most ``fit``,
+    what the card holds at once split among the ranks."""
+    units = chunk_bytes // gather_unit(chunk_bytes)
+    per = THREADS * (2 if system_scope else 1)
+    return max(1, min(-(-units // per), fit))
+
+
+def _gather_credit(ops: list, me: int, lane: int, dst: int, chunk: int, stall_rank: int,
+                   drop_credit) -> None:
+    """Credit ``dst``'s ``recv[chunk]`` in this lane's row, unless the rank
+    is stalled or this is the credit ``drop_credit`` (rank, lane, k) names:
+    the lane's k-th."""
+    k = sum(isinstance(op, Credit) and op.flag[3] == "recv" for op in ops)
+    if me != stall_rank and drop_credit != (me, lane, k):
+        ops.append(Credit(("pad", dst, lane, "recv", chunk)))
+
+
+def push_agents(n: int, lanes: int, nbytes: int, unit: int = 16, *,
+                system_scope: bool = False, stall_rank: int = -1,
+                drop_credit=None) -> list[Agent]:
+    """K9's push lanes for one team of n ranks, ``lanes`` a rank, a shard
+    of ``nbytes`` bytes cut at ``unit``.  ``stall_rank`` credits nothing;
+    ``drop_credit`` (rank, lane, k) leaves out that lane's k-th credit."""
+    agents = []
+    for me in range(n):
+        peers = [(me + off) % n for off in range(1, n)]
+        for lane in range(lanes):
+            lo, hi = lane_slice(nbytes, lanes, lane, unit)
+            put = [Copy((me, "x", 0), (r, "out", me), lo, hi) for r in [me, *peers]
+                   if hi > lo]
+            if system_scope:   # push_phase: the own chunk, the hub barrier, the peers
+                ops = [*put[:1], *_hub_barrier(me, n, lane), *put[1:]]
+            else:              # push_each_phase
+                ops = put
+            for p in peers:
+                _gather_credit(ops, me, lane, p, me, stall_rank, drop_credit)
+            order = peers if not system_scope else [(me - off) % n for off in range(1, n)]
+            ops += [Wait(("pad", me, lane, "recv", p), 1) for p in order]
+            ops += [Arrived((me, "out", p), lo, hi) for p in peers]
+            agents.append(Agent(me, lane, "lane", ops))
+    return agents
+
+
+def ring_agents(n: int, lanes: int, nbytes: int, unit: int = 16, *, bidir: bool,
+                system_scope: bool = False, stall_rank: int = -1,
+                drop_credit=None) -> list[Agent]:
+    """K9's one-way (``bidir`` False) or two-way ring lanes for one team,
+    as :func:`push_agents`."""
+    agents = []
+    for me in range(n):
+        left, right = (me - 1) % n, (me + 1) % n
+        for lane in range(lanes):
+            lo, hi = lane_slice(nbytes, lanes, lane, unit)
+            ops = []
+
+            def send(r, dst, ops=ops, me=me, lane=lane, lo=lo, hi=hi):
+                if hi > lo:
+                    ops.append(Copy((me, "out", r), (dst, "out", r), lo, hi))
+                _gather_credit(ops, me, lane, dst, r, stall_rank, drop_credit)
+
+            def wait(r, ops=ops, me=me, lane=lane):
+                ops.append(Wait(("pad", me, lane, "recv", r), 1))
+
+            n_cw, n_ccw = (n // 2, (n - 1) // 2) if bidir else (n - 1, 0)
+            firsts = [d for d, k in ((right, n_cw), (left, n_ccw)) if k >= 1]
+            if system_scope:   # the own chunk, the neighbours' barrier, then the sends
+                if hi > lo:
+                    ops.append(Copy((me, "x", 0), (me, "out", me), lo, hi))
+                ops += _barrier(me, n, lane)
+                for d in firsts:
+                    send(me, d)
+            else:              # FROM_X: x into the own and the neighbours' chunk at once
+                if hi > lo:
+                    ops += [Copy((me, "x", 0), (r, "out", me), lo, hi) for r in [me, *firsts]]
+                for d in firsts:
+                    _gather_credit(ops, me, lane, d, me, stall_rank, drop_credit)
+            if not bidir:      # ag_ring_phase: wait, then forward what arrived
+                for step in range(n - 1):
+                    wait((me - step - 1) % n)
+                    if step + 1 < n - 1:
+                        send((me - step - 1) % n, right)
+            else:              # bidir_ring_phase
+                for step in range(max(n_cw, n_ccw)):
+                    if step < n_cw:
+                        wait((me - step - 1) % n)
+                        if step + 1 < n_cw:
+                            send((me - step - 1) % n, right)
+                    if step < n_ccw:
+                        wait((me + step + 1) % n)
+                        if step + 1 < n_ccw:
+                            send((me + step + 1) % n, left)
+            ops += [Arrived((me, "out", p), lo, hi) for p in range(n) if p != me]
+            agents.append(Agent(me, lane, "lane", ops))
+    return agents
+
+
+GATHER_FORMS = ("push", "ring", "bidir")
+
+
+def walk_gather(x: torch.Tensor, lanes: int, form: str = "push", *, seed: int = 0,
+                **kw) -> torch.Tensor:
+    """K9's lanes of ``form`` (one of :data:`GATHER_FORMS`) walked on one
+    team's shards ``x`` (n, m, ...), byte for byte at K9's unit
+    (:func:`gather_unit`): returns every rank's gathered copy (n, n m, ...),
+    NaN (or its bytes) where nothing landed."""
+    if form not in GATHER_FORMS:
+        raise ValueError(f"form {form!r}: K9's forms are {GATHER_FORMS}")
+    n = x.shape[0]
+    xb = x.contiguous().view(torch.uint8).reshape(n, -1)
+    nbytes = xb.shape[1]
+    out = torch.full((n, n * x.shape[1], *x.shape[2:]), float("nan")).to(x.dtype)
+    ob = out.view(torch.uint8).reshape(n, n, nbytes)
+    bufs = [{"x": [xb[r]], "out": list(ob[r])} for r in range(n)]
+    unit = gather_unit(nbytes)
+    agents = (push_agents(n, lanes, nbytes, unit, **kw) if form == "push" else
+              ring_agents(n, lanes, nbytes, unit, bidir=form == "bidir", **kw))
+    walk(agents, _LaneState(bufs, n, lanes), seed)
     return out

@@ -272,7 +272,7 @@ def coll_args(team: Team, mesh: Mesh, *, x: torch.Tensor, out: torch.Tensor,
     """The arguments of one launch over every team of the mesh: the peer
     tables of ``x``, ``out``, the landing slots and the pad, and the team
     layout (``slot[g * n + r]`` is the mesh slot of rank r of team g).
-    ``system_scope`` asks K11's one-shot and K17 for their system-scope
+    ``system_scope`` asks K9, K11's one-shot and K17 for their system-scope
     form (the multi-card host); the co-located launch runs at device
     scope."""
     a = CollArgs()

@@ -32,26 +32,48 @@
 // system-scope flags for the multi-card host), without the entry barrier,
 // its n - 1 credits and n - 1 waits each on a thread of their own, and one
 // 16-byte unit a thread (ring.cuh one_shot_phase).
+//
+// K9 runs at device scope the same way (scope 0): no entry barrier (the
+// push's hub barrier and the rings' neighbours' barrier are gone, for the
+// reason one_shot_phase gives), fences, credits and waits at kGpu, and one
+// 16-byte unit a thread, so a gather at the decode width takes a lane or
+// two a rank and a large one as many lanes as the card holds at once.  The
+// push writes its shard into every rank's out-chunk `me` in one pass, then
+// credits each peer and waits on each peer once, a thread each
+// (push_each_phase); the rings' first put reads x and writes out-chunk `me`
+// here and on the neighbours at once (ag_ring_phase, bidir_ring_phase with
+// FROM_X), and every later hop is a chunk forwarded behind its own credit.
+// Scope 1 keeps the first design for the multi-card host: the barriers,
+// system-scope flags, lanes of at least two units a thread.
 #include "ring.cuh"
 
 namespace tdt {
 namespace dl {
 namespace {
 
-// Lanes that leave each thread at least two units of a chunk; the one-shot,
-// whose time is flag latency, not bytes, takes one unit a thread.
+// Lanes that leave each thread at least two units of a chunk (the
+// system-scope forms of K9, K10, K11's two-shot); the device-scope forms
+// (K9, K11's one-shot), whose time at small sizes is flag latency, not
+// bytes, take one unit a thread, as many lanes as that asks for up to what
+// the card holds at once.
 constexpr long long kMinUnitsPerLane = 2 * kThreads;
 constexpr long long kOneShotUnitsPerLane = kThreads;
 
 // K9: the gather copies bytes, so the chunk is counted in bytes and moved in
-// units U (16 bytes where every chunk and base allows).
-template <typename U, int METHOD>
+// units U (16 bytes where every chunk and base allows).  S: CollArgs::scope.
+template <typename U, int METHOD, Scope S>
 __global__ void __launch_bounds__(kThreads)
     all_gather_kernel(const __grid_constant__ CollArgs a) {
   const Rank c(a);
   long long lo, hi;
   c.slice(sizeof(U), sizeof(U), lo, hi);
-  if (METHOD == 0) {
+  if constexpr (S == kGpu) {
+    if constexpr (METHOD == 0) push_each_phase<unsigned char, U>(c, a.out, lo, hi);
+    else if constexpr (METHOD == 1)
+      ag_ring_phase<unsigned char, U, sizeof(U), NoStep, kGpu, true>(c);
+    else
+      bidir_ring_phase<unsigned char, U, sizeof(U), NoStep, kGpu, true>(c);
+  } else if (METHOD == 0) {
     push_phase<unsigned char, U>(c, a.out, lo, hi);
   } else {
     {  // own shard into out-chunk me (a put to oneself, which nobody waits for)
@@ -114,13 +136,19 @@ cudaError_t launch(K kernel, CollArgs* args, long long units, cudaStream_t st,
   return cooperative_launch(kernel, args, args, (units + per - 1) / per, 0, st);
 }
 
+template <typename U, Scope S>
+cudaError_t gather_scoped(CollArgs* a, cudaStream_t st) {
+  const long long units = a->chunk_elems / sizeof(U);
+  const long long per = S == kGpu ? kOneShotUnitsPerLane : kMinUnitsPerLane;
+  if (a->method == 0) return launch(all_gather_kernel<U, 0, S>, a, units, st, per);
+  if (a->method == 1) return launch(all_gather_kernel<U, 1, S>, a, units, st, per);
+  if (a->method == 2) return launch(all_gather_kernel<U, 2, S>, a, units, st, per);
+  return cudaErrorInvalidValue;
+}
+
 template <typename U>
 cudaError_t gather_as(CollArgs* a, cudaStream_t st) {
-  const long long units = a->chunk_elems / sizeof(U);
-  if (a->method == 0) return launch(all_gather_kernel<U, 0>, a, units, st);
-  if (a->method == 1) return launch(all_gather_kernel<U, 1>, a, units, st);
-  if (a->method == 2) return launch(all_gather_kernel<U, 2>, a, units, st);
-  return cudaErrorInvalidValue;
+  return a->scope ? gather_scoped<U, kSys>(a, st) : gather_scoped<U, kGpu>(a, st);
 }
 
 template <typename T, typename OT, bool VEC>
@@ -175,8 +203,8 @@ cudaError_t record_words(int** dev) {
 using tdt::dl::CollArgs;
 
 // K9.  args->chunk_elems: elements of one shard (x's per-rank part), of
-// args->elsize bytes each, any dtype; method 0 push, 1 ring, 2 two-way ring.
-// Returns the launch's cudaError_t.
+// args->elsize bytes each, any dtype; method 0 push, 1 ring, 2 two-way ring;
+// scope 0 device, 1 system.  Returns the launch's cudaError_t.
 extern "C" int tdt_all_gather(CollArgs* args, void* stream) {
   using namespace tdt::dl;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -27,7 +27,7 @@
 // memory scope as a template argument: system (kSys) unless a kernel asks
 // for device scope (kGpu), which is enough where every rank is a block of
 // the one launch on this card, as in K14's and K15's one-shot exchange, and
-// in K11's one-shot and K17 unless CollArgs::scope asks for system scope.
+// in K9, K11's one-shot and K17 unless CollArgs::scope asks for system scope.
 // On an H100 a system-scope release costs microseconds a notify (a hub
 // barrier of four ranks took 11-19 us at system scope, ~3 us at device
 // scope).
@@ -86,8 +86,8 @@ struct CollArgs {
   int slot[kMaxRanks];    // slot[g * n + r]: mesh slot of rank r of team g
   int method, dtype, out_dtype, elsize;
   int stall_rank;         // tests only: this rank credits no arrival
-  int scope;              // K11's one-shot and K17: 0 device scope (every rank a
-                          // block of the one launch on this card), 1 system
+  int scope;              // K9, K11's one-shot and K17: 0 device scope (every rank
+                          // a block of the one launch on this card), 1 system
                           // scope (the multi-card host); other kernels fix theirs
 };
 

@@ -2,9 +2,10 @@
 // for one block, bf16 operands, f32 accumulation, on mma.sync tensor-core
 // tiles.  It is the Hopper form of triton_distributed_tpu/ops/blocks.py
 // ::matmul_body (the MXU loop that the JAX matmul and every fused GEMM run
-// per tile): K14's ring form (overlap_gemm.cu) and K19 (overlap_probe.cu)
-// run it per tile.  K6's bf16 form moved to wgmma_tile.cuh's loop; its f32
-// form (matmul.cu) keeps f32_tile here.
+// per tile): K14's ring form (overlap_gemm.cu) runs it per tile.  K6's and
+// K19's bf16 forms moved to wgmma_tile.cuh's loop; their f32 forms
+// (matmul.cu, overlap_probe.cu) keep f32_tile here, as K14's f32 ring
+// keeps f32_acc.
 //
 // Operands are row-major, A (M, K) and B (K, N), with K and N multiples of 8
 // so that every 16-byte chunk of a row lies wholly inside or outside the

@@ -4,48 +4,56 @@
 //
 // Replaces triton_distributed_tpu/tools/overlap.py::_mm_kernel (the Pallas
 // (m, n, k)-grid matmul in three modes).  Each mode computes what the JAX
-// mode computes, on one (BM, BN) output tile a block, the k steps a loop in
-// the block (gemm_tile.cuh):
+// mode computes.  The bf16 modes run the pipeline every served bf16 GEMM
+// runs (K5, K6, K12, K13): wgmma_tile.cuh's loop, TMA into a ring of four
+// mbarrier-guarded stages, one producer thread and two consumer warpgroups
+// on wgmma, in one persistent block an SM that walks the (BM, BN) output
+// tiles t = blockIdx.x, + gridDim.x, ... in K6's grouped order
+// (ops/matmul.py::tile_walk mirrors it).  A probe k step of BK = 128 is two
+// of the loop's 64-deep stages.  Every mode keeps the same walk:
 //
-// - fused: the pipelined product A @ B, f32 accumulation, rounded once:
-//   gemm_tile.cuh's bf16_tile (its cp.async stage ring and mma.sync loop).
-// - dma: the same grid and the same stage ring; every A and B block of every
-//   k step lands in shared memory and is waited on, and no mma runs.  Tile
-//   (i, j) is filled with the f32 sum of the (8, 128) corners of the last k
-//   step's blocks, sum(A[i BM : +8, (nk - 1) BK : +128]) +
-//   sum(B[(nk - 1) BK : +8, j BN : +128]), cut at the matrix edges, rounded
-//   to the output type (JAX writes every step's touch; the last one stays).
-// - mxu: the same grid and the same mma sequence over nk k steps, on A's
-//   block (0, 0) and B's block (0, 0).  JAX pins the index maps and Mosaic
-//   leaves the repeated fetch out; a pinned cp.async would still go to L2,
-//   so the two blocks are loaded once and every k step's ldmatrix and mma
-//   run from shared memory.  Tile (i, j) = the sum over the nk steps of
-//   A00 @ B00, cut at the matrix edges.
+// - fused: the pipelined product A @ B, f32 sums, rounded once: K6's
+//   matmul_wgmma, tile for tile.
+// - dma: the same producer and the same stage ring; the consumers wait on
+//   each stage's barrier and release it with no wgmma.  While the last k
+//   step's two stages are in shared memory they sum its (8, 128) corners,
+//   and tile (i, j) is filled with that f32 sum, sum(A[i BM : +8,
+//   (nk - 1) BK : +128]) + sum(B[(nk - 1) BK : +8, j BN : +128]), cut at
+//   the matrix edges (TMA's zeros), rounded to bf16 (JAX writes every step's
+//   touch; the last one stays).
+// - mxu: A's block (0, 0) and B's block (0, 0), the first k step's two
+//   stages, are loaded once; every tile of the walk issues the same nk k
+//   steps of wgmma from those shared-memory descriptors (JAX pins the index
+//   maps and Mosaic leaves the repeated fetch out).  Tile (i, j) = the sum
+//   over the nk steps of A00 @ B00, cut at the matrix edges.
 //
 // Bound on the H100: fused does 2 M N K operations (at bench.py's 4096^3,
-// 0.139 ms at 989 TFLOP/s); dma streams A N / BN times and B M / BM times
-// (1.61 GB, 0.48 ms at 3.35 TB/s for the 128 x 256 x 128 tile, less where
-// the 50 MB L2 serves a re-read); mxu the same operations as fused out of
-// shared memory.  If the pipeline hides one phase
-// under the other, fused takes max(dma, mxu); if it serializes them, their
-// sum (tools/overlap.py::hidden_pct).
+// 0.139 ms at 989 TFLOP/s); mxu the same operations out of shared memory;
+// dma's own stream reads A N / BN times and B M / BM times (1.61 GB, 0.48 ms
+// at 3.35 TB/s for the 128 x 256 x 128 tile), of which the grouped walk
+// serves a share from the 50 MB L2.  If the pipeline hides one phase under
+// the other, fused takes max(dma, mxu); if it serializes them, their sum
+// (tools/overlap.py::hidden_pct).
 //
-// Tiles: the corner needs BK >= 128 and BN >= 128, which no tile of
-// gemm_tile.cuh's other users has (K6's first design had BK 32), so K19
-// instantiates its own: 128 x 128 x 128 (2 x 2 warps, 3
-// stages, 204 KB), the tile of the JAX test, and 128 x 256 x 128 (2 x 4
-// warps, 2 stages, 200 KB), the default.  f32 operands take K6's scalar f32
-// form (gemm_tile.cuh f32_tile, 64 x 64 sub-tiles of a 128 x 128 x 128
-// tile, 256 threads); it serves parity, not speed.  K and N must be
-// multiples of 8 (16-byte chunks); M, N and K may end mid-tile.
+// Tiles: the probe's contract is (BM, BN, BK) = 128 x 256 x 128, the
+// default, and 128 x 128 x 128, the tile of the JAX test (the corner needs
+// BK >= 128 and BN >= 128).  The wide one is the loop's own width (4 stages
+// of 48 KB); the narrow one its 128-column form (wgmma m64n128k16, 4 stages
+// of 32 KB).  f32 operands take K6's scalar f32 form (gemm_tile.cuh
+// f32_tile, 64 x 64 sub-tiles of a 128 x 128 x 128 tile, 256 threads); it
+// serves parity, not speed.  K and N must be multiples of 8 (16-byte TMA
+// pitches); M, N and K may end mid-tile.
 #include "gemm_tile.cuh"
+#include "wgmma_tile.cuh"
 
 namespace tdt {
 namespace {
 
 enum Mode { kFused = 0, kDma = 1, kMxu = 2 };
-constexpr int kGroupM = 8;   // K6's grouped block order (matmul.cu)
+constexpr int kGroupM = 8;   // K6's grouped tile order (matmul.cu)
 constexpr int kCornerRows = 8, kCornerCols = 128;
+constexpr int kProbeBK = 128;                  // a probe k step
+constexpr int kHalves = kProbeBK / wg::BK;     // the loop's stages in one
 
 __device__ __forceinline__ void tile_of(int b, int tiles_m, int tiles_n, int& tm, int& tn) {
   const int per_group = kGroupM * tiles_n;
@@ -70,6 +78,22 @@ __device__ __forceinline__ float block_sum(float part) {
   return s;
 }
 
+// The consumers' sum of `part` (every consumer thread gets it), on their
+// named barrier: the producer warpgroup takes no part.  The first barrier
+// keeps a tile's writes from overtaking the last tile's reads.
+__device__ __forceinline__ float consumer_sum(float part) {
+  __shared__ float red[wg::CONSUMERS / 32];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+  wg::named_sync(wg::kConsumerBar, wg::CONSUMERS);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = part;
+  wg::named_sync(wg::kConsumerBar, wg::CONSUMERS);
+  float s = 0.f;
+#pragma unroll
+  for (int w = 0; w < wg::CONSUMERS / 32; ++w) s += red[w];
+  return s;
+}
+
 // 16 bytes holding copies of v rounded to T.
 __device__ __forceinline__ uint32_t word_of(float v, float) { return __float_as_uint(v); }
 __device__ __forceinline__ uint32_t word_of(float v, bf16) {
@@ -78,8 +102,8 @@ __device__ __forceinline__ uint32_t word_of(float v, bf16) {
 }
 
 // Fill rows [m0, m0 + rows) x cols [n0, n0 + cols) of C (M x N), cut at the
-// edges, with v rounded once to T: 16-byte stores (N and n0 are multiples of
-// 8).
+// edges, with v rounded once to T, by THREADS threads: 16-byte stores (N
+// and n0 are multiples of 8).
 template <typename T, int THREADS>
 __device__ __forceinline__ void fill(T* __restrict__ C, int M, int N, int m0, int n0,
                                      int rows, int cols, float v) {
@@ -93,101 +117,152 @@ __device__ __forceinline__ void fill(T* __restrict__ C, int M, int N, int m0, in
   }
 }
 
-// One 16-deep-step pass of the block tile's mma sequence over a stage in
-// shared memory (gemm_tile.cuh::mainloop's inner loop).
-template <class L>
-__device__ __forceinline__ void mma_stage(const bf16* sa, const bf16* sb,
-                                          float (&acc)[L::MT][L::NT][4]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp / L::WARPS_N, wn = warp % L::WARPS_N;
-#pragma unroll
-  for (int kk = 0; kk < L::BK; kk += 16) {
-    uint32_t a[L::MT][4], b[L::NT][2];
-#pragma unroll
-    for (int i = 0; i < L::MT; ++i)
-      ldmatrix_x4(a[i], sa + (wm * L::WM + i * 16 + (lane & 15)) * L::LDA + kk + (lane >> 4) * 8);
-#pragma unroll
-    for (int j = 0; j < L::NT; j += 2) {
-      uint32_t r[4];
-      ldmatrix_x4_trans(r, sb + (kk + (lane & 15)) * L::LDB + wn * L::WN + j * 8 + (lane >> 4) * 8);
-      b[j][0] = r[0];
-      b[j][1] = r[1];
-      b[j + 1][0] = r[2];
-      b[j + 1][1] = r[3];
+// ---------------------------------------------------------------------------
+// bf16: wgmma_tile.cuh's loop
+
+// The value at row r, column c < 64 of a 64-column box in shared memory
+// (128-byte rows under the 128-byte swizzle: the 16-byte piece c / 8 of row
+// r sits at piece (c / 8) ^ (r % 8); the box is 1024-byte aligned).
+__device__ __forceinline__ float box_at(const unsigned char* box, int r, int c) {
+  const int off = r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
+  return __bfloat162float(*reinterpret_cast<const bf16*>(box + off));
+}
+
+// A consumer thread's part of the corners in half `half` of the last probe
+// k step (its stage `s`): A's rows 0-7 at the stage's 64 columns (columns
+// 64 half + [0, 64) of the corner), and in half 0 B's k rows 0-7 at columns
+// 0-127 (boxes 0 and 1).
+template <int TBN>
+__device__ __forceinline__ float corner_part(const unsigned char* s, int half) {
+  static_assert(TBN >= kCornerCols, "the B corner lies inside the stage");
+  float v = 0.f;
+  for (int i = threadIdx.x; i < kCornerRows * wg::BOX; i += wg::CONSUMERS)
+    v += box_at(s, i / wg::BOX, i % wg::BOX);
+  if (half == 0) {
+    for (int i = threadIdx.x; i < kCornerRows * kCornerCols; i += wg::CONSUMERS) {
+      const int r = i / kCornerCols, c = i % kCornerCols;
+      v += box_at(s + wg::A_BYTES + (c / wg::BOX) * wg::BK * 128, r, c % wg::BOX);
     }
-#pragma unroll
-    for (int i = 0; i < L::MT; ++i)
-#pragma unroll
-      for (int j = 0; j < L::NT; ++j) mma_bf16(acc[i][j], a[i], b[j]);
   }
+  return v;
 }
 
-template <class L>
-__device__ __forceinline__ void dma_tile(const bf16* __restrict__ A, const bf16* __restrict__ B,
-                                         bf16* __restrict__ C, int M, int N, int K, int m0,
-                                         int n0, bf16* smem) {
-  static_assert(L::BK >= kCornerCols && L::BN >= kCornerCols && L::BM >= kCornerRows,
-                "the touched corner lies inside the blocks");
-  const int ktiles = (K + L::BK - 1) / L::BK;
-#pragma unroll
-  for (int st = 0; st < L::STAGES - 1; ++st) {
-    if (st < ktiles) gemm::load_stage<L>(A, B, M, N, K, m0, n0, st * L::BK, smem + st * L::STAGE);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<L::STAGES - 2>();
-    __syncthreads();  // block kt landed; buffer (kt - 1) % STAGES free
-    const int next = kt + L::STAGES - 1;
-    if (next < ktiles)
-      gemm::load_stage<L>(A, B, M, N, K, m0, n0, next * L::BK, smem + (next % L::STAGES) * L::STAGE);
-    cp_async_commit();
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-  // the last step's blocks (zero-filled past the edges); no load follows them
-  const bf16* sa = smem + ((ktiles - 1) % L::STAGES) * L::STAGE;
-  const bf16* sb = sa + L::A_ELEMS;
-  float part = 0.f;
-  for (int i = threadIdx.x; i < kCornerRows * kCornerCols; i += L::THREADS) {
-    const int r = i / kCornerCols, c = i % kCornerCols;
-    part += __bfloat162float(sa[r * L::LDA + c]) + __bfloat162float(sb[r * L::LDB + c]);
-  }
-  const float touch = block_sum<L::THREADS>(part);
-  fill<bf16, L::THREADS>(C, M, N, m0, n0, L::BM, L::BN, touch);
-}
+// The bf16 probe's arguments: A (K, M, 1) and B (N, K, 1) as TMA maps, C
+// (M, N) bf16.
+struct ProbeArgs {
+  CUtensorMap ma, mb;
+  bf16* c;
+  int M, N, K;
+};
 
-template <class L>
-__device__ __forceinline__ void mxu_tile(const bf16* __restrict__ A, const bf16* __restrict__ B,
-                                         bf16* __restrict__ C, int M, int N, int K, int m0,
-                                         int n0, bf16* smem) {
-  float acc[L::MT][L::NT][4];
-#pragma unroll
-  for (int i = 0; i < L::MT; ++i)
-#pragma unroll
-    for (int j = 0; j < L::NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-  gemm::load_stage<L>(A, B, M, N, K, 0, 0, 0, smem);   // blocks (0, 0), once
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  const int ktiles = (K + L::BK - 1) / L::BK;
-  for (int kt = 0; kt < ktiles; ++kt) mma_stage<L>(smem, smem + L::A_ELEMS, acc);
-  gemm::store_acc<L, bf16>(acc, C, M, N, m0, n0);
-}
-
-template <class L, int MODE>
-__global__ void __launch_bounds__(L::THREADS)
-probe_bf16(const bf16* __restrict__ A, const bf16* __restrict__ B, bf16* __restrict__ C,
-           int M, int N, int K) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+template <int TBN, int MODE>
+__global__ void __launch_bounds__(wg::THREADS, 1) probe_wgmma(const __grid_constant__ ProbeArgs p) {
+  constexpr int R = TBN / 2;   // f32 sums a consumer thread holds
+  constexpr int kStage = wg::stage_bytes<TBN>();
+  extern __shared__ __align__(16) unsigned char dyn[];
+  __shared__ wg::Bars bars;
+  wg::init_bars(bars);
+  const int tiles_m = (p.M + wg::BM - 1) / wg::BM, tiles_n = (p.N + TBN - 1) / TBN;
+  const int tiles = tiles_m * tiles_n, ktiles = (p.K + wg::BK - 1) / wg::BK;
+  const int nk = (p.K + kProbeBK - 1) / kProbeBK, halves = min(kHalves, ktiles);
+  unsigned char* st = wg::stages(dyn);
   int tm, tn;
-  tile_of(blockIdx.x, (M + L::BM - 1) / L::BM, (N + L::BN - 1) / L::BN, tm, tn);
-  const int m0 = tm * L::BM, n0 = tn * L::BN;
-  if (MODE == kFused) gemm::bf16_tile<L, bf16>(A, B, C, M, N, K, m0, n0, smem);
-  else if (MODE == kDma) dma_tile<L>(A, B, C, M, N, K, m0, n0, smem);
-  else mxu_tile<L>(A, B, C, M, N, K, m0, n0, smem);
+  if (threadIdx.x / 32 >= wg::kProducerWarp) {
+    wg::set_max_regs_dec<40>();
+    if (threadIdx.x == wg::kProducerWarp * 32) {
+      wg::Ring ring;
+      if constexpr (MODE == kMxu) {   // blocks (0, 0): the first k step's stages, once
+        wg::load_tile<TBN>(st, bars, ring, &p.ma, &p.mb, wg::TileAt{0, 0, 0, 0}, halves);
+      } else {
+        for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+          tile_of(t, tiles_m, tiles_n, tm, tn);
+          wg::load_tile<TBN>(st, bars, ring, &p.ma, &p.mb,
+                             wg::TileAt{0, 0, tm * wg::BM, tn * TBN}, ktiles);
+        }
+      }
+    }
+    return;
+  }
+  wg::set_max_regs_inc<232>();
+  wg::Ring ring;
+  float d[R];
+  if constexpr (MODE == kMxu) {
+    for (int h = 0; h < halves; ++h) wg::mbar_wait(&bars.full[h], 0);
+  }
+  const uint32_t a0 = smem_u32(st) + (threadIdx.x / 128) * (64 * 128);
+  const uint32_t b0 = smem_u32(st) + wg::A_BYTES;
+  const bool signal = (threadIdx.x & 31) == 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    tile_of(t, tiles_m, tiles_n, tm, tn);
+    const int m0 = tm * wg::BM, n0 = tn * TBN;
+    if constexpr (MODE == kFused) {
+      wg::mma_tile(st, bars, ring, ktiles, d);
+      wg::store_pieces(d, p.c, p.M, p.N, m0, n0);
+    } else if constexpr (MODE == kMxu) {
+      // nk k steps of A00 @ B00, one commit group a step (mma_tile's order)
+      for (int s = 0; s < nk; ++s) {
+        wg::fence_acc(d);
+        wg::wgmma_fence();
+        for (int h = 0; h < halves; ++h)
+#pragma unroll
+          for (int kk = 0; kk < wg::BK / 16; ++kk)
+            wg::wgmma_n(d, wg::desc_a(a0 + h * kStage + kk * 32),
+                        wg::desc_b(b0 + h * kStage + kk * 16 * 128), (s | h | kk) != 0);
+        wg::wgmma_commit();
+        wg::fence_acc(d);
+        if (s > 0) wg::wgmma_wait<1>();
+      }
+      wg::wgmma_wait<0>();
+      wg::fence_acc(d);
+      wg::store_pieces(d, p.c, p.M, p.N, m0, n0);
+    } else {
+      // dma: each stage waited on and released; the last k step's corners
+      // read while its stages are here
+      const int last = kHalves * (nk - 1);
+      float part = 0.f;
+      for (int kt = 0; kt < ktiles; ++kt) {
+        wg::mbar_wait(&bars.full[ring.stage], ring.phase);
+        if (kt >= last) part += corner_part<TBN>(st + ring.stage * kStage, kt - last);
+        __syncwarp();
+        if (signal) wg::mbar_arrive(&bars.empty[ring.stage]);
+        ring.next();
+      }
+      fill<bf16, wg::CONSUMERS>(p.c, p.M, p.N, m0, n0, wg::BM, TBN, consumer_sum(part));
+    }
+  }
+}
+
+template <int TBN, int MODE>
+cudaError_t launch_bf16(const void* a, const void* b, void* c, int M, int N, int K,
+                        cudaStream_t st) {
+  if ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+       reinterpret_cast<uintptr_t>(c)) % 16)
+    return cudaErrorInvalidValue;
+  const long long tiles =
+      static_cast<long long>((M + wg::BM - 1) / wg::BM) * ((N + TBN - 1) / TBN);
+  if (tiles >= (1LL << 31)) return cudaErrorInvalidValue;
+  ProbeArgs p{};
+  cudaError_t e = wg::map_a(&p.ma, a, K, M, 1);
+  if (e == cudaSuccess) e = wg::map_b(&p.mb, b, K, N, 1);
+  if (e != cudaSuccess) return e;
+  p.c = static_cast<bf16*>(c);
+  p.M = M, p.N = N, p.K = K;
+  auto kernel = probe_wgmma<TBN, MODE>;
+  constexpr int smem = wg::STAGES * wg::stage_bytes<TBN>() + 1024;  // + alignment slack
+  long long fit = 0;  // one block an SM
+  if ((e = dl::resident_lanes(kernel, 1, wg::THREADS, smem, &fit)) != cudaSuccess) return e;
+  const unsigned grid = static_cast<unsigned>(max(1LL, min(fit, tiles)));
+  kernel<<<grid, wg::THREADS, smem, st>>>(p);
+  return cudaGetLastError();
+}
+
+template <int TBN>
+cudaError_t by_mode_bf16(const void* a, const void* b, void* c, int M, int N, int K, int mode,
+                         cudaStream_t st) {
+  if (mode == kFused) return launch_bf16<TBN, kFused>(a, b, c, M, N, K, st);
+  if (mode == kDma) return launch_bf16<TBN, kDma>(a, b, c, M, N, K, st);
+  if (mode == kMxu) return launch_bf16<TBN, kMxu>(a, b, c, M, N, K, st);
+  return cudaErrorInvalidValue;
 }
 
 // f32: one 64 x 64 sub-tile (gemm_tile.cuh's f32 tile) of a (bm, bn, bk)
@@ -296,28 +371,6 @@ probe_f32(const float* __restrict__ A, const float* __restrict__ B, float* __res
   }
 }
 
-template <class L, int MODE>
-cudaError_t launch_bf16(const void* a, const void* b, void* c, int M, int N, int K,
-                        cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(
-      probe_bf16<L, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM_BYTES);
-  if (err != cudaSuccess) return err;
-  const long long blocks = static_cast<long long>((M + L::BM - 1) / L::BM) *
-                           ((N + L::BN - 1) / L::BN);
-  probe_bf16<L, MODE><<<static_cast<unsigned>(blocks), L::THREADS, L::SMEM_BYTES, st>>>(
-      static_cast<const bf16*>(a), static_cast<const bf16*>(b), static_cast<bf16*>(c), M, N, K);
-  return cudaGetLastError();
-}
-
-template <class L>
-cudaError_t by_mode_bf16(const void* a, const void* b, void* c, int M, int N, int K, int mode,
-                         cudaStream_t st) {
-  if (mode == kFused) return launch_bf16<L, kFused>(a, b, c, M, N, K, st);
-  if (mode == kDma) return launch_bf16<L, kDma>(a, b, c, M, N, K, st);
-  if (mode == kMxu) return launch_bf16<L, kMxu>(a, b, c, M, N, K, st);
-  return cudaErrorInvalidValue;
-}
-
 template <int MODE>
 cudaError_t launch_f32(const void* a, const void* b, void* c, int M, int N, int K, int bm,
                        int bn, int bk, cudaStream_t st) {
@@ -343,11 +396,9 @@ extern "C" int tdt_overlap_probe(const void* a, const void* b, void* c, int M, i
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N <= 0 || K <= 0 || K % 8 || N % 8 || mode < 0 || mode > 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 1) {
-    if (bm == 128 && bn == 128 && bk == 128)
-      return static_cast<int>(by_mode_bf16<gemm::Tile<128, 128, 128, 2, 2, 3>>(a, b, c, M, N, K, mode, st));
-    if (bm == 128 && bn == 256 && bk == 128)
-      return static_cast<int>(by_mode_bf16<gemm::Tile<128, 256, 128, 2, 4, 2>>(a, b, c, M, N, K, mode, st));
+  if (dtype == 1 && bm == wg::BM && bk == kProbeBK) {
+    if (bn == 128) return static_cast<int>(by_mode_bf16<128>(a, b, c, M, N, K, mode, st));
+    if (bn == wg::BN) return static_cast<int>(by_mode_bf16<wg::BN>(a, b, c, M, N, K, mode, st));
   }
   if (dtype == 0 && bm == 128 && bn == 128 && bk == 128) {
     if (mode == kFused) return static_cast<int>(launch_f32<kFused>(a, b, c, M, N, K, bm, bn, bk, st));

@@ -54,9 +54,13 @@
 namespace tdt {
 namespace far {
 
+// The instantiations live in four sources, one per element type and head
+// dim (persistent_decode_{bf16,f32}_d{64,128}.cu), built in parallel.
 cudaError_t dispatch(int D, int G, PersistentArgs* a, cudaStream_t st, long long* lanes) {
-  if (a->c.dtype == 1) return launch_t<bf16>(D, G, a, st, lanes);
-  if (a->c.dtype == 0) return launch_f32(D, G, a, st, lanes);
+  if (a->c.dtype == 1 && D == 128) return launch_bf16_d128(G, a, st, lanes);
+  if (a->c.dtype == 1 && D == 64) return launch_bf16_d64(G, a, st, lanes);
+  if (a->c.dtype == 0 && D == 128) return launch_f32_d128(G, a, st, lanes);
+  if (a->c.dtype == 0 && D == 64) return launch_f32_d64(G, a, st, lanes);
   return cudaErrorInvalidValue;
 }
 

@@ -1,6 +1,6 @@
-// K16's kernel (persistent_decode.cu describes it), included by the two
-// sources that instantiate it, one per element type, so that nvcc builds
-// the two halves in parallel.
+// K16's kernel (persistent_decode.cu describes it), included by the four
+// sources that instantiate it, one per element type and head dim, and by
+// persistent_decode.cu, which holds the C entry points.
 #pragma once
 
 #include "fused_ar.cuh"
@@ -280,15 +280,13 @@ cudaError_t launch_d(int G, PersistentArgs* a, cudaStream_t st, long long* lanes
   }
 }
 
-template <typename T>
-cudaError_t launch_t(int D, int G, PersistentArgs* a, cudaStream_t st, long long* lanes) {
-  if (D == 128) return launch_d<T, 128>(G, a, st, lanes);
-  if (D == 64) return launch_d<T, 64>(G, a, st, lanes);
-  return cudaErrorInvalidValue;
-}
-
-// The f32 instantiations (persistent_decode_f32.cu).
-cudaError_t launch_f32(int D, int G, PersistentArgs* a, cudaStream_t st, long long* lanes);
+// One (element type, head dim)'s instantiations, G 1, 2, 4 and 8, each in a
+// translation unit of its own (persistent_decode_{bf16,f32}_d{64,128}.cu),
+// so that nvcc builds the four quarters in parallel.
+cudaError_t launch_bf16_d128(int G, PersistentArgs* a, cudaStream_t st, long long* lanes);
+cudaError_t launch_bf16_d64(int G, PersistentArgs* a, cudaStream_t st, long long* lanes);
+cudaError_t launch_f32_d128(int G, PersistentArgs* a, cudaStream_t st, long long* lanes);
+cudaError_t launch_f32_d64(int G, PersistentArgs* a, cudaStream_t st, long long* lanes);
 
 }  // namespace far
 }  // namespace tdt

@@ -1,0 +1,13 @@
+// K16's first form, bf16 with head dim 128: the instantiations for G 1, 2, 4
+// and 8 (persistent_decode.cu has the kernel's notes and the C entry points).
+#include "persistent_decode.cuh"
+
+namespace tdt {
+namespace far {
+
+cudaError_t launch_bf16_d128(int G, PersistentArgs* a, cudaStream_t st, long long* lanes) {
+  return launch_d<bf16, 128>(G, a, st, lanes);
+}
+
+}  // namespace far
+}  // namespace tdt

@@ -108,7 +108,9 @@ __device__ __forceinline__ void sum_units(OT* dst, const T* const* src, int ns,
 }
 
 // ---------------------------------------------------------------------------
-// the phases (comm/ring.py)
+// the phases (comm/ring.py).  K9's device-scope forms (push_each_phase and
+// the rings with S = kGpu and FROM_X) are walked lane by lane in
+// comm/lanes.py.
 
 // Full-mesh push (the AllGather push and the one-shot AllReduce): this rank's
 // x into entry `me` of `dst` on itself, the team barrier, the same units into
@@ -128,6 +130,23 @@ __device__ void push_phase(const Rank& c, const Peers& dst, long long lo, long l
   put_fence<S>();
   for (int off = 1; off < n; ++off) credit<S>(c, (c.me + off) % n, kRecv + c.me);
   for (int off = 1; off < n; ++off) wait<S>(c, kRecv + (c.me + n - off) % n);
+}
+
+// K9's device-scope push (comm/lanes.py walks it lane by lane): this rank's
+// x into entry `me` of `dst` on every rank, itself included (one read, n
+// writes), then one fence and credit per peer and one wait per peer, each on
+// a thread of its own (credit_each, wait_each).  No entry barrier, for the
+// reason one_shot_phase gives: every rank is a block of this one launch, and
+// the previous call's launch finished on the same stream before this one
+// began, so no entry is still being read and every flag is at zero.
+template <typename E, typename U>
+__device__ void push_each_phase(const Rank& c, const Peers& dst, long long lo, long long hi) {
+  const int n = c.n();
+  U* d[kMaxRanks] = {};
+  for (int r = 0; r < n; ++r) d[r] = reinterpret_cast<U*>(c.at<E>(dst, r, c.me));
+  copy_units<U>(d, n, reinterpret_cast<const U*>(c.at<E>(c.a.x, c.me, 0)), lo, hi);
+  credit_each<kGpu>(c, c.me);
+  wait_each<kGpu>(c, c.me);
 }
 
 // K11's one-shot AllReduce (comm/lanes.py walks it lane by lane): this
@@ -162,8 +181,13 @@ __device__ void one_shot_phase(const Rank& c, long long lo, long long hi) {
 // One-way AllGather ring over out-chunks of OT already at their final
 // offsets; out-chunk `me` holds this rank's part.  Moved in units U, the
 // lanes cut at QUANTUM elements.  Each chunk is forwarded before it is
-// consumed, and consumed before the next arrival is waited for.
-template <typename OT, typename U, int QUANTUM, typename Consume = NoStep>
+// consumed, and consumed before the next arrival is waited for.  Flags and
+// fences at scope S.  FROM_X (K9's device-scope ring): out-chunk `me` is not
+// there yet, and the first put reads this rank's x and writes it into
+// out-chunk `me` here and on the right neighbour at once (one read, two
+// writes).
+template <typename OT, typename U, int QUANTUM, typename Consume = NoStep, Scope S = kSys,
+          bool FROM_X = false>
 __device__ void ag_ring_phase(const Rank& c, Consume consume = Consume()) {
   const int n = c.n();
   long long lo, hi;
@@ -171,19 +195,27 @@ __device__ void ag_ring_phase(const Rank& c, Consume consume = Consume()) {
   for (int step = 0; step < n - 1; ++step) {
     const int cs = (c.me + n - step) % n;
     U* d = reinterpret_cast<U*>(c.at<OT>(c.a.out, c.right(), cs));
-    copy_units<U>(&d, 1, reinterpret_cast<const U*>(c.at<OT>(c.a.out, c.me, cs)), lo, hi);
-    put_fence();
-    credit(c, c.right(), kRecv + cs);
+    if (FROM_X && step == 0) {
+      U* both[2] = {d, reinterpret_cast<U*>(c.at<OT>(c.a.out, c.me, cs))};
+      copy_units<U>(both, 2, reinterpret_cast<const U*>(c.at<OT>(c.a.x, c.me, 0)), lo, hi);
+    } else {
+      copy_units<U>(&d, 1, reinterpret_cast<const U*>(c.at<OT>(c.a.out, c.me, cs)), lo, hi);
+    }
+    put_fence<S>();
+    credit<S>(c, c.right(), kRecv + cs);
     consume(cs);
-    wait(c, kRecv + (c.me + n - step - 1) % n);
+    wait<S>(c, kRecv + (c.me + n - step - 1) % n);
   }
   consume((c.me + 1) % n);
 }
 
 // Two-way AllGather ring: ceil((n-1)/2) chunks travel right, floor((n-1)/2)
 // left, each forwarded right after its arrival, then consumed (one's own
-// chunk after its two sends).
-template <typename OT, typename U, int QUANTUM, typename Consume = NoStep>
+// chunk after its two sends).  S and FROM_X as in ag_ring_phase: with FROM_X
+// the own shard goes from x into out-chunk `me` here and on both neighbours
+// in one pass (one read, up to three writes), then its two credits.
+template <typename OT, typename U, int QUANTUM, typename Consume = NoStep, Scope S = kSys,
+          bool FROM_X = false>
 __device__ void bidir_ring_phase(const Rank& c, Consume consume = Consume()) {
   const int n = c.n(), n_cw = n / 2, n_ccw = (n - 1) / 2;
   long long lo, hi;
@@ -191,22 +223,33 @@ __device__ void bidir_ring_phase(const Rank& c, Consume consume = Consume()) {
   auto send = [&](int r, int dst) {
     U* d = reinterpret_cast<U*>(c.at<OT>(c.a.out, dst, r));
     copy_units<U>(&d, 1, reinterpret_cast<const U*>(c.at<OT>(c.a.out, c.me, r)), lo, hi);
-    put_fence();
-    credit(c, dst, kRecv + r);
+    put_fence<S>();
+    credit<S>(c, dst, kRecv + r);
   };
-  if (n_cw >= 1) send(c.me, c.right());
-  if (n_ccw >= 1) send(c.me, c.left());
+  if constexpr (FROM_X) {
+    U* d[3] = {reinterpret_cast<U*>(c.at<OT>(c.a.out, c.me, c.me)),
+               reinterpret_cast<U*>(c.at<OT>(c.a.out, c.right(), c.me)),
+               reinterpret_cast<U*>(c.at<OT>(c.a.out, c.left(), c.me))};
+    copy_units<U>(d, 1 + (n_cw >= 1) + (n_ccw >= 1),
+                  reinterpret_cast<const U*>(c.at<OT>(c.a.x, c.me, 0)), lo, hi);
+    put_fence<S>();
+    if (n_cw >= 1) credit<S>(c, c.right(), kRecv + c.me);
+    if (n_ccw >= 1) credit<S>(c, c.left(), kRecv + c.me);
+  } else {
+    if (n_cw >= 1) send(c.me, c.right());
+    if (n_ccw >= 1) send(c.me, c.left());
+  }
   consume(c.me);
   for (int step = 0; step < max(n_cw, n_ccw); ++step) {
     if (step < n_cw) {
       const int r = (c.me + n - step - 1) % n;
-      wait(c, kRecv + r);
+      wait<S>(c, kRecv + r);
       if (step + 1 < n_cw) send(r, c.right());
       consume(r);
     }
     if (step < n_ccw) {
       const int r = (c.me + step + 1) % n;
-      wait(c, kRecv + r);
+      wait<S>(c, kRecv + r);
       if (step + 1 < n_ccw) send(r, c.left());
       consume(r);
     }

@@ -1,11 +1,12 @@
 // The Hopper main loop of the overlapped GEMMs K12 and K13 (overlap_gemm.cu),
-// of K5's prefill form (group_gemm.cu) and of K6, the tiled GEMM
-// (matmul.cu): acc = A[m0:m0+128, :] @ B[:, n0:n0+256] for bf16 operands,
-// f32 sums, on wgmma with TMA loads, in a block that walks many tiles in
-// turn.  It is the Hopper form of triton_distributed_tpu/ops/blocks.py::
-// matmul_body, which gemm_tile.cuh's mma.sync loop (K14's ring, K19) also
-// runs.  K1's and K8's wgmma body (flash_attention.cu) takes its barriers,
-// TMA, descriptors and register moves, not its loop.
+// of K5's prefill form (group_gemm.cu), of K6, the tiled GEMM (matmul.cu),
+// and of K19, the overlap probe (overlap_probe.cu): acc = A[m0:m0+128, :] @
+// B[:, n0:n0+256] for bf16 operands, f32 sums, on wgmma with TMA loads, in a
+// block that walks many tiles in turn.  It is the Hopper form of
+// triton_distributed_tpu/ops/blocks.py::matmul_body, which gemm_tile.cuh's
+// mma.sync loop (K14's ring) also runs.  K1's and K8's wgmma body
+// (flash_attention.cu) takes its barriers, TMA, descriptors and register
+// moves, not its loop.
 //
 // The block is three warpgroups (384 threads).  Warpgroup 2's first warp
 // is the producer: one thread keeps TMA loads of A and B tiles in flight
@@ -43,6 +44,12 @@
 // Bound on the H100: operations at the prefill shapes (989 TFLOP/s bf16 of
 // 400-1500 flops a byte).  A 128 x 256 x 64 stage is 48 KB, four stages
 // 192 KB: one block an SM.
+//
+// The loop's width is BN = 256 columns; load_tile, mma_tile and
+// store_pieces also take a tile 128 columns wide (wgmma m64n128k16, 64 sums
+// a consumer thread, stages of 32 KB), which only K19's 128 x 128 probe tile
+// uses.  The width is a template argument whose default is BN, so the
+// other kernels' code is as it was.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: nothing links libcuda
@@ -66,6 +73,10 @@ constexpr int kProducerWarp = 8;
 constexpr int kConsumerBar = 1, kProducerBar = 2, kSpareBar = 3;
 constexpr int kSpareThreads = 96;
 constexpr int kAccRegs = 128;  // f32 sums a consumer thread holds
+
+// The bytes of a stage of a tile TBN columns wide (TBN = BN: STAGE_BYTES).
+template <int TBN>
+__host__ __device__ constexpr int stage_bytes() { return A_BYTES + BK * TBN * 2; }
 
 // The mbarriers of a block: the stages' full/empty pairs, and `start`, a
 // one-time signal of the kernel's own (K13: its ring's prologue is done).
@@ -182,9 +193,10 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // Keep the compiler from moving reads or writes of the sums across an
 // asynchronous wgmma (CUTLASS's warpgroup_fence_operand).
-__device__ __forceinline__ void fence_acc(float (&d)[kAccRegs]) {
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
 #pragma unroll
-  for (int i = 0; i < kAccRegs; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (64 x 256 f32) = (scale_d ? d : 0) + A (64 x 16, K-major) @ B (16 x 256,
@@ -229,6 +241,40 @@ __device__ __forceinline__ void wgmma_256(float (&d)[kAccRegs], uint64_t da, uin
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d (64 x 128 f32) = (scale_d ? d : 0) + A (64 x 16, K-major) @ B (16 x 128,
+// MN-major), both in shared memory (K19's 128 x 128 probe tile).
+__device__ __forceinline__ void wgmma_128(float (&d)[64], uint64_t da, uint64_t db,
+                                          int scale_d) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "setp.ne.b32 p, %66, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The m64nN wgmma of a consumer holding R = N / 2 sums a thread.
+template <int R>
+__device__ __forceinline__ void wgmma_n(float (&d)[R], uint64_t da, uint64_t db, int scale_d) {
+  static_assert(R == kAccRegs || R == 64, "the loop is 256 or 128 columns wide");
+  if constexpr (R == kAccRegs) wgmma_256(d, da, db, scale_d);
+  else wgmma_128(d, da, db, scale_d);
+}
+
 // Where a tile's operands lie: A's box at rows m0 of slab a_slab, B's
 // columns n0 of slab b_slab.
 struct TileAt {
@@ -256,18 +302,20 @@ __device__ __forceinline__ void init_bars(Bars& b) {
   __syncthreads();
 }
 
-// Producer (one thread): the `ktiles` stages of one tile, after the ring's
-// consumers have released each.
+// Producer (one thread): the `ktiles` stages of one tile TBN columns wide,
+// after the ring's consumers have released each.
+template <int TBN = BN>
 __device__ __forceinline__ void load_tile(unsigned char* st, Bars& b, Ring& r,
                                           const CUtensorMap* ma, const CUtensorMap* mb,
                                           const TileAt& at, int ktiles) {
+  constexpr int kStage = stage_bytes<TBN>();
   for (int kt = 0; kt < ktiles; ++kt) {
     mbar_wait(&b.empty[r.stage], r.phase ^ 1);
-    mbar_expect_tx(&b.full[r.stage], STAGE_BYTES);
-    unsigned char* s = st + r.stage * STAGE_BYTES;
+    mbar_expect_tx(&b.full[r.stage], kStage);
+    unsigned char* s = st + r.stage * kStage;
     tma3(s, ma, &b.full[r.stage], kt * BK, at.m0, at.a_slab);
 #pragma unroll
-    for (int q = 0; q < BN / BOX; ++q)
+    for (int q = 0; q < TBN / BOX; ++q)
       tma3(s + A_BYTES + q * BK * 128, mb, &b.full[r.stage], at.n0 + q * BOX, kt * BK,
            at.b_slab);
     r.next();
@@ -275,10 +323,13 @@ __device__ __forceinline__ void load_tile(unsigned char* st, Bars& b, Ring& r,
 }
 
 // Consumer warpgroup (threads [0, 256)): d = the tile's product over all
-// `ktiles` stages for this warpgroup's 64 rows.  With `live` false the
-// warpgroup only waits for each stage and releases it: d is left as it was.
+// `ktiles` stages for this warpgroup's 64 rows, R = TBN / 2 sums a thread.
+// With `live` false the warpgroup only waits for each stage and releases it:
+// d is left as it was.
+template <int R>
 __device__ __forceinline__ void mma_tile(unsigned char* st, Bars& b, Ring& r, int ktiles,
-                                         float (&d)[kAccRegs], bool live = true) {
+                                         float (&d)[R], bool live = true) {
+  constexpr int kStage = stage_bytes<2 * R>();
   const uint32_t base = smem_u32(st) + (threadIdx.x / 128) * (64 * 128);
   const bool signal = (threadIdx.x & 31) == 0;
   if (!live) {
@@ -292,13 +343,13 @@ __device__ __forceinline__ void mma_tile(unsigned char* st, Bars& b, Ring& r, in
   int prev = -1;
   for (int kt = 0; kt < ktiles; ++kt) {
     mbar_wait(&b.full[r.stage], r.phase);
-    const uint32_t a = base + r.stage * STAGE_BYTES;
-    const uint32_t bb = smem_u32(st) + r.stage * STAGE_BYTES + A_BYTES;
+    const uint32_t a = base + r.stage * kStage;
+    const uint32_t bb = smem_u32(st) + r.stage * kStage + A_BYTES;
     fence_acc(d);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_256(d, desc_a(a + kk * 32), desc_b(bb + kk * 16 * 128), (kt | kk) != 0);
+      wgmma_n(d, desc_a(a + kk * 32), desc_b(bb + kk * 16 * 128), (kt | kk) != 0);
     wgmma_commit();
     fence_acc(d);
     if (prev >= 0) {
@@ -368,16 +419,17 @@ __device__ __forceinline__ uint4 row_piece(const float (&d)[R], int h, int k) {
 // The first column of piece k in the tile.
 __device__ __forceinline__ int piece_col(int k) { return 8 * (4 * k + (threadIdx.x & 3)); }
 
-// The m64n256 sums of both consumer warpgroups rounded to bf16 into C
+// The m64n(2R) sums of both consumer warpgroups rounded to bf16 into C
 // (row-major, N columns), the tile at (m0, n0): rows from `rows` on and
 // columns from N on left out (N a multiple of 8).
-__device__ __forceinline__ void store_pieces(const float (&d)[kAccRegs], bf16* C, int rows,
-                                             int N, int m0, int n0) {
+template <int R>
+__device__ __forceinline__ void store_pieces(const float (&d)[R], bf16* C, int rows, int N,
+                                             int m0, int n0) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = m0 + acc_row0() + 8 * h;
 #pragma unroll
-    for (int k = 0; k < kAccRegs / 16; ++k) {
+    for (int k = 0; k < R / 16; ++k) {
       const uint4 v = row_piece(d, h, k);
       const int col = n0 + piece_col(k);
       if (row < rows && col < N)

@@ -89,8 +89,9 @@ def grouped_tile(t: int, tiles_m: int, tiles_n: int) -> tuple[int, int]:
 
 def tile_walk(m: int, n: int, tile, blocks: int) -> list[list[tuple[int, int]]]:
     """The (m-tile, n-tile)s each persistent block of K6's bf16 form takes,
-    in turn (``matmul_wgmma``): block b takes tiles b, b + blocks, ... of
-    the grouped order."""
+    in turn (``matmul_wgmma``; K19's bf16 modes, ``probe_wgmma``, walk their
+    tiles the same way): block b takes tiles b, b + blocks, ... of the
+    grouped order."""
     bm, bn = tile[0], tile[1]
     tiles_m, tiles_n = cdiv(m, bm), cdiv(n, bn)
     return [[grouped_tile(t, tiles_m, tiles_n) for t in range(b, tiles_m * tiles_n, blocks)]

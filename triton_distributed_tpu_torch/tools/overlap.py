@@ -3,13 +3,16 @@
 
 A kernel's trace shows one opaque span, not its copy and compute phases, so
 the overlap is measured by decomposing one tile pipeline into three kernels
-over identical grids (K19, ``csrc/overlap_probe.cu``):
+over identical walks (K19, ``csrc/overlap_probe.cu``).  In bf16 the
+pipeline is the one every served bf16 GEMM runs (``csrc/wgmma_tile.cuh``:
+TMA into an mbarrier stage ring, wgmma, one persistent block an SM walking
+the output tiles in K6's grouped order, ``ops/matmul.py::tile_walk``):
 
 - **fused**: the real pipelined product A @ B;
-- **dma**: the same grid and stage ring, every block landing in shared
-  memory and waited on, with the product replaced by a touch of one (8, 128)
-  corner per block: the memory stream alone;
-- **mxu**: the same grid and tensor-core sequence on blocks (0, 0), loaded
+- **dma**: the same walk, producer and stage ring, every block landing in
+  shared memory and waited on, with the product replaced by a touch of one
+  (8, 128) corner per block: the memory stream alone;
+- **mxu**: the same walk and tensor-core sequence on blocks (0, 0), loaded
   once: the compute alone.
 
 If the pipeline hides one phase under the other, ``t_fused ~= max(t_dma,
